@@ -1,0 +1,6 @@
+// Error text for the CUDA error codes the other entry points return.
+#include <cuda_runtime.h>
+
+extern "C" const char* dss_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

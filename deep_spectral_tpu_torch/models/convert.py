@@ -1,0 +1,126 @@
+"""Weights for the port's ViT: DINO checkpoints, the JAX package's params, or
+a seeded random init.
+
+The reference loads its backbone with `torch.hub.load('facebookresearch/dino:main',
+name)` (extract/extract_utils.py:40-50). There is no network here, so a local
+DINO state dict is used when one is found (`ckpt_dir`, or
+`$DSS_TPU_DINO_CKPT_DIR/<model_name>.pth`, the JAX package's lookup); since the
+port keeps DINO's parameter names it loads that file as it is. Without a
+checkpoint the weights are a seeded random init from a `torch.Generator`
+(different numbers from the JAX package's flax init of the same seed).
+`flax_to_torch_state_dict` carries the JAX package's params over, so both
+packages can run identical weights.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .vit import ViTConfig, VisionTransformer, get_model_config
+
+
+def flax_to_torch_state_dict(params: dict, cfg: ViTConfig) -> dict:
+    """Map the JAX package's `VisionTransformer` params (a flax tree of numpy
+    or jax arrays, with or without the outer 'params' key) to a DINO-named
+    torch state dict. Inverts
+    `deep_spectral_tpu.models.convert.convert_dino_torch_checkpoint`."""
+    p = params.get("params", params)
+
+    def t(x) -> torch.Tensor:
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    sd = {
+        "cls_token": t(p["cls_token"]),
+        "pos_embed": t(p["pos_embed"]),
+        # flax Conv (P, P, 3, D) -> torch Conv2d (D, 3, P, P)
+        "patch_embed.proj.weight": t(p["patch_embed"]["kernel"]).permute(3, 2, 0, 1).contiguous(),
+        "patch_embed.proj.bias": t(p["patch_embed"]["bias"]),
+        "norm.weight": t(p["norm"]["scale"]),
+        "norm.bias": t(p["norm"]["bias"]),
+    }
+    for i in range(cfg.depth):
+        blk, b = p[f"blocks_{i}"], f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[b + norm + ".weight"] = t(blk[norm]["scale"])
+            sd[b + norm + ".bias"] = t(blk[norm]["bias"])
+        for parent, name in (("attn", "qkv"), ("attn", "proj"),
+                             ("mlp", "fc1"), ("mlp", "fc2")):
+            # flax Dense kernel (in, out) -> torch Linear (out, in)
+            sd[f"{b}{parent}.{name}.weight"] = t(blk[parent][name]["kernel"]).T.contiguous()
+            sd[f"{b}{parent}.{name}.bias"] = t(blk[parent][name]["bias"])
+    return sd
+
+
+def find_local_checkpoint(model_name: str,
+                          ckpt_dir: Optional[str] = None) -> Optional[Path]:
+    """Look for `<model_name>.pth` under `ckpt_dir` or $DSS_TPU_DINO_CKPT_DIR."""
+    roots = []
+    if ckpt_dir:
+        roots.append(Path(ckpt_dir))
+    env = os.environ.get("DSS_TPU_DINO_CKPT_DIR")
+    if env:
+        roots.append(Path(env))
+    for root in roots:
+        for cand in (root / f"{model_name}.pth", root / f"{model_name}.pt"):
+            if cand.is_file():
+                return cand
+    return None
+
+
+def load_dino_state_dict(path: str | Path) -> dict:
+    """A DINO checkpoint's backbone state dict: unwraps 'state_dict', strips
+    DDP's 'module.' prefix and drops the projection head."""
+    sd = torch.load(str(path), map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    return {k: v for k, v in sd.items() if not k.startswith("head.")}
+
+
+@torch.no_grad()
+def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
+    """Seeded random weights: linear and conv weights ~ N(0, 1/fan_in)
+    (flax's lecun-normal scale), zero biases and CLS token, pos_embed ~
+    N(0, 0.02^2), LayerNorms at identity."""
+    g = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
+            fan_in = module.weight[0].numel()
+            module.weight.copy_(torch.randn(module.weight.shape, generator=g)
+                                / fan_in ** 0.5)
+            module.bias.zero_()
+        elif isinstance(module, torch.nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    model.cls_token.zero_()
+    model.pos_embed.copy_(torch.randn(model.pos_embed.shape, generator=g) * 0.02)
+    return model
+
+
+def load_model(model_name: str, ckpt_dir: Optional[str] = None, seed: int = 0,
+               precision: str = "fp32",
+               device: str | torch.device = "cpu") -> VisionTransformer:
+    """The ViT for `model_name` on `device`, in eval mode: the local DINO
+    checkpoint when one is found, a seeded random init otherwise.
+    precision='bf16' sets the compute dtype to bfloat16 (params stay f32;
+    LayerNorm and softmax statistics stay f32). On CUDA only 'bf16' runs:
+    the flash kernel has no fp32 build yet."""
+    if precision not in ("fp32", "bf16"):
+        raise ValueError(f"precision must be 'fp32' or 'bf16'; got {precision!r}")
+    if precision == "fp32" and torch.device(device).type == "cuda":
+        raise NotImplementedError("precision='fp32' on CUDA: the flash-attention "
+                                  "kernel is bf16 only; an fp32 kernel is not "
+                                  "ported yet")
+    cfg = get_model_config(model_name)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    model = VisionTransformer(cfg, dtype)
+    path = find_local_checkpoint(model_name, ckpt_dir)
+    if path is None:
+        random_init_(model, seed)
+    else:
+        model.load_state_dict(load_dino_state_dict(path))
+    return model.to(device).eval()

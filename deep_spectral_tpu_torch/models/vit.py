@@ -1,0 +1,248 @@
+"""DINO Vision Transformer as a PyTorch `nn.Module`.
+
+The port of `deep_spectral_tpu.models.vit`. Parameter names are DINO's own
+(`patch_embed.proj`, `blocks.{i}.norm1`, `attn.qkv`, `attn.proj`, `mlp.fc1`,
+`mlp.fc2`, `norm`, `cls_token`, `pos_embed`), so a DINO checkpoint loads with
+`load_state_dict`. The public input is NHWC (B, H, W, 3), the JAX layout.
+
+Numerics follow the JAX model:
+  * LayerNorm in f32 with eps 1e-6; linear layers and the patch conv in the
+    compute dtype (params stay f32 and are cast per call, as flax does);
+  * under bf16 the residual stream is bf16;
+  * GELU is exact erf in f32 and the tanh form in bf16;
+  * an optional token mask removes padded keys from every attention.
+
+Attention: on CUDA, without a requested attention map, it runs the
+hand-written flash kernel (`models/flash_attention.py`), which masks the
+ragged sequence edge itself and takes bf16 only (an fp32 model on CUDA
+raises); otherwise the plain masked softmax below, the JAX model's einsum
+path.
+"""
+from __future__ import annotations
+
+import math
+from contextlib import nullcontext
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.resize import resize_bicubic
+from ..utils.precision import exact_f32
+from .flash_attention import flash_attention_packed
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    patch_size: int
+    embed_dim: int
+    depth: int
+    num_heads: int
+    mlp_ratio: float = 4.0
+    img_size: int = 224  # pretraining resolution (defines stored pos_embed grid)
+
+    @property
+    def pos_grid(self) -> int:
+        return self.img_size // self.patch_size
+
+
+VIT_CONFIGS: dict[str, ViTConfig] = {
+    # reference model names (extract/extract_utils.py:40-50, torch.hub dino)
+    "dino_vits16": ViTConfig(16, 384, 12, 6),
+    "dino_vits8": ViTConfig(8, 384, 12, 6),
+    "dino_vitb16": ViTConfig(16, 768, 12, 12),
+    "dino_vitb8": ViTConfig(8, 768, 12, 12),
+    # tiny config for tests/CI smoke only — not a reference model
+    "test_vit_tiny": ViTConfig(8, 32, 2, 2, img_size=32),
+}
+
+
+def get_model_config(name: str) -> ViTConfig:
+    name = name.lower()
+    if name not in VIT_CONFIGS:
+        raise ValueError(f"unknown model {name!r}; have {sorted(VIT_CONFIGS)}")
+    return VIT_CONFIGS[name]
+
+
+def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
+    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
+                        layer.bias, 1e-6)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def qkv_heads(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The fused projection as (B, T, 3, H, hd)."""
+        B, T, D = x.shape
+        return _linear(x, self.qkv, dtype).reshape(B, T, 3, self.num_heads,
+                                                   D // self.num_heads)
+
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+        B, T, D = x.shape
+        qkv = self.qkv_heads(x, dtype)
+        q, k, v = qkv.unbind(2)                      # (B, T, H, hd) views
+        attn = None
+        if x.is_cuda and not want_attn:
+            out = flash_attention_packed(q, k, v, token_mask)
+        else:
+            logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+            logits = logits * (1.0 / math.sqrt(D // self.num_heads))
+            if token_mask is not None:
+                logits = torch.where(token_mask[:, None, None, :], logits, -1e30)
+            attn = torch.softmax(logits, dim=-1).to(dtype)
+            out = torch.einsum("bhts,bshd->bthd", attn.float(), v.float()).to(dtype)
+        out = _linear(out.reshape(B, T, D), self.proj, dtype)
+        return out, qkv, attn
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype=torch.float32):
+        h = _linear(x, self.fc1, dtype)
+        h = F.gelu(h, approximate="tanh" if dtype == torch.bfloat16 else "none")
+        return _linear(h, self.fc2, dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, num_heads)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+        h, qkv, attn = self.attn(_layer_norm(x, self.norm1), token_mask,
+                                 want_attn, dtype)
+        x = x + h
+        x = x + self.mlp(_layer_norm(x, self.norm2), dtype)
+        return x, qkv, attn
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(3, dim, patch_size, patch_size)
+
+
+class VisionTransformer(nn.Module):
+    """DINO ViT. Input: (B, H, W, 3) normalized images, H and W multiples of
+    the patch size. `compute_dtype` is torch.float32 or torch.bfloat16.
+
+    forward returns a dict with 'x_norm' (B, 1+N, D), 'cls' (B, D), 'qkv'
+    ({'q','k','v'}: head-merged (B, 1+N, D) of block `qkv_block`),
+    'intermediates' (the last `n_intermediates` blocks' outputs, normed) and,
+    with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block."""
+
+    def __init__(self, cfg: ViTConfig, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        D = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, D)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid ** 2, D))
+        self.blocks = nn.ModuleList(
+            [Block(D, cfg.num_heads, cfg.mlp_ratio) for _ in range(cfg.depth)])
+        self.norm = nn.LayerNorm(D, eps=1e-6)
+
+    def precision(self):
+        """True f32 for the fp32 model; bf16 runs as bf16."""
+        return exact_f32() if self.compute_dtype == torch.float32 else nullcontext()
+
+    def embed(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None):
+        """Patch tokens + CLS + positional embeddings, in the compute dtype,
+        and the token mask extended by the (always valid) CLS token."""
+        cfg, dtype = self.cfg, self.compute_dtype
+        B, H, W, _ = x.shape
+        P = cfg.patch_size
+        if H % P or W % P:
+            raise ValueError(f"input {H}x{W} not a multiple of patch size {P}")
+        h, w = H // P, W // P
+        conv = self.patch_embed.proj
+        patches = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype),
+                           conv.bias.to(dtype), stride=P)
+        tokens = patches.flatten(2).transpose(1, 2)
+        pos = interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
+        tokens = torch.cat([self.cls_token.expand(B, -1, -1).float(),
+                            tokens.float()], dim=1)
+        tokens = (tokens + pos).to(dtype)
+        if token_mask is not None:
+            token_mask = torch.cat(
+                [torch.ones((B, 1), dtype=torch.bool, device=token_mask.device),
+                 token_mask.to(torch.bool)], dim=1)
+        return tokens, token_mask
+
+    def forward(self, x: torch.Tensor, *, qkv_block: int = -1,
+                n_intermediates: int = 1, want_attn: bool = False,
+                token_mask: Optional[torch.Tensor] = None):
+        cfg, dtype = self.cfg, self.compute_dtype
+        with self.precision():
+            tokens, token_mask = self.embed(x, token_mask)
+            qkv_block = qkv_block % cfg.depth
+            qkv_out, attn_out, intermediates = None, None, []
+            for i, blk in enumerate(self.blocks):
+                want_this = want_attn and i == cfg.depth - 1
+                tokens, qkv, attn = blk(tokens, token_mask, want_this, dtype)
+                if i == qkv_block:
+                    B, T = qkv.shape[:2]
+                    qkv_out = {name: qkv[:, :, j].reshape(B, T, -1)
+                               for j, name in enumerate("qkv")}
+                if want_this:
+                    attn_out = attn
+                if cfg.depth - i <= n_intermediates:
+                    intermediates.append(_layer_norm(tokens, self.norm))
+            x_norm = intermediates[-1] if intermediates else _layer_norm(tokens, self.norm)
+        out = {"x_norm": x_norm, "cls": x_norm[:, 0], "qkv": qkv_out,
+               "intermediates": tuple(intermediates)}
+        if want_attn:
+            out["attn"] = attn_out
+        return out
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, grid: int, h: int,
+                          w: int) -> torch.Tensor:
+    """Bicubic-resample stored (1, 1+grid^2, D) positional embeddings to an
+    (h, w) patch grid (torch bicubic, a=-0.75, align_corners=False)."""
+    if h == grid and w == grid:
+        return pos_embed
+    cls_pos = pos_embed[:, :1]
+    patch_pos = pos_embed[:, 1:].reshape(1, grid, grid, -1)
+    patch_pos = resize_bicubic(patch_pos, (h, w), channels_last=True)
+    return torch.cat([cls_pos, patch_pos.reshape(1, h * w, -1)], dim=1)
+
+
+@torch.no_grad()
+def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
+                       which_block: int = -1, which_features: str = "k",
+                       token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stage-1 features: head-merged `which_features` ('q', 'k' or 'v') of
+    block `which_block`, CLS dropped (reference: extract/extract.py:96-98).
+    Runs only as far as that block's qkv projection. Returns (B, N, D) in the
+    compute dtype."""
+    cfg, dtype = model.cfg, model.compute_dtype
+    j = "qkv".index(which_features)
+    with model.precision():
+        tokens, token_mask = model.embed(images, token_mask)
+        last = which_block % cfg.depth
+        for blk in model.blocks[:last]:
+            tokens = blk(tokens, token_mask, False, dtype)[0]
+        blk = model.blocks[last]
+        qkv = blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype)
+    B, T = qkv.shape[:2]
+    return qkv[:, 1:, j].reshape(B, T - 1, -1)

@@ -1,0 +1,395 @@
+"""Batched graph eigensolvers for stage 2 (the main-path subset of
+`deep_spectral_tpu.ops.eigen`).
+
+The reference solves, per image on the host, (D - W) x = lam D x for the K
+smallest eigenpairs with ARPACK (extract/extract.py:227-234). As in the JAX
+package, the port whitens (A = I - D^-1/2 W D^-1/2), solves A, and unwhitens
+(x = D^-1/2 v, so x^T D x = 1, ARPACK's M-normalization). Solvers:
+
+  * 'eigh': dense `torch.linalg.eigh` (exact; small graphs and the guard's
+    re-solve);
+  * 'chebyshev': Chebyshev-filtered subspace iteration (`_chebyshev_laplacian`),
+    whose filter chain is the hand-written CUDA kernel on the GPU
+    (`ops/cheb_filter.py`), residual-guarded;
+  * 'lobpcg' (graphs above the chebyshev admission, or lapnorm=False at
+    N >= 512) is not ported yet and raises NotImplementedError.
+
+Every function here is batched over a leading image dimension. The JAX
+package runs its adaptive outer loop as a `lax.while_loop` under `vmap`,
+where a lane that has converged keeps its carry frozen while the batch loops
+on; the port loops on the host (one device sync per outer iteration) and
+freezes converged lanes with `torch.where`, so an image's result does not
+depend on its batch-mates.
+
+Precision: the solver's Rayleigh-Ritz products, the residual and A_mv run in
+true f32 (`exact_f32()`, no TF32), the filter chain on a bf16 operator with
+f32 accumulation; the small m x m eighs use `torch.linalg.eigh`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from ..utils.precision import exact_f32
+from .affinity import degree_vector, feature_affinity
+from .cheb_filter import chebyshev_filter
+
+# Convergence guard for the Chebyshev subspace solver: max whitened residual
+# ||A x_k - theta_k x_k|| above which a result is rejected and the exact dense
+# path used instead (the JAX package's value, calibrated on CPU oracles).
+CHEB_RESIDUAL_TOL = 2e-3
+
+# First-outer filter window upper edge for window_init='wide'.
+_WIDE_INIT_LAM_CUT = 1.0
+
+# 'auto' window-init split: 'wide' for N <= 1600, 'estimate' above.
+# Inherited from the JAX package; not yet measured on this card.
+_WIDE_INIT_MAX_N = 1600
+
+# Largest N the 'auto' solver sends to chebyshev: the JAX package's admission
+# of its Pallas filter (`ops.cheb_filter.fits_vmem(N, m=8)`, the same for any
+# block m <= 128). Inherited from the JAX package; not yet measured on this
+# card. The port's kernel itself takes any N.
+CHEB_MAX_N = 3856
+
+_SOLVERS = ("auto", "eigh", "chebyshev", "lobpcg")
+
+
+def sign_fix(eigenvectors: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flip a vector iff strictly more than half (but not all) of its (valid)
+    entries are positive (reference: extract/extract.py:237-240).
+
+    eigenvectors: (..., K, N); mask: optional (..., N) validity."""
+    pos = (eigenvectors > 0).float()
+    if mask is None:
+        frac_pos = pos.mean(dim=-1)
+    else:
+        m = mask.float()
+        denom = torch.clamp_min(m.sum(dim=-1, keepdim=True), 1.0)
+        frac_pos = (pos * m[..., None, :]).sum(dim=-1) / denom
+    flip = (frac_pos > 0.5) & (frac_pos < 1.0)
+    return torch.where(flip[..., None], -eigenvectors, eigenvectors)
+
+
+def _pad_aware_eigh(A: torch.Tensor, mask: Optional[torch.Tensor]):
+    """eigh of (B, N, N) symmetric operators whose padded diagonal is pushed
+    past the valid spectrum (Gershgorin bound of the valid block + 1)."""
+    if mask is not None:
+        m = mask.to(A.dtype)
+        A = A * m[:, :, None] * m[:, None, :]
+        bound = A.abs().sum(dim=-1).amax(dim=-1) + 1.0
+        A = A + torch.diag_embed(torch.where(mask, 0.0, bound[:, None]))
+    return torch.linalg.eigh(A)
+
+
+def _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale=None):
+    """Exact dense eigh path: whitened operator when lapnorm, else D - W.
+    W (B, N, N), d (B, N), w_scale (B,) or None."""
+    N = W.shape[-1]
+    if lapnorm:
+        s = torch.rsqrt(d)
+        if w_scale is not None:
+            s = s * torch.sqrt(w_scale)[:, None]
+        A = torch.eye(N, dtype=W.dtype, device=W.device) - s[:, :, None] * W * s[:, None, :]
+    else:
+        A = torch.diag_embed(d) - (W if w_scale is None else W * w_scale[:, None, None])
+    evals, evecs = _pad_aware_eigh(A, mask)
+    evals, V = evals[:, :K], evecs[:, :, :K]
+    if lapnorm:
+        V = torch.rsqrt(d)[:, :, None] * V  # unwhiten: x^T D x = 1
+    vectors = V.transpose(1, 2)
+    if mask is not None:
+        vectors = vectors * mask.to(vectors.dtype)[:, None, :]
+    if apply_sign_fix:
+        vectors = sign_fix(vectors, mask)
+    return evals, vectors
+
+
+def _resolve_solver(N: int, m_block: int, lapnorm: bool, solver: str) -> str:
+    """The JAX package's 'auto' selection: dense eigh for small graphs,
+    chebyshev for lapnorm graphs from N = 512 up to CHEB_MAX_N, lobpcg above
+    (or for lapnorm=False)."""
+    if solver not in _SOLVERS:
+        raise ValueError(f"solver must be one of {_SOLVERS}; got {solver!r}")
+    if solver != "auto":
+        return solver
+    if N >= 4 * m_block + 1 and N >= 512:
+        if lapnorm and N <= CHEB_MAX_N:
+            return "chebyshev"
+        return "lobpcg"
+    return "eigh"
+
+
+def validate_cheb_window_init(window_init: str) -> None:
+    """Fail fast on an invalid cheb_window_init."""
+    if window_init in ("auto", "wide", "estimate"):
+        return
+    if isinstance(window_init, str) and window_init.startswith("wide@"):
+        try:
+            float(window_init.split("@", 1)[1])
+            return
+        except ValueError:
+            pass
+    raise ValueError(
+        f"cheb_window_init must be 'auto', 'wide', 'wide@<lam_cut>' or "
+        f"'estimate'; got {window_init!r}")
+
+
+def default_start_block(N: int, m: int) -> torch.Tensor:
+    """The solver's random start block: N(0, 1) entries from a CPU
+    `torch.Generator` seeded with 0 (the JAX package draws its block from
+    PRNGKey(0); tests pass that block in as x0)."""
+    return torch.randn((N, m), generator=torch.Generator().manual_seed(0))
+
+
+def _eigh_finite(M: torch.Tensor):
+    """Batched eigh that tolerates non-finite lanes: they are solved as the
+    identity and flagged, instead of making LAPACK/cuSOLVER raise."""
+    bad = ~torch.isfinite(M).all(dim=-1).all(dim=-1)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    w, V = torch.linalg.eigh(torch.where(bad[:, None, None], eye, M))
+    return w, V, bad
+
+
+def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
+                         apply_sign_fix, w_scale=None, window_init="auto",
+                         x0=None):
+    """Chebyshev-filtered subspace iteration for the smallest-K eigenpairs of
+    the whitened Laplacian, batched: W (B, N, N), d (B, N).
+
+    Repeats [filter of `degree` damping [lam_cut, 2] -> orthonormalize ->
+    Rayleigh-Ritz] until each lane's residual max_k ||A x_k - theta_k x_k||
+    is <= CHEB_RESIDUAL_TOL or `n_outer` filters ran; converged lanes freeze.
+    Returns (evals (B, K), vectors (B, K, N), residual (B,), outers (B,)):
+    residual is +inf where non-finite, `outers` counts each lane's filter
+    applications. x0: optional (N, m_block) start block (default
+    `default_start_block`)."""
+    B, N, _ = W.shape
+    dev = W.device
+    inv_sqrt_d = torch.rsqrt(d)
+    sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
+    S_fast = (sc[:, :, None] * W * sc[:, None, :]).to(torch.bfloat16)
+
+    def A_mv(X):  # I - D^-1/2 W D^-1/2, true f32
+        return X - sc[:, :, None] * (W @ (sc[:, :, None] * X))
+
+    X = (default_start_block(N, m_block) if x0 is None
+         else torch.as_tensor(x0, dtype=torch.float32))
+    X = X.to(dev, torch.float32).expand(B, N, m_block)
+    if mask is not None:
+        X = X * mask.to(torch.float32)[:, :, None]
+
+    def rr(X):
+        X = X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
+        w, Vg, bad_g = _eigh_finite(X.transpose(1, 2) @ X)
+        Xo = X @ (Vg / torch.sqrt(torch.clamp_min(w, 1e-12))[:, None, :])
+        AXo = A_mv(Xo)
+        T = Xo.transpose(1, 2) @ AXo
+        theta, Q, bad_t = _eigh_finite((T + T.transpose(1, 2)) / 2)
+        Xr, AXr = Xo @ Q, AXo @ Q
+        R = AXr[:, :, :K] - Xr[:, :, :K] * theta[:, None, :K]
+        res = torch.sqrt((R * R).sum(dim=1)).amax(dim=-1)
+        res = torch.where(torch.isfinite(res), res, torch.inf)
+        bad = bad_g | bad_t  # as under JAX's eigh, a non-finite lane stays NaN
+        res = torch.where(bad, torch.inf, res)
+        Xr = torch.where(bad[:, None, None], torch.nan, Xr)
+        theta = torch.where(bad[:, None], torch.nan, theta)
+        return Xr, theta, res
+
+    def window(theta):
+        lam_cut = torch.clamp(theta[:, K - 1] * 1.5 + 1e-3, 1e-3, 1.8)
+        return (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
+
+    validate_cheb_window_init(window_init)
+    if window_init == "auto":
+        window_init = "wide" if N <= _WIDE_INIT_MAX_N else "estimate"
+    with exact_f32():
+        if window_init == "estimate":
+            # T_3(A - 2I) magnifies the bottom of [0, 2] (|T_3|: 26 at 0 -> 0
+            # at 2), then one Rayleigh-Ritz gives the first window.
+            X, theta, res = rr(chebyshev_filter(S_fast, X, 2.0, 1.0, 3))
+        else:
+            # 'wide' / 'wide@<lam_cut>': the first outer filters with the
+            # fixed window [lam_cut0, 2]; res = inf makes every lane run it.
+            lam_cut0 = (_WIDE_INIT_LAM_CUT if window_init == "wide"
+                        else float(window_init.split("@", 1)[1]))
+            theta = torch.full((B, m_block), (lam_cut0 - 1e-3) / 1.5,
+                               dtype=torch.float32, device=dev)
+            res = torch.full((B,), torch.inf, dtype=torch.float32, device=dev)
+
+        outers = torch.zeros(B, dtype=torch.int32, device=dev)
+        for _ in range(n_outer):
+            active = res > CHEB_RESIDUAL_TOL
+            if not bool(active.any()):  # the one host sync per outer iteration
+                break
+            c, e = window(theta)
+            Xn, theta_n, res_n = rr(chebyshev_filter(S_fast, X, c, e, degree))
+            X = torch.where(active[:, None, None], Xn, X)
+            theta = torch.where(active[:, None], theta_n, theta)
+            res = torch.where(active, res_n, res)
+            outers += active.to(torch.int32)
+
+    evals = theta[:, :K]
+    vectors = (inv_sqrt_d[:, :, None] * X[:, :, :K]).transpose(1, 2)
+    if mask is not None:
+        vectors = vectors * mask.to(vectors.dtype)[:, None, :]
+    if apply_sign_fix:
+        vectors = sign_fix(vectors, mask)
+    return evals, vectors, res, outers
+
+
+def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
+                            apply_sign_fix=True, solver="auto", cheb_outer=4,
+                            cheb_degree=10, cheb_guard=True,
+                            cheb_window_init="auto", return_residual=False,
+                            w_scale=None, w_premasked=False, x0=None):
+    """`laplacian_eigs` over a batch: W (B, N, N), mask (B, N), w_scale (B,)."""
+    W = W.float()
+    B, N, _ = W.shape
+    if mask is not None and not w_premasked:
+        m = mask.to(W.dtype)
+        W = W * m[:, :, None] * m[:, None, :]
+    if w_scale is None:
+        d = degree_vector(W)
+    else:
+        w_scale = torch.as_tensor(w_scale, dtype=torch.float32, device=W.device).reshape(B)
+        d_raw = W.sum(dim=-1) * w_scale[:, None]
+        d = torch.where(d_raw < 1e-12, 1.0, d_raw)
+
+    validate_cheb_window_init(cheb_window_init)
+    solver = _resolve_solver(N, K + 3, lapnorm, solver)
+    if solver == "lobpcg":
+        raise NotImplementedError(
+            f"LOBPCG (N={N}, lapnorm={lapnorm}) is not ported yet")
+    if solver == "chebyshev":
+        if not lapnorm:
+            raise ValueError("solver='chebyshev' supports lapnorm=True only")
+        evals, vectors, res, _ = _chebyshev_laplacian(
+            W, d, K, K + 3, cheb_outer, cheb_degree, mask, apply_sign_fix,
+            w_scale=w_scale, window_init=cheb_window_init, x0=x0)
+        if return_residual:
+            return evals, vectors, res
+        if cheb_guard:
+            # The solver's fallback, as the reference's ARPACK retry
+            # (extract/extract.py:227-234); rr() gives non-finite lanes res=inf.
+            bad = torch.nonzero(~(res <= CHEB_RESIDUAL_TOL)).flatten()
+            if bad.numel():
+                print(f"eigs: chebyshev residual above {CHEB_RESIDUAL_TOL} on "
+                      f"{bad.numel()}/{B} image(s) in a batch; re-solving those "
+                      f"with dense eigh")
+                ev_d, vec_d = _dense_laplacian(
+                    W[bad], d[bad], K, lapnorm,
+                    None if mask is None else mask[bad], apply_sign_fix,
+                    None if w_scale is None else w_scale[bad])
+                evals, vectors = evals.clone(), vectors.clone()
+                evals[bad], vectors[bad] = ev_d, vec_d
+        return evals, vectors
+    with exact_f32():
+        out = _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale)
+    if return_residual:
+        return (*out, torch.zeros(B, dtype=torch.float32, device=W.device))
+    return out
+
+
+def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
+                   mask: Optional[torch.Tensor] = None,
+                   apply_sign_fix: bool = True, solver: str = "auto",
+                   cheb_outer: int = 4, cheb_degree: int = 10,
+                   cheb_guard: bool = True, cheb_window_init: str = "auto",
+                   return_residual: bool = False, w_scale=None,
+                   w_premasked: bool = False, x0=None):
+    """Smallest-K eigenpairs of the graph Laplacian of one (N, N) affinity W.
+
+    lapnorm=True: (D - W) x = lam D x via the whitened operator (the
+    reference default); lapnorm=False: (D - W) x = lam x. solver: 'eigh',
+    'chebyshev' or 'auto' (see `_resolve_solver`). With cheb_guard a
+    chebyshev result whose residual exceeds CHEB_RESIDUAL_TOL is replaced by
+    the dense solve; return_residual returns (evals, vectors, residual)
+    unguarded. w_scale: solve w_scale * W without materializing it;
+    w_premasked: W already has zero padded rows and columns. Returns
+    eigenvalues (K,) ascending and eigenvectors (K, N)."""
+    out = _laplacian_eigs_batched(
+        W[None], K, lapnorm=lapnorm, mask=None if mask is None else mask[None],
+        apply_sign_fix=apply_sign_fix, solver=solver, cheb_outer=cheb_outer,
+        cheb_degree=cheb_degree, cheb_guard=cheb_guard,
+        cheb_window_init=cheb_window_init, return_residual=return_residual,
+        w_scale=None if w_scale is None else torch.as_tensor(w_scale).reshape(1),
+        w_premasked=w_premasked, x0=x0)
+    return tuple(o[0] for o in out)
+
+
+def resolve_eig_chunk(eig_chunk: Union[int, str, None], B: int) -> Optional[int]:
+    """'auto' = whole batch below b64, chunks of 8 at B >= 64 when 8 divides
+    B (the rule is inherited from the JAX package; not yet measured on this
+    card). None/0 = whole batch; ints pass through."""
+    if eig_chunk == "auto":
+        return 8 if (B >= 64 and B % 8 == 0) else None
+    return eig_chunk or None
+
+
+def spectral_decompose_batched(
+        feats: torch.Tensor, masks: Optional[torch.Tensor] = None, *,
+        K: int = 5, which_matrix: str = "laplacian", normalize: bool = True,
+        threshold_at_zero: bool = True, lapnorm: bool = True,
+        image_color_lambda: float = 0.0, solver: str = "auto",
+        cheb_window_init: str = "auto", cheb_degree: int = 10,
+        return_residual: bool = False,
+        eig_chunk: Union[int, str, None] = "auto", x0=None):
+    """Affinity -> Laplacian -> eigensolve for a batch of images.
+
+    feats (B, N, D), masks (B, N) bool. The affinity's max-normalization is
+    deferred into the solver (w_scale). With return_residual, also returns
+    the per-image chebyshev residuals (0 for eigh), unguarded; without it,
+    images whose residual exceeds CHEB_RESIDUAL_TOL are re-solved with dense
+    eigh by `_laplacian_eigs_batched`'s guard, which prints how many. eig_chunk
+    solves the batch in sequential sub-batches (see resolve_eig_chunk).
+    Returns eigenvalues (B, K) and eigenvectors (B, K, N)."""
+    if which_matrix != "laplacian":
+        raise NotImplementedError(
+            f"which_matrix={which_matrix!r} is not ported yet (laplacian only)")
+    if image_color_lambda > 0:
+        raise NotImplementedError("color-fused affinities (image_color_lambda "
+                                  "> 0) are not ported yet")
+    B, N, _ = feats.shape
+    if masks is None:
+        masks = torch.ones((B, N), dtype=torch.bool, device=feats.device)
+
+    def solve(f, m):
+        W = feature_affinity(f, normalize=normalize,
+                             threshold_at_zero=threshold_at_zero,
+                             max_normalize=False, mask=m)
+        w_scale = 1.0 / torch.clamp_min(W.amax(dim=(-2, -1)), 1e-12)
+        return _laplacian_eigs_batched(
+            W, K, lapnorm=lapnorm, mask=m, solver=solver, cheb_degree=cheb_degree,
+            cheb_window_init=cheb_window_init, return_residual=return_residual,
+            w_scale=w_scale, w_premasked=True, x0=x0)
+
+    chunk = resolve_eig_chunk(eig_chunk, B)
+    if not chunk or chunk >= B:
+        return solve(feats, masks)
+    if B % chunk:
+        raise ValueError(f"eig_chunk={chunk} must divide the batch size {B}")
+    parts = [solve(feats[i:i + chunk], masks[i:i + chunk])
+             for i in range(0, B, chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def spectral_decompose(feats: torch.Tensor, K: int, *,
+                       which_matrix: str = "laplacian", normalize: bool = True,
+                       threshold_at_zero: bool = True, lapnorm: bool = True,
+                       image_color_lambda: float = 0.0,
+                       mask: Optional[torch.Tensor] = None,
+                       solver: str = "auto", cheb_window_init: str = "auto",
+                       cheb_degree: int = 10, return_residual: bool = False,
+                       x0=None):
+    """`spectral_decompose_batched` for one image's (N, D) features."""
+    out = spectral_decompose_batched(
+        feats[None], None if mask is None else mask[None], K=K,
+        which_matrix=which_matrix, normalize=normalize,
+        threshold_at_zero=threshold_at_zero, lapnorm=lapnorm,
+        image_color_lambda=image_color_lambda, solver=solver,
+        cheb_window_init=cheb_window_init, cheb_degree=cheb_degree,
+        return_residual=return_residual, eig_chunk=None, x0=x0)
+    return tuple(o[0] for o in out)
