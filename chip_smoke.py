@@ -5,15 +5,20 @@
 
 Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
-     `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time;
+     `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time; count
+     the HGMMA (wgmma) instructions in the flash kernel's SASS (`cuobjdump
+     -sass` on the built library), which must be > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, and
      at the train path's frozen-block shape (b144, T=197) and b4 T=197, with a
-     ragged mask and one all-masked batch row; and the fp32 no-grad
-     route (the f32 build of the residual-saving forward) at b24 T=901;
+     ragged mask and one all-masked batch row, with the kernel's grid and
+     shared memory, its bound and `F.scaled_dot_product_attention` on the
+     same views as its library yardstick; and the fp32 no-grad route (the
+     f32 build of the residual-saving forward) at b24 T=901;
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
-     with per-image (c, e) and at degree 3 with (2, 1), and N=3600 (the
-     global-scratch path);
+     with per-image (c, e) and at degree 3 with (2, 1), and b2 N=3600, with
+     the step kernel's grid (more than one CTA per image) and shared memory
+     and the chain's bound (no PyTorch call computes it);
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
@@ -25,6 +30,8 @@ Phases, each of which must pass:
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
      the train shape (b144, T=197, H=6, bf16, fused-qkv views), b4 T=901 with
      a ragged mask and an all-masked row in bf16 and f32, and b2 T=3601 f32;
+     at the train shape also their bounds and SDPA's forward (inputs that
+     need a gradient) and backward (dq, dk and dv together) as yardsticks;
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
      (bf16 backbone, flash attention, 21 classes) at crop 224, b144, one
      unfrozen block, lr 5e-3, on synthetic blob images: (a) one step with
@@ -36,8 +43,11 @@ Phases, each of which must pass:
   8. `python -m deep_spectral_tpu_torch.tasks.cli semantic_train` (the yaml's
      fp32 einsum defaults) on a synthetic VOC tree: 4 steps with evals at 2
      and 4, a checkpoint, and a resume that runs only the remaining steps.
-Then it prints one JSON line with each kernel's launches, error and times, the
-card's name and power limit, and, last, {"ok": true, "device": {...}}.
+Then it prints one JSON line with each kernel's launches, error, times, bound
+(`bound_ms`, the larger of its bytes over 3.35 TB/s and its tensor-core or
+f32 flops over the card's peak, `bound_by` naming which) and library time
+(`library_ms`, null where no PyTorch call computes the function), the card's
+name and power limit, and, last, {"ok": true, "device": {...}}.
 It exits non-zero, without that last line, if CUDA is missing or any phase
 fails. It imports nothing of JAX.
 """
@@ -66,6 +76,8 @@ F32_TOL = 1e-4     # f32 kernels vs twins: true f32 on both sides, summation ord
 GRAD_REL_TOL = 2e-2  # bf16 gradients vs twins, relative to max |twin|; the lse is
 #                      f32 in both dtypes (m + log l) and is held to F32_TOL
 TRAIN_B, CROP, CLASSES = 144, 224, 21
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
                        (4, 901, "float32", True), (2, 3601, "float32", True)]
@@ -88,6 +100,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, peak: float) -> dict:
+    """The least time the card could take: bytes (each input read once, each
+    output written once) over HBM's rate, or flops over `peak`."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_work(q, mask, products: int, io_tensors: int, stats: int = 0) -> dict:
+    """Bound of a flash kernel over (B, T, H, 64) tensors: `products` T x T x 64
+    matrix products per (b, h), over the valid keys only (2 flops per MAC);
+    `io_tensors` (B, T, H, 64) tensors read or written, `stats` (B, H, T) f32
+    rows, and the mask."""
+    import torch
+    b, T, H, hd = q.shape
+    keys = mask.sum(dim=1).double() if mask is not None else torch.full((b,), float(T))
+    flops = products * 2 * hd * H * T * keys.sum().item()
+    nbytes = io_tensors * q.numel() * q.element_size() + stats * b * H * T * 4 \
+        + (mask.numel() if mask is not None else 0)
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
+    return bound(nbytes, flops, peak)
+
+
+def launch_shape(fn: str, *args) -> list:
+    """(grid x, y, z, threads, shared bytes) of a kernel, from its C library."""
+    import ctypes
+    from deep_spectral_tpu_torch import _build
+    out = (ctypes.c_int * 5)()
+    getattr(_build.load(), fn)(*args, out)
+    return list(out)
 
 
 def _counters():
@@ -140,14 +184,27 @@ def phase_build():
     for line in _build.last_build["log"].splitlines():
         if "registers" in line or "spill" in line:
             log(f"    ptxas: {line.strip()}")
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", _build.last_build["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, func = 0, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+        elif "HGMMA" in line and "flash_fwd_packed_kernel" in func:
+            hgmma += 1
+    log(f"[1] flash_fwd_packed_kernel SASS: {hgmma} HGMMA instructions (cuobjdump -sass)")
+    if hgmma == 0:
+        raise AssertionError("the flash kernel has no wgmma (HGMMA) instruction")
 
 
 def phase_flash(dev) -> dict:
     import torch
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_packed, flash_attention_packed_plain)
+    import torch.nn.functional as F
     g = torch.Generator().manual_seed(1)
-    worst, main_times = 0.0, None
+    worst, main = 0.0, None
     for (b, T, ragged) in [(B, 901, False), (B, 901, True), (4, 3601, True),
                            (TRAIN_B, 197, False), (4, 197, True)]:
         qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
@@ -167,13 +224,21 @@ def phase_flash(dev) -> dict:
         if not np.isfinite(err) or err > FLASH_TOL:
             raise AssertionError(f"flash kernel disagrees with its twin: {err}")
         worst = max(worst, err)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         times = (cuda_ms(lambda: flash_attention_packed(q, k, v, mask)),
-                 cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)))
+                 cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+        bd = attention_work(q, mask, products=2, io_tensors=4)
         log(f"[2] flash b{b} T={T} H=6 hd=64 bf16 ragged={ragged}: max |kernel - twin| "
             f"on valid rows {err:.3e} (tol {FLASH_TOL}); kernel {times[0]:.4f} ms, "
-            f"twin {times[1]:.4f} ms (CUDA events, mean of 20)")
+            f"twin {times[1]:.4f} ms, SDPA (unmasked) {times[2]:.4f} ms (CUDA events, mean "
+            f"of 20); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+            f"{bd['bound_ms'] / times[0]:.1%} of it")
         if (b, T, ragged) == (B, 901, False):
-            main_times = times
+            gx, gy, gz, threads, smem = launch_shape("dss_flash_fwd_packed_shape", b, T, 6)
+            log(f"[2] flash grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of {threads} "
+                f"threads, {smem} B of dynamic shared memory")
+            main = {"ms": times[0], "plain_ms": times[1], "library_ms": times[2], **bd}
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
     qkv = torch.randn((B, 901, 3, 6, 64), generator=g).to(dev)
@@ -187,7 +252,7 @@ def phase_flash(dev) -> dict:
         f"{err:.3e} (tol {F32_TOL})")
     if not np.isfinite(err) or err > F32_TOL:
         raise AssertionError(f"fp32 flash route disagrees with its twin: {err}")
-    return {"max_abs_err": worst, "ms": main_times[0], "plain_ms": main_times[1]}
+    return {"max_abs_err": worst, **main}
 
 
 def whitened_operators(b: int, N: int, dev, g):
@@ -203,7 +268,7 @@ def phase_cheb(dev) -> dict:
     from deep_spectral_tpu_torch.ops.cheb_filter import (
         chebyshev_filter, chebyshev_filter_plain)
     g = torch.Generator().manual_seed(2)
-    worst, main_times = 0.0, None
+    worst, main = 0.0, None
     for (b, N, degree, window) in [(B, 900, 10, "per-image"), (B, 900, 3, "(2, 1)"),
                                    (2, 3600, 10, "per-image")]:
         S = whitened_operators(b, N, dev, g)
@@ -222,12 +287,22 @@ def phase_cheb(dev) -> dict:
         worst = max(worst, err)
         times = (cuda_ms(lambda: chebyshev_filter(S, X, c, e, degree)),
                  cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)))
+        # S read once, X read and the result written once; degree products
+        # of 2 N^2 m flops each on the bf16 tensor cores
+        bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * 8, PEAK_BF16)
+        gx, gy, gz, threads, smem = launch_shape("dss_cheb_filter_shape", b, N, 8)
         log(f"[3] cheb b{b} N={N} m=8 degree={degree} (c, e) {window}: max "
             f"|kernel - twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]:.4f} ms, "
-            f"twin {times[1]:.4f} ms (CUDA events, mean of 20)")
+            f"twin {times[1]:.4f} ms (CUDA events, mean of 20); bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0]:.1%} of "
+            f"it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
+            f"threads, {smem} B of static shared memory, {degree} step launches + 1 "
+            f"rescale pass")
+        if gx * gy <= 1 and N >= 900:
+            raise AssertionError("the filter runs one CTA per image")
         if (b, N, degree) == (B, 900, 10):
-            main_times = times
-    return {"max_abs_err": worst, "ms": main_times[0], "plain_ms": main_times[1]}
+            main = {"ms": times[0], "plain_ms": times[1], "library_ms": None, **bd}
+    return {"max_abs_err": worst, **main}
 
 
 def subspace_cos(V1, V2) -> float:
@@ -237,13 +312,15 @@ def subspace_cos(V1, V2) -> float:
     return torch.linalg.svdvals(Q1.T @ Q2).min().item()
 
 
-def phase_main_path(dev) -> dict:
+def main_path_step(dev):
+    """Phase 4's step (`extract_patch_keys`, then `spectral_decompose_batched`
+    on base + 0.02 k) and a base whose graphs all converge; returns (step,
+    base, cfg, mask, out) with out the last step's (k, feats, evals, vecs,
+    residuals)."""
     import torch
     from deep_spectral_tpu_torch.models.convert import random_init_
-    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
     from deep_spectral_tpu_torch.models.vit import (
         VisionTransformer, extract_patch_keys, get_model_config)
-    from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
     from deep_spectral_tpu_torch.ops.eigen import (
         CHEB_RESIDUAL_TOL, spectral_decompose_batched)
 
@@ -271,7 +348,18 @@ def phase_main_path(dev) -> dict:
         base_np[bad] = structured_features(bad.size, grid, cfg.embed_dim, rng)
         base = torch.from_numpy(base_np).to(dev)
         out = step(base)
+    return step, base, cfg, mask, out
 
+
+def phase_main_path(dev) -> dict:
+    import torch
+    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
+    from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
+    from deep_spectral_tpu_torch.ops.eigen import (
+        CHEB_RESIDUAL_TOL, spectral_decompose_batched)
+
+    step, base, cfg, mask, out = main_path_step(dev)
+    grid = IMG // cfg.patch_size
     _zero_launches()
     n_steps = 5
     start = torch.cuda.Event(enable_timing=True)
@@ -365,6 +453,7 @@ def phase_train_kernels(dev) -> dict:
     """Kernels 3-5 against their twins; returns each kernel's worst error and
     its and its twin's times at the train shape."""
     import torch
+    import torch.nn.functional as F
     from deep_spectral_tpu_torch.models.flash_attention import (
         _backward_plain, _row_dot, flash_attention_lse, flash_attention_lse_plain,
         flash_backward_plain, flash_bwd_dkv, flash_bwd_dq)
@@ -417,12 +506,30 @@ def phase_train_kernels(dev) -> dict:
               f"dkv {t['dkv']:.4f} + dq {t['dq']:.4f} vs twin backward {t['bwd_plain']:.4f}")
         if (b, T) == TRAIN_KERNEL_SHAPES[0][:2]:
             times = t
+            # SDPA (unmasked) on the (B, H, T, hd) views: the forward with inputs
+            # that need a gradient, and one backward giving dq, dk and dv
+            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+            o_lib = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.transpose(1, 2)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), doh,
+                                                          retain_graph=True))
+            bounds = {"fwd": attention_work(q, mask, products=2, io_tensors=4, stats=1),
+                      "dkv": attention_work(q, mask, products=4, io_tensors=6, stats=2),
+                      "dq": attention_work(q, mask, products=3, io_tensors=5, stats=2)}
+            log(f"[6] b{b} T={T}: SDPA fwd (requires_grad) {lib_fwd:.4f} ms, SDPA backward "
+                f"(dq, dk, dv) {lib_bwd:.4f} ms; bounds " + ", ".join(
+                    f"{n} {x['bound_ms']:.4f} ms ({x['bound_by']}, {x['bound_ms'] / t[n]:.1%} "
+                    f"of the kernel)" for n, x in bounds.items()))
     return {"flash_attention_lse": {"max_abs_err": worst["fwd"], "ms": times["fwd"],
-                                    "plain_ms": times["fwd_plain"]},
+                                    "plain_ms": times["fwd_plain"], "library_ms": lib_fwd,
+                                    **bounds["fwd"]},
             "flash_bwd_dkv": {"max_abs_err": worst["dkv"], "ms": times["dkv"],
-                              "plain_ms": times["bwd_plain"]},
+                              "plain_ms": times["bwd_plain"], "library_ms": lib_bwd,
+                              **bounds["dkv"]},
             "flash_bwd_dq": {"max_abs_err": worst["dq"], "ms": times["dq"],
-                             "plain_ms": times["bwd_plain"]}}
+                             "plain_ms": times["bwd_plain"], "library_ms": lib_bwd,
+                             **bounds["dq"]}}
 
 
 def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:

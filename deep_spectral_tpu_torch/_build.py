@@ -10,6 +10,11 @@ flags, so an edited source is rebuilt and an unchanged one is not. The build
 writes to a temporary file and renames it into place, so two processes that
 build at once both end with a whole library.
 
+The library links against the CUDA runtime only: the flash kernel's TMA
+tensor maps are encoded with `cuTensorMapEncodeTiled` (libcuda), which
+`csrc/flash_fwd.cu` looks up through the runtime's entry-point query, so no
+`-lcuda` is needed. Headers (`csrc/*.cuh`) enter the hash with the sources.
+
 Nothing here runs at import time: the package imports on hosts without nvcc
 or a GPU, and only a wrapper that is handed a CUDA tensor calls `load()`.
 """
@@ -35,20 +40,23 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)
+_IP = ctypes.POINTER(ctypes.c_int)
 # Argument types of every C entry point (pointers and the stream are c_void_p:
 # without argtypes ctypes would pass Python ints as 32-bit ints).
 _SIGNATURES = {
     "dss_flash_fwd_packed": [_P, _P, _P, _P, _P, _I, _I, _I,
                              _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                              _F, _P],
-    "dss_cheb_filter": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dss_flash_fwd_packed_shape": [_I, _I, _I, _IP],
+    # S, X, ce, out, work, colmax; B, N, m, degree; stream
+    "dss_cheb_filter": [_P] * 6 + [_I] * 4 + [_P],
+    "dss_cheb_filter_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, o, lse; B, T, H, is_bf16; strides; scale; stream
     "dss_flash_fwd_lse": [_P] * 6 + [_I] * 4 + [_LLP, _F, _P],
     # q, k, v, kv_mask, do, lse, di, dk, dv; B, T, H, is_bf16; strides; scale; stream
     "dss_flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_LLP, _F, _P],
     # q, k, v, kv_mask, do, lse, di, dq; B, T, H, is_bf16; strides; scale; stream
     "dss_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_LLP, _F, _P],
-    "dss_cheb_filter_row_bytes": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,7 +81,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):      # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -6,8 +6,8 @@ CUDA tensors and computes the same function with its plain PyTorch twin for
 CPU tensors. There is no other fallback: a CUDA tensor a kernel does not take
 raises.
   * `flash_attention_packed` (`csrc/flash_fwd.cu`, the port of the Pallas
-    `_flash_kernel_packed`): the bf16 inference forward; twin
-    `flash_attention_packed_plain`.
+    `_flash_kernel_packed`; wgmma products fed by TMA loads): the bf16
+    inference forward; twin `flash_attention_packed_plain`.
   * `flash_attention_lse` (`csrc/flash_attn_train.cu`, the port of
     `_flash_kernel`): forward that also returns the row log-sum-exp, in bf16
     or f32; twin `flash_attention_lse_plain`.
@@ -80,8 +80,9 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(hd), kv-masked) v over (B, T, H, hd) tensors.
 
     CPU tensors: the plain twin. CUDA tensors: the Hopper kernel, which takes
-    bf16 q/k/v with hd == 64, read through their strides (views into the
-    fused qkv projection need no copy); anything else raises. The output is a
+    bf16 q/k/v with hd == 64, read through their strides by TMA (views into
+    the fused qkv projection need no copy; every stride a multiple of 16
+    bytes); anything else raises. The output is a
     new contiguous (B, T, H, hd) tensor. `flash_attention_packed.launches`
     counts kernel launches."""
     if not q.is_cuda:

@@ -19,12 +19,6 @@ from typing import Union
 
 import torch
 
-# Shared memory one block may use on Hopper (232,448 bytes), less the
-# kernel's static shared memory; above it the (N, 8) blocks go to global
-# scratch.
-_SMEM_LIMIT = 232448 - 256
-_KERNEL_COLS = 8
-
 Scalar = Union[float, torch.Tensor]
 
 
@@ -65,9 +59,12 @@ def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
 
     S: (B, N, N) whitened operator; X: (B, N, m) f32; c, e: window
     parameters, scalars or per image (B,). CPU tensors run the plain twin.
-    CUDA tensors run the kernel, which takes a contiguous bf16 S and f32 X,
-    any m (in groups of 8 columns) and any N. Returns a new (B, N, m) f32
-    tensor. `chebyshev_filter.launches` counts kernel launches."""
+    CUDA tensors run the kernel, which takes a bf16 S and f32 X, any m (in
+    groups of 8 columns) and any N. Returns a new (B, N, m) f32 tensor.
+
+    The kernel runs one launch per step of the chain plus a last rescale
+    pass, all from one call; `chebyshev_filter.launches` counts calls, that
+    is whole chains, not those launches."""
     if degree < 1:
         raise ValueError("degree must be >= 1")
     if not X.is_cuda:
@@ -79,24 +76,21 @@ def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
         raise ValueError(f"S shape {tuple(S.shape)} != {(B, N, N)}")
     if S.device != X.device:
         raise ValueError(f"S is on {S.device}, X on {X.device}")
-    S = S.contiguous()
-    X = X.contiguous()
+    # the kernel's vector loads need 16-byte aligned bases
+    S, X = (x if x.data_ptr() % 16 == 0 else x.clone()
+            for x in (S.contiguous(), X.contiguous()))
     ce = torch.stack([_per_image(c, B, X.device), _per_image(e, B, X.device)],
                      dim=1).contiguous()
     out = torch.empty((B, N, m), dtype=torch.float32, device=X.device)
+    # T_{j-1} and the two alternating unscaled T_j, and each step's column maxima
+    work = torch.empty((3, B, N, m), dtype=torch.float32, device=X.device)
+    colmax = torch.empty((degree + 1, B, m), dtype=torch.int32, device=X.device)
     from .. import _build
     lib = _build.load()
-    row_bytes = lib.dss_cheb_filter_row_bytes()
-    scratch = None
-    if N * row_bytes > _SMEM_LIMIT:
-        groups = -(-m // _KERNEL_COLS)
-        scratch = torch.empty((B, groups, N, row_bytes // 4), dtype=torch.float32,
-                              device=X.device)
     with torch.cuda.device(X.device):
         err = lib.dss_cheb_filter(
-            S.data_ptr(), X.data_ptr(), ce.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), B, N, m, degree,
-            torch.cuda.current_stream().cuda_stream)
+            S.data_ptr(), X.data_ptr(), ce.data_ptr(), out.data_ptr(), work.data_ptr(),
+            colmax.data_ptr(), B, N, m, degree, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "chebyshev_filter")
     chebyshev_filter.launches += 1
     return out

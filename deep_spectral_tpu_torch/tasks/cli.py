@@ -5,9 +5,10 @@
 YAML + key=value overrides, mirroring the JAX package's
 `deep_spectral_tpu.tasks.cli semantic_train` (and the reference's hydra
 command); the default config is `configs/semantic_train.yaml`. One key is the
-port's own: `device=cuda|cpu` (default: cuda when available). The JAX CLI's
-other tasks (localization, object_segmentation, semantic_eval,
-semantic_generate) are not ported yet: they exit with the usage line.
+port's own: `device=cuda|cpu` (default: cuda, which raises RuntimeError when
+there is no card; pass `device=cpu` to train on the CPU). The JAX CLI's other
+tasks (localization, object_segmentation, semantic_eval, semantic_generate)
+are not ported yet: they exit with the usage line.
 """
 from __future__ import annotations
 

@@ -693,12 +693,15 @@ def train(cfg: TrainConfig, dataset_train, dataset_val=None,
           backbone_params: Optional[dict] = None,
           metrics_path: Optional[str] = None, resume: Optional[str] = None,
           device: str | torch.device | None = None):
-    """Self-training loop (reference: train.py:136-254) on one device (CUDA
-    when available). Returns the final state and the best validation mIoU."""
+    """Self-training loop (reference: train.py:136-254) on one device: CUDA
+    unless the caller asks for the CPU (`device="cpu"`). A CUDA device with
+    no card raises RuntimeError. Returns the final state and the best
+    validation mIoU."""
     from ..utils.logging import MetricWriter
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"train: device {str(device)!r} requested but CUDA is not "
+                           f"available (pass device='cpu' to train on the CPU)")
     state = create_train_state(cfg, build_model(cfg), backbone_params, device)
     start_step = 0
     if resume:

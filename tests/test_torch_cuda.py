@@ -45,9 +45,11 @@ def _ragged_mask(B, T):
     return mask
 
 
-@pytest.mark.parametrize("T", [77, 901, 3601])
+@pytest.mark.parametrize("T", [1, 63, 65, 77, 129, 901, 3601])
 def test_flash_kernel_matches_twin(cuda, T):
-    """q/k/v as strided views into a fused (B, T, 3, H, hd) projection."""
+    """q/k/v as strided views into a fused (B, T, 3, H, hd) projection; T
+    around the kernel's 64-row warpgroup and 128-key tile edges; a batch row
+    with no valid key."""
     g = torch.Generator().manual_seed(T)
     qkv = torch.randn((3, T, 3, 6, 64), generator=g).to(cuda, torch.bfloat16)
     q, k, v = qkv.unbind(2)
@@ -64,6 +66,24 @@ def test_flash_kernel_matches_twin(cuda, T):
     full = flash_attention_packed(q, k, v)
     ref_full = flash_attention_packed_plain(q, k, v)
     assert (full.float() - ref_full.float()).abs().max().item() <= 1.6e-2
+
+
+def test_flash_kernel_reads_any_aligned_strides(cuda):
+    """The TMA maps take the strides of views that are not the fused layout:
+    heads-first storage seen as (B, T, H, hd), and every other token of a
+    longer sequence."""
+    g = torch.Generator().manual_seed(3)
+    heads_first = torch.randn((3, 3, 6, 130, 64), generator=g).to(cuda, torch.bfloat16)
+    strided = torch.randn((3, 260, 3, 6, 64), generator=g).to(cuda, torch.bfloat16)
+    mask = _ragged_mask(3, 130).to(cuda)
+    valid = mask.any(dim=1)
+    for q, k, v in ((x.transpose(1, 2) for x in heads_first.unbind(1)),
+                    strided[:, ::2].unbind(2)):
+        assert not q.is_contiguous()
+        out = flash_attention_packed(q, k, v, mask)
+        ref = flash_attention_packed_plain(q, k, v, mask)
+        assert (out[valid].float() - ref[valid].float()).abs().max().item() <= 1.6e-2
+        assert out[1].abs().max().item() == 0.0
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -218,10 +238,12 @@ def _operators(B, N, seed):
     return (s[:, :, None] * W * s[:, None, :]).to(torch.bfloat16), g
 
 
-@pytest.mark.parametrize("N,m,degree", [(900, 8, 10), (333, 13, 3), (2500, 8, 10)])
+@pytest.mark.parametrize("N,m,degree", [(17, 13, 10), (900, 8, 10), (333, 13, 3),
+                                        (1000, 13, 10), (2500, 8, 10)])
 def test_cheb_kernel_matches_twin(cuda, N, m, degree):
-    """Shared-memory (N * 112 B fits) and global-scratch paths, m not a
-    multiple of 8."""
+    """N below, at and far above the 64-row slab, odd and even (the vector
+    width of the operator loads follows N), one and two key windows of the
+    staged block; m not a multiple of 8."""
     S, g = _operators(2, N, N)
     S = S.to(cuda)
     X = torch.randn((2, N, m), generator=g).to(cuda)

@@ -90,6 +90,78 @@ def test_cheb_twin_matches_pallas(side, degree):
         np.testing.assert_allclose(got[b].numpy(), ref, atol=1e-4)
 
 
+
+def _filter_by_steps(S, X, c, e, degree, slab=64):
+    """The CUDA filter kernel's decomposition of the chain, in plain torch:
+    one pass per step over slabs of `slab` operator rows. A step reads the
+    previous step's unscaled output R and its column maxima, turns them into
+    the factor, scales R (and the carried T_{j-1}, buffer A) in f32 and only
+    then rounds to bf16 for the product; it writes T_{j+1} unscaled, the
+    scaled T_j back into A (own rows) and the |T_{j+1}| maxima of its rows.
+    A last pass applies the last factor."""
+    B, N, m = X.shape
+    c = c[:, None, None]
+    inv_e = 1.0 / e[:, None, None]
+    one = torch.ones(())
+
+    def factor(colmax):
+        return 1.0 / torch.maximum(colmax, one)         # NaN propagates
+
+    def step(src, sc, a_in, first):
+        t1 = src * sc
+        tb = t1.to(torch.bfloat16).float()              # rounded after the scaling
+        w, a_out, maxima = torch.empty_like(src), torch.empty_like(src), []
+        for r0 in range(0, N, slab):
+            rows = slice(r0, min(r0 + slab, N))
+            y = S[:, rows].float() @ tb
+            a = ((1.0 - c) * t1[:, rows] - y) * inv_e
+            w[:, rows] = a if first else 2.0 * a - a_in[:, rows] * sc
+            a_out[:, rows] = t1[:, rows]
+            maxima.append(w[:, rows].abs().amax(dim=1, keepdim=True))
+        return w, a_out, torch.stack(maxima).amax(dim=0)
+
+    ones = torch.ones((B, 1, m))
+    R, _, _ = step(X, ones, None, True)                 # T_1: no rescale
+    if degree == 1:
+        return R
+    A, sc = X, ones
+    for _ in range(2, degree + 1):
+        R, A, colmax = step(R, sc, A, False)
+        sc = factor(colmax)
+    return R * sc
+
+
+@pytest.mark.parametrize("N,m,degree", [(37, 5, 1), (37, 13, 3), (37, 5, 10),
+                                        (130, 13, 10), (130, 5, 3), (130, 13, 1)])
+def test_cheb_kernel_step_order(N, m, degree):
+    """The kernel's step order (the factor carried into the next step and
+    applied before the bf16 rounding, then a final scaling pass) against the
+    twin and the Pallas kernel (interpret mode), on the same numpy inputs, N
+    not a multiple of the 64-row slab, one column holding a NaN. The
+    decomposition performs the twin's f32 operations in the twin's order, so
+    it matches the twin bit for bit (NaNs in the same places); against the
+    Pallas kernel the two differ in summation order only: 1e-4 on |T_d| <= 1,
+    as for the twin."""
+    rng = np.random.default_rng(N * m + degree)
+    feats = rng.standard_normal((2, N, 16)).astype(np.float32)
+    W = ta.feature_affinity(torch.from_numpy(feats))
+    s = torch.rsqrt(ta.degree_vector(W))
+    S = (s[:, :, None] * W * s[:, None, :]).to(torch.bfloat16)
+    X_np = rng.standard_normal((2, N, m)).astype(np.float32)
+    X_np[1, N // 2, m - 1] = np.nan
+    X = torch.from_numpy(X_np)
+    c, e = torch.tensor([1.52, 2.0]), torch.tensor([0.48, 1.0])
+    got = _filter_by_steps(S, X, c, e, degree)
+    ref = chebyshev_filter_plain(S, X, c, e, degree)
+    assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.isnan(got[1, :, m - 1]).all() and not torch.isnan(got[:, :, :m - 1]).any()
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    S_j = jnp.asarray(S.float().numpy()).astype(jnp.bfloat16)
+    for b in range(2):
+        j_ref = np.asarray(j_cheb(S_j[b], jnp.asarray(X_np[b]), float(c[b]), float(e[b]),
+                                  degree=degree, interpret=True))
+        np.testing.assert_allclose(got[b].numpy(), j_ref, atol=1e-4)
+
 def test_sign_fix_matches_jax(rng):
     v = rng.standard_normal((3, 4, 30)).astype(np.float32)
     v[0, 0] = np.abs(v[0, 0])  # all positive: never flipped

@@ -284,6 +284,20 @@ def test_checkpoint_round_trip_and_resume(voc, tmp_path, capsys):
     assert "no EMA state" in capsys.readouterr().out
 
 
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_train_without_a_card_raises(voc, monkeypatch, device):
+    """train() defaults to CUDA and never falls back to the CPU: with no card,
+    device=None (the CLI's default) and an explicit CUDA device raise before
+    any step runs."""
+    _, tcfg = _cfgs(max_train_steps=2)
+    ds = TSS.VOCSegmentationWithPseudolabels(str(voc), "train", str(voc / "pseudo"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(TSS, "create_train_state",
+                        lambda *a, **k: pytest.fail("train() went on without a card"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSS.train(tcfg, ds, log_every=0, max_steps=2, device=device)
+
 def test_semantic_train_cli(voc, tmp_path, capsys):
     args = ["semantic_train", f"data.root={voc}", f"segments_dir={voc / 'pseudo'}",
             "backbone=test_vit_tiny", "data.num_classes=2", "data.loader.batch_size=2",
