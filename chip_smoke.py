@@ -5,9 +5,11 @@
 
 Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
-     `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time; count
-     the HGMMA (wgmma) instructions in the flash kernel's SASS (`cuobjdump
-     -sass` on the built library), which must be > 0;
+     `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time and
+     each kernel's registers and spills (`-Xptxas -v`); count the HGMMA
+     (wgmma) instructions in the SASS (`cuobjdump -sass` on the built
+     library) of the three wgmma kernels (the packed flash forward, its
+     lse-writing build, the bf16 dKV kernel), each of which must be > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, and
      at the train path's frozen-block shape (b144, T=197) and b4 T=197, with a
@@ -30,19 +32,28 @@ Phases, each of which must pass:
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
      the train shape (b144, T=197, H=6, bf16, fused-qkv views), b4 T=901 with
      a ragged mask and an all-masked row in bf16 and f32, and b2 T=3601 f32;
-     at the train shape also their bounds and SDPA's forward (inputs that
-     need a gradient) and backward (dq, dk and dv together) as yardsticks;
+     in bf16 also the dKV kernel's hi/lo precision (`dkv_rounding`: the share
+     of dk and dv entries not bit-equal to the twin, at most DKV_SHARE_MAX);
+     at the train shape also the dKV kernel's grid and shared memory, their
+     bounds and SDPA's forward (inputs that need a gradient) and backward
+     (dq, dk and dv together) as yardsticks;
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
      (bf16 backbone, flash attention, 21 classes) at crop 224, b144, one
-     unfrozen block, lr 5e-3, on synthetic blob images: (a) one step with
-     kernels 3-5 vs the same step with their twins (trained-param
-     gradients); (b)
+     unfrozen block, lr 5e-3, on synthetic blob images: (a) one step through
+     kernels 3-5, with kernel 3's o and lse in the trained block held against
+     its twin on the q/k/v the step gave it (o tol 1e-2 scaled by max |o| / 2
+     above 2, lse tol 1e-4), and
+     its trained-param gradients against the same step with the backward
+     kernels 4-5 twinned (tol 2e-2); (b)
      10 steps on one batch, loss finite and falling, kernels 3-5 launched every
      step and the packed kernel in the frozen blocks, with ms/step, img/s and
-     peak memory; (c) one step with the whole backbone unfrozen;
+     peak memory; (c) the whole backbone unfrozen (every block runs kernels
+     3-5): ms/step over 3 steps after a warm-up step;
   8. `python -m deep_spectral_tpu_torch.tasks.cli semantic_train` (the yaml's
      fp32 einsum defaults) on a synthetic VOC tree: 4 steps with evals at 2
      and 4, a checkpoint, and a resume that runs only the remaining steps.
+Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
+calls: the median window, with the min-max printed beside it.
 Then it prints one JSON line with each kernel's launches, error, times, bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its tensor-core or
 f32 flops over the card's peak, `bound_by` naming which) and library time
@@ -61,6 +72,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -75,6 +87,9 @@ SUBSPACE_MIN = 0.99
 F32_TOL = 1e-4     # f32 kernels vs twins: true f32 on both sides, summation order differs
 GRAD_REL_TOL = 2e-2  # bf16 gradients vs twins, relative to max |twin|; the lse is
 #                      f32 in both dtypes (m + log l) and is held to F32_TOL
+DKV_SHARE_MAX = 0.03  # bf16 dk/dv entries not bit-equal to the twin (`dkv_rounding`):
+#                       0.0024-0.0028 with p and ds as hi/lo pairs, 0.416-0.424 for the
+#                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
 TRAIN_B, CROP, CLASSES = 144, 224, 21
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -87,19 +102,36 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+class Timing(NamedTuple):
+    """ms per call: the median of the windows, and the fastest and slowest."""
+    ms: float
+    lo: float
+    hi: float
+
+    def __str__(self) -> str:
+        return f"{self.ms:.4f} ms [{self.lo:.4f}-{self.hi:.4f}]"
+
+
+def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> Timing:
+    """CUDA events around `windows` runs of `iters` back-to-back calls."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    per_call = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / iters)
+    return Timing(float(np.median(per_call)), min(per_call), max(per_call))
+
+
+TIMING = "CUDA events, median [min-max] of 5 windows of 20 calls"
 
 
 def bound(nbytes: float, flops: float, peak: float) -> dict:
@@ -173,6 +205,19 @@ def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
     return feats
 
 
+# The wgmma kernels by mangled-name fragment: name in the SASS and ptxas logs.
+WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
+                 "flash_fwd_packed_kernelILb1E": "flash_fwd_packed_kernel<true>",
+                 "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel"}
+
+
+def _kernel_label(line: str) -> str:
+    for fragment, label in WGMMA_KERNELS.items():
+        if fragment in line:
+            return label
+    return line.split("'")[1][:60] if "'" in line else line.split(":")[-1].strip()[:60]
+
+
 def phase_build():
     from deep_spectral_tpu_torch import _build
     t0 = time.perf_counter()
@@ -181,21 +226,24 @@ def phase_build():
     log(f"[1] built {_build.last_build['path']} from "
         f"{[p.name for p in _build._sources()]} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_build.last_build['seconds']:.1f} s)")
+    func = ""
     for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            func = _kernel_label(line)
+        elif "registers" in line or "spill" in line or "wgmma" in line:
+            log(f"    ptxas {func}: {line.strip()}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _build.last_build["path"]],
                           capture_output=True, text=True, check=True).stdout
-    hgmma, func = 0, ""
+    hgmma, func = dict.fromkeys(WGMMA_KERNELS.values(), 0), ""
     for line in sass.splitlines():
         if "Function :" in line:
-            func = line.split("Function :")[1].strip()
-        elif "HGMMA" in line and "flash_fwd_packed_kernel" in func:
-            hgmma += 1
-    log(f"[1] flash_fwd_packed_kernel SASS: {hgmma} HGMMA instructions (cuobjdump -sass)")
-    if hgmma == 0:
-        raise AssertionError("the flash kernel has no wgmma (HGMMA) instruction")
+            func = _kernel_label(line)
+        elif "HGMMA" in line and func in hgmma:
+            hgmma[func] += 1
+    log(f"[1] HGMMA instructions in the SASS (cuobjdump -sass): {hgmma}")
+    if min(hgmma.values()) == 0:
+        raise AssertionError(f"a wgmma kernel has no HGMMA instruction: {hgmma}")
 
 
 def phase_flash(dev) -> dict:
@@ -230,15 +278,15 @@ def phase_flash(dev) -> dict:
                  cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
         bd = attention_work(q, mask, products=2, io_tensors=4)
         log(f"[2] flash b{b} T={T} H=6 hd=64 bf16 ragged={ragged}: max |kernel - twin| "
-            f"on valid rows {err:.3e} (tol {FLASH_TOL}); kernel {times[0]:.4f} ms, "
-            f"twin {times[1]:.4f} ms, SDPA (unmasked) {times[2]:.4f} ms (CUDA events, mean "
-            f"of 20); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
-            f"{bd['bound_ms'] / times[0]:.1%} of it")
+            f"on valid rows {err:.3e} (tol {FLASH_TOL}); kernel {times[0]}, twin {times[1]}, "
+            f"SDPA (unmasked) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
         if (b, T, ragged) == (B, 901, False):
             gx, gy, gz, threads, smem = launch_shape("dss_flash_fwd_packed_shape", b, T, 6)
             log(f"[2] flash grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of {threads} "
                 f"threads, {smem} B of dynamic shared memory")
-            main = {"ms": times[0], "plain_ms": times[1], "library_ms": times[2], **bd}
+            main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": times[2].ms,
+                    **bd}
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
     qkv = torch.randn((B, 901, 3, 6, 64), generator=g).to(dev)
@@ -292,16 +340,15 @@ def phase_cheb(dev) -> dict:
         bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * 8, PEAK_BF16)
         gx, gy, gz, threads, smem = launch_shape("dss_cheb_filter_shape", b, N, 8)
         log(f"[3] cheb b{b} N={N} m=8 degree={degree} (c, e) {window}: max "
-            f"|kernel - twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]:.4f} ms, "
-            f"twin {times[1]:.4f} ms (CUDA events, mean of 20); bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0]:.1%} of "
-            f"it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
+            f"|kernel - twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]}, twin {times[1]} "
+            f"({TIMING}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+            f"{bd['bound_ms'] / times[0].ms:.1%} of it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
             f"threads, {smem} B of static shared memory, {degree} step launches + 1 "
             f"rescale pass")
         if gx * gy <= 1 and N >= 900:
             raise AssertionError("the filter runs one CTA per image")
         if (b, N, degree) == (B, 900, 10):
-            main = {"ms": times[0], "plain_ms": times[1], "library_ms": None, **bd}
+            main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": None, **bd}
     return {"max_abs_err": worst, **main}
 
 
@@ -449,6 +496,33 @@ def _max_err(got, ref, valid):
     return (got.float() - ref.float())[valid].abs().max().item()
 
 
+def train_kernel_inputs(b: int, T: int, dtype, ragged: bool, g, dev):
+    """Phase 6's operands: q, k, v (views of one (b, T, 3, 6, 64) qkv), do
+    and the (b, T) key mask, ragged with an all-masked batch row 1."""
+    import torch
+    qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev, dtype)
+    do = torch.randn((b, T, 6, 64), generator=g).to(dev, dtype)
+    mask = torch.ones((b, T), dtype=torch.bool)
+    if ragged:
+        mask[0, T // 2 + 7:] = False
+        mask[1, :] = False
+        mask[-1, : T // 3] = False
+    return (*qkv.unbind(2), do, mask.to(dev))
+
+
+def dkv_rounding(got, ref, mask) -> tuple[float, float]:
+    """Kernel 4's precision reading on valid keys: the share of dk (or dv)
+    entries not bit-equal to the twin's, and the RMS difference over max
+    |twin|. The bf16 output's own rounding makes the largest difference one
+    ulp either way; carrying p and ds as hi/lo pairs leaves the f32 sums
+    ~1e-6 from the twin's, so few entries round differently, where a single
+    bf16 rounding of p and ds moves many (`probe_dkv` runs that control)."""
+    keys = mask[:, :, None, None].expand_as(ref)
+    d = (got.float() - ref.float())[keys]
+    return ((d != 0).float().mean().item(),
+            d.square().mean().sqrt().item() / ref.float()[keys].abs().max().item())
+
+
 def phase_train_kernels(dev) -> dict:
     """Kernels 3-5 against their twins; returns each kernel's worst error and
     its and its twin's times at the train shape."""
@@ -462,15 +536,7 @@ def phase_train_kernels(dev) -> dict:
     times = {}
     for (b, T, dtype, ragged) in TRAIN_KERNEL_SHAPES:
         dtype = getattr(torch, dtype)
-        qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev, dtype)
-        do = torch.randn((b, T, 6, 64), generator=g).to(dev, dtype)
-        q, k, v = qkv.unbind(2)
-        mask = torch.ones((b, T), dtype=torch.bool)
-        if ragged:
-            mask[0, T // 2 + 7:] = False
-            mask[1, :] = False
-            mask[-1, : T // 3] = False
-        mask = mask.to(dev)
+        q, k, v, do, mask = train_kernel_inputs(b, T, dtype, ragged, g, dev)
         o, lse = flash_attention_lse(q, k, v, mask)
         di = _row_dot(o, do)
         dk, dv = flash_bwd_dkv(q, k, v, mask, do, lse, di)
@@ -489,6 +555,14 @@ def phase_train_kernels(dev) -> dict:
         if ragged and any(x[1].abs().max().item() != 0.0 for x in (o, dq, dk, dv)):
             raise AssertionError("trainable flash: the all-masked batch row is not 0")
         bad = {n: e for n, e in errs.items() if not np.isfinite(e) or e > tols[n]}
+        if not f32:
+            reading = {n: dkv_rounding(got, ref, mask) for n, got, ref in
+                       (("dk", dk, refs[1]), ("dv", dv, refs[2]))}
+            log(f"[6] b{b} T={T} bf16 dKV precision (dkv_rounding): " + ", ".join(
+                f"{n} share not bit-equal {sh:.4f} (max {DKV_SHARE_MAX}), RMS diff / max "
+                f"|twin| {rms:.3e}" for n, (sh, rms) in reading.items()))
+            bad.update({f"{n} share not bit-equal": sh for n, (sh, _) in reading.items()
+                        if not sh <= DKV_SHARE_MAX})
         if bad:
             raise AssertionError(f"trainable flash kernels disagree with their twins: {bad} "
                                  f"(tolerances {tols})")
@@ -502,10 +576,13 @@ def phase_train_kernels(dev) -> dict:
              "bwd_plain": cuda_ms(lambda: _backward_plain(q, k, v, mask, lse, do, di))}
         log(f"[6] b{b} T={T} H=6 hd=64 {str(dtype)[6:]} ragged={ragged}: max |kernel - twin| "
             + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items())
-            + f"; ms (CUDA events, mean of 20): fwd {t['fwd']:.4f} vs twin {t['fwd_plain']:.4f}, "
-              f"dkv {t['dkv']:.4f} + dq {t['dq']:.4f} vs twin backward {t['bwd_plain']:.4f}")
+            + f"; {TIMING}: fwd {t['fwd']} vs twin {t['fwd_plain']}, dkv {t['dkv']} + dq "
+              f"{t['dq']} vs twin backward {t['bwd_plain']}")
         if (b, T) == TRAIN_KERNEL_SHAPES[0][:2]:
             times = t
+            gx, gy, gz, threads, smem = launch_shape("dss_flash_bwd_dkv_bf16_shape", b, T, 6)
+            log(f"[6] bf16 dKV grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of {threads} "
+                f"threads, {smem} B of dynamic shared memory")
             # SDPA (unmasked) on the (B, H, T, hd) views: the forward with inputs
             # that need a gradient, and one backward giving dq, dk and dv
             qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -517,18 +594,18 @@ def phase_train_kernels(dev) -> dict:
             bounds = {"fwd": attention_work(q, mask, products=2, io_tensors=4, stats=1),
                       "dkv": attention_work(q, mask, products=4, io_tensors=6, stats=2),
                       "dq": attention_work(q, mask, products=3, io_tensors=5, stats=2)}
-            log(f"[6] b{b} T={T}: SDPA fwd (requires_grad) {lib_fwd:.4f} ms, SDPA backward "
-                f"(dq, dk, dv) {lib_bwd:.4f} ms; bounds " + ", ".join(
-                    f"{n} {x['bound_ms']:.4f} ms ({x['bound_by']}, {x['bound_ms'] / t[n]:.1%} "
-                    f"of the kernel)" for n, x in bounds.items()))
-    return {"flash_attention_lse": {"max_abs_err": worst["fwd"], "ms": times["fwd"],
-                                    "plain_ms": times["fwd_plain"], "library_ms": lib_fwd,
+            log(f"[6] b{b} T={T}: SDPA fwd (requires_grad) {lib_fwd}, SDPA backward "
+                f"(dq, dk, dv) {lib_bwd} ({TIMING}); bounds " + ", ".join(
+                    f"{n} {x['bound_ms']:.4f} ms ({x['bound_by']}, "
+                    f"{x['bound_ms'] / t[n].ms:.1%} of the kernel)" for n, x in bounds.items()))
+    return {"flash_attention_lse": {"max_abs_err": worst["fwd"], "ms": times["fwd"].ms,
+                                    "plain_ms": times["fwd_plain"].ms, "library_ms": lib_fwd.ms,
                                     **bounds["fwd"]},
-            "flash_bwd_dkv": {"max_abs_err": worst["dkv"], "ms": times["dkv"],
-                              "plain_ms": times["bwd_plain"], "library_ms": lib_bwd,
+            "flash_bwd_dkv": {"max_abs_err": worst["dkv"], "ms": times["dkv"].ms,
+                              "plain_ms": times["bwd_plain"].ms, "library_ms": lib_bwd.ms,
                               **bounds["dkv"]},
-            "flash_bwd_dq": {"max_abs_err": worst["dq"], "ms": times["dq"],
-                             "plain_ms": times["bwd_plain"], "library_ms": lib_bwd,
+            "flash_bwd_dq": {"max_abs_err": worst["dq"], "ms": times["dq"].ms,
+                             "plain_ms": times["bwd_plain"].ms, "library_ms": lib_bwd.ms,
                              **bounds["dq"]}}
 
 
@@ -556,20 +633,24 @@ def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:
 
 
 @contextlib.contextmanager
-def twins_on_the_card():
-    """Route kernels 3-5 (the autograd function's forward and backward)
-    through their plain twins on CUDA tensors, for the comparison of phase
-    7a. The frozen blocks keep the packed kernel in both runs; phase 2 holds
-    it against its twin at their shape (b144, T=197). This step's gradients
-    move by up to ~10% of their largest entry when the frozen blocks'
-    attention changes by bf16 rounding alone, even by one ulp in 0.01% of
-    its outputs (kernel 3 against its own twin there), while two runs of the
+def twins_on_the_card(forward: bool = True):
+    """Route kernels 4-5 (the autograd function's backward) and, with
+    `forward`, kernel 3 (its forward) through their plain twins on CUDA
+    tensors: phase 7a twins the backward only, `probe_train` both. The
+    frozen blocks keep the
+    packed kernel in every run; phase 2 holds it against its twin at their
+    shape (b144, T=197). This step's gradients move by up to ~10% of their
+    largest entry when any block's attention output changes by bf16 rounding
+    alone, even by one ulp in 0.01% of its outputs, while two runs of the
     same route agree to within ~2e-3 (`python -m
-    deep_spectral_tpu_torch.probe_train` measures both)."""
+    deep_spectral_tpu_torch.probe_train` measures both): the head's ASPP
+    pooling BatchNorm cancels ~4 digits on these random-weight features
+    (ROADMAP queue 3). The backward kernels enter the gradients linearly."""
     import torch
     from deep_spectral_tpu_torch.models import flash_attention as fa
     saved = (fa.flash_attention_lse, fa.flash_backward)
-    fa.flash_attention_lse = fa.flash_attention_lse_plain
+    if forward:
+        fa.flash_attention_lse = fa.flash_attention_lse_plain
     fa.flash_backward = lambda *a: torch.stack(fa.flash_backward_plain(*a), dim=2)
     try:
         yield
@@ -599,26 +680,65 @@ def phase_train(dev) -> dict:
     if "backbone.blocks.11.attn.qkv.weight" not in trained:
         raise AssertionError("the last block is not trained")
 
-    # (a) the same step through kernels 3-5 and through their twins
+    # (a) one step through kernels 3-5: kernel 3's o and lse in the trained
+    # block against its twin on the q/k/v the step gave it, and the
+    # gradients against the same step with the backward kernels 4-5 twinned
+    # (behind kernel 3's o and lse). The step's gradients are not held
+    # against a step with kernel 3 twinned as well: they move by up to ~10%
+    # of their largest entry under any bf16 rounding change in a block's
+    # attention output (see `twins_on_the_card`), so kernel 3 is held where
+    # the step runs it instead.
+    from deep_spectral_tpu_torch.models import flash_attention as fa
     weights = {k: v.clone() for k, v in state.model.state_dict().items()}
     opt0 = state.opt.state_dict()
+    seen, kernel3 = [], fa.flash_attention_lse
+
+    def capture(q, k, v, kv_mask=None):
+        o, lse = kernel3(q, k, v, kv_mask)
+        seen.append((q, k, v, kv_mask, o, lse))
+        return o, lse
+
+    capture.launches = 0  # the wrapper counts under its module-level name, now this
+
     grads = {}
-    for route in ("kernels", "twins"):
+    for route in ("kernels", "kernels 4-5 twinned"):
         state.model.load_state_dict(weights)
         state.opt.load_state_dict(opt0)
         gen = torch.Generator(device=dev).manual_seed(11)
-        with twins_on_the_card() if route == "twins" else contextlib.nullcontext():
-            SS.train_step(state, x, y, gen)
+        if route == "kernels":
+            fa.flash_attention_lse = capture
+        try:
+            with (twins_on_the_card(forward=False) if route != "kernels"
+                  else contextlib.nullcontext()):
+                SS.train_step(state, x, y, gen)
+        finally:
+            fa.flash_attention_lse = kernel3
         grads[route] = {n: p.grad.detach().float().clone() for n, p in state.opt.params.items()}
+    if len(seen) != 1:
+        raise AssertionError(f"the step ran kernel 3 {len(seen)} times, not once")
+    q, k, v, kv_mask, o, lse = seen[0]
+    o_ref, lse_ref = fa.flash_attention_lse_plain(q, k, v, kv_mask)
+    err_o, err_lse = (o.float() - o_ref.float()).abs().max().item(), \
+        (lse - lse_ref).abs().max().item()
+    o_max = o_ref.float().abs().max().item()
+    o_tol = FLASH_TOL * max(1.0, o_max / 2)  # FLASH_TOL is for |o| < 2: bf16's ulp
+    #                                          doubles with each octave above
+    log(f"[7a] one b{TRAIN_B} step, kernel 3 in the trained block (q/k/v "
+        f"{tuple(q.shape)} {str(q.dtype)[6:]}, max |o| {o_max:.3f}) vs its twin on the same "
+        f"q/k/v: max |o diff| {err_o:.3e} (tol {o_tol:.3e}), max |lse diff| {err_lse:.3e} "
+        f"(tol {F32_TOL})")
+    if not (err_o <= o_tol and err_lse <= F32_TOL):
+        raise AssertionError(f"kernel 3 in the train step disagrees with its twin: o {err_o}, "
+                             f"lse {err_lse}")
     rel = {n: (grads["kernels"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-           for n, g in grads["twins"].items()}
-    worst = max(rel, key=rel.get)
+           for n, g in grads["kernels 4-5 twinned"].items()}
     top = sorted(rel, key=rel.get)[-3:]
-    log(f"[7a] one b{TRAIN_B} step, kernels vs twins: {len(rel)} trained tensors, worst "
-        f"gradient errors relative to max |twin| (tol {GRAD_REL_TOL}): "
-        + ", ".join(f"{n} {rel[n]:.3e}" for n in top))
+    log(f"[7a] one b{TRAIN_B} step, kernels vs kernels 4-5 twinned: {len(rel)} trained "
+        f"tensors, worst gradient differences relative to max |twinned| (tol "
+        f"{GRAD_REL_TOL}): " + ", ".join(f"{n} {rel[n]:.3e}" for n in top))
     if not all(np.isfinite(v) and v <= GRAD_REL_TOL for v in rel.values()):
-        raise AssertionError(f"train-step gradients disagree: {worst} {rel[worst]}")
+        raise AssertionError(f"train-step gradients disagree: {top[-1]} {rel[top[-1]]}")
+    del seen, grads, q, k, v, kv_mask, o, lse, o_ref, lse_ref  # out of 7b's peak memory
 
     # (b) the train path: 10 steps on one batch
     state = new_state(1)
@@ -651,13 +771,26 @@ def phase_train(dev) -> dict:
 
     # (c) the whole backbone unfrozen: every block runs kernels 3-5
     state = new_state(-1)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    SS.train_step(state, x, y, gen)                       # warm-up
+    torch.cuda.synchronize()
+    n_full = 3
     _zero_launches()
-    loss = float(SS.train_step(state, x, y, torch.Generator(device=dev).manual_seed(13))["loss"])
+    start.record()
+    losses = [float(SS.train_step(state, x, y, gen)["loss"]) for _ in range(n_full)]
+    end.record()
+    end.synchronize()
     full = _launches()
-    log(f"[7c] one step, whole backbone unfrozen: loss {loss:.4f}; launches {full}")
-    if not np.isfinite(loss) or any(full[n] != 12 for n in
-                                    ("flash_attention_lse", "flash_bwd_dkv", "flash_bwd_dq")):
-        raise AssertionError(f"unfrozen backbone: expected 12 launches of kernels 3-5: {full}")
+    ms = start.elapsed_time(end) / n_full
+    log(f"[7c] whole backbone unfrozen, b{TRAIN_B}: {ms:.3f} ms/step = "
+        f"{TRAIN_B / ms * 1e3:.2f} img/s (CUDA events, mean of {n_full} steps after 1 "
+        f"warm-up); losses {' '.join(f'{v:.4f}' for v in losses)}; launches over the "
+        f"{n_full} steps: {full}")
+    if not all(np.isfinite(losses)) or any(full[n] != 12 * n_full for n in
+                                           ("flash_attention_lse", "flash_bwd_dkv",
+                                            "flash_bwd_dq")):
+        raise AssertionError(f"unfrozen backbone: expected 12 launches of kernels 3-5 per "
+                             f"step: {full}")
     return launches
 
 
@@ -746,12 +879,12 @@ def main() -> int:
          "source": "deep_spectral_tpu_torch/csrc/cheb_filter.cu",
          "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",
          "launches": launches["cheb"], **cheb},
-    ] + [{"name": name, "route": "cuda",
-          "source": "deep_spectral_tpu_torch/csrc/flash_attn_train.cu",
+    ] + [{"name": name, "route": "cuda", "source": f"deep_spectral_tpu_torch/csrc/{source}",
           "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
           "launches": train_launches[name], **train_kernels[name]}
-         for name, line in (("flash_attention_lse", 64), ("flash_bwd_dkv", 112),
-                            ("flash_bwd_dq", 156))]
+         for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
+                                    ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
+                                    ("flash_bwd_dq", "flash_attn_train.cu", 156))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

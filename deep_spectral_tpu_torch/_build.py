@@ -10,9 +10,9 @@ flags, so an edited source is rebuilt and an unchanged one is not. The build
 writes to a temporary file and renames it into place, so two processes that
 build at once both end with a whole library.
 
-The library links against the CUDA runtime only: the flash kernel's TMA
+The library links against the CUDA runtime only: the wgmma kernels' TMA
 tensor maps are encoded with `cuTensorMapEncodeTiled` (libcuda), which
-`csrc/flash_fwd.cu` looks up through the runtime's entry-point query, so no
+`csrc/hopper.cuh` looks up through the runtime's entry-point query, so no
 `-lcuda` is needed. Headers (`csrc/*.cuh`) enter the hash with the sources.
 
 Nothing here runs at import time: the package imports on hosts without nvcc
@@ -44,17 +44,18 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # Argument types of every C entry point (pointers and the stream are c_void_p:
 # without argtypes ctypes would pass Python ints as 32-bit ints).
 _SIGNATURES = {
-    "dss_flash_fwd_packed": [_P, _P, _P, _P, _P, _I, _I, _I,
-                             _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
-                             _F, _P],
+    # q, k, v, kv_mask, out, lse (null: no lse); B, T, H; 9 strides; scale; stream
+    "dss_flash_fwd_packed": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_F, _P],
     "dss_flash_fwd_packed_shape": [_I, _I, _I, _IP],
     # S, X, ce, out, work, colmax; B, N, m, degree; stream
     "dss_cheb_filter": [_P] * 6 + [_I] * 4 + [_P],
     "dss_cheb_filter_shape": [_I, _I, _I, _IP],
-    # q, k, v, kv_mask, o, lse; B, T, H, is_bf16; strides; scale; stream
-    "dss_flash_fwd_lse": [_P] * 6 + [_I] * 4 + [_LLP, _F, _P],
-    # q, k, v, kv_mask, do, lse, di, dk, dv; B, T, H, is_bf16; strides; scale; stream
-    "dss_flash_bwd_dkv": [_P] * 9 + [_I] * 4 + [_LLP, _F, _P],
+    # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream
+    "dss_flash_fwd_lse_f32": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],
+    # q, k, v, kv_mask, do, lse, di, dk, dv; B, T, H; strides; scale; stream
+    "dss_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dkv_bf16_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dq; B, T, H, is_bf16; strides; scale; stream
     "dss_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_LLP, _F, _P],
 }

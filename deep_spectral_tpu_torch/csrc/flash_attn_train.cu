@@ -1,10 +1,12 @@
-// Differentiable masked flash attention for Hopper (sm_90a): the forward that
-// also writes the row log-sum-exp, and the two backward kernels.
+// Differentiable masked flash attention on the CUDA cores (sm_90a): the
+// forward that also writes the row log-sum-exp, and the two backward kernels.
 //
 // Replaces, in deep_spectral_tpu/models/flash_attention.py:
-//   * _flash_kernel          (launched by _flash_forward, save_residuals=True)
-//   * _flash_bwd_dkv_kernel  (launched by _flash_backward)
-//   * _flash_bwd_dq_kernel   (launched by _flash_backward)
+//   * _flash_kernel          (launched by _flash_forward, save_residuals=True),
+//                            f32 only: bf16 runs flash_fwd.cu's WRITE_LSE build
+//   * _flash_bwd_dkv_kernel  (launched by _flash_backward), f32 only: bf16
+//                            runs flash_bwd_dkv.cu (wgmma)
+//   * _flash_bwd_dq_kernel   (launched by _flash_backward), bf16 and f32
 // Same math. Per (batch, head), with s = q k^T * scale and keys whose kv_mask
 // is false scoring MASK_VALUE = -0.7 * FLT_MAX:
 //   forward: online softmax over key tiles; l from the unrounded p; p rounded
@@ -36,7 +38,9 @@
 // unit stride on hd: the views into the fused (B, T, 3, H, hd) qkv projection
 // need no transposes, and dq/dk/dv can be written into one such buffer. The
 // ragged T edge is masked in the kernel; nothing is padded.
-// Not done yet (later work): tensor cores (mma/wgmma), TMA, double buffering.
+// The f32 builds stay here (tensor cores would mean TF32, other numerics):
+// the forward and dKV kernels are f32 only, dQ is templated on the element
+// type (bf16 or f32). Not done yet for bf16 dQ (later work): tensor cores, TMA, double buffering.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,11 +67,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// p.astype(v.dtype) of the Pallas kernel, back in f32.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
 }
 
 // Stage rows [r0, r0 + BT) of one (b, h) slice as f32; rows past T are zero.
@@ -188,12 +187,11 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* di_s, const 
   }
 }
 
-// Kernel 3: forward of one 64-row q tile, writing o and lse.
-template <typename T>
+// Kernel 3 (f32): forward of one 64-row q tile, writing o and lse.
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                     T* __restrict__ o, float* __restrict__ lse, int T_, int H,
+flash_fwd_lse_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                     float* __restrict__ o, float* __restrict__ lse, int T_, int H,
                      Strides qs, Strides ks, Strides vs, Strides os, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -241,7 +239,7 @@ flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int col = tx + 16 * j;
         const float p = kvalid[col] ? expf(s[i][j] - m_new) : 0.f;
         rsum += p;
-        Ps[(ty + 16 * i) * LDS + col] = round_to<T>(p);
+        Ps[(ty + 16 * i) * LDS + col] = p;  // p.astype(v.dtype) is p in f32
         acc[i][j] *= alpha;
       }
       l_run[i] = alpha * l_run[i] + row_sum(rsum);
@@ -250,14 +248,14 @@ flash_fwd_lse_kernel(const T* __restrict__ q, const T* __restrict__ k,
     mm_nn(Ps, Vs, acc, ty, tx);
   }
 
-  T* obase = o + b * os.b + h * os.h;
+  float* obase = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= T_) continue;
     const float inv = l_run[i] == 0.f ? 1.f : 1.f / l_run[i];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) obase[t * os.t + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < 4; ++j) obase[t * os.t + tx + 16 * j] = acc[i][j] * inv;
     if (tx == 0)
       lse[((long long)b * H + h) * T_ + t] = m_run[i] + logf(fmaxf(l_run[i], 1e-30f));
   }
@@ -288,13 +286,13 @@ __device__ __forceinline__ void probs_and_ds(const float* Qs, const float* Ks,
   }
 }
 
-// Kernel 4: dk and dv of one 64-row key tile, accumulated over all q tiles.
-template <typename T>
+// Kernel 4 (f32): dk and dv of one 64-row key tile, accumulated over all q tiles.
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ di, T* __restrict__ dk, T* __restrict__ dv,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                     const float* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ di, float* __restrict__ dk,
+                     float* __restrict__ dv,
                      int T_, int H, Strides qs, Strides ks, Strides vs, Strides dos,
                      Strides dks, Strides dvs, float scale) {
   extern __shared__ float smem[];
@@ -395,36 +393,6 @@ int launch_config(Kernel kernel, int smem_bytes) {
 }
 
 template <typename T>
-int fwd_lse(const void* q, const void* k, const void* v, const void* kv_mask, void* o,
-            void* lse, int B, int T_, int H, const long long* s, float scale,
-            cudaStream_t stream) {
-  const int smem = 4 * TILE * sizeof(float);
-  if (int err = launch_config(flash_fwd_lse_kernel<T>, smem)) return err;
-  const dim3 grid((T_ + BT - 1) / BT, H, B);
-  flash_fwd_lse_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(kv_mask), static_cast<T*>(o), static_cast<float*>(lse),
-      T_, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int bwd_dkv(const void* q, const void* k, const void* v, const void* kv_mask,
-            const void* dout, const void* lse, const void* di, void* dk, void* dv, int B,
-            int T_, int H, const long long* s, float scale, cudaStream_t stream) {
-  const int smem = 6 * TILE * sizeof(float);
-  if (int err = launch_config(flash_bwd_dkv_kernel<T>, smem)) return err;
-  const dim3 grid((T_ + BT - 1) / BT, H, B);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(kv_mask), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<T*>(dk),
-      static_cast<T*>(dv), T_, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
-      strides_at(s, 3), strides_at(s, 4), strides_at(s, 5), scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* kv_mask,
            const void* dout, const void* lse, const void* di, void* dq, int B, int T_, int H,
            const long long* s, float scale, cudaStream_t stream) {
@@ -443,27 +411,38 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* kv_mask,
 }  // namespace
 
 // Entry points. `strides` is a host array of (batch, token, head) element
-// strides, three per tensor, in argument order; is_bf16 selects the element
-// type (bf16 or f32). lse and di are contiguous (B, H, T) f32.
-extern "C" int dss_flash_fwd_lse(const void* q, const void* k, const void* v,
-                                 const void* kv_mask, void* o, void* lse, int B, int T, int H,
-                                 int is_bf16, const long long* strides, float scale,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd_lse<__nv_bfloat16>(q, k, v, kv_mask, o, lse, B, T, H, strides, scale, st)
-                 : fwd_lse<float>(q, k, v, kv_mask, o, lse, B, T, H, strides, scale, st);
+// strides, three per tensor, in argument order; dQ's is_bf16 selects the
+// element type (bf16 or f32). lse and di are contiguous (B, H, T) f32.
+extern "C" int dss_flash_fwd_lse_f32(const void* q, const void* k, const void* v,
+                                     const void* kv_mask, void* o, void* lse, int B, int T,
+                                     int H, const long long* strides, float scale,
+                                     void* stream) {
+  const int smem = 4 * TILE * sizeof(float);
+  if (int err = launch_config(flash_fwd_lse_kernel, smem)) return err;
+  const dim3 grid((T + BT - 1) / BT, H, B);
+  const long long* s = strides;
+  flash_fwd_lse_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(kv_mask), static_cast<float*>(o), static_cast<float*>(lse),
+      T, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dss_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* kv_mask, const void* dout, const void* lse,
-                                 const void* di, void* dk, void* dv, int B, int T, int H,
-                                 int is_bf16, const long long* strides, float scale,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_dkv<__nv_bfloat16>(q, k, v, kv_mask, dout, lse, di, dk, dv, B, T, H,
-                                          strides, scale, st)
-                 : bwd_dkv<float>(q, k, v, kv_mask, dout, lse, di, dk, dv, B, T, H, strides,
-                                  scale, st);
+extern "C" int dss_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
+                                     const void* kv_mask, const void* dout, const void* lse,
+                                     const void* di, void* dk, void* dv, int B, int T, int H,
+                                     const long long* strides, float scale, void* stream) {
+  const int smem = 6 * TILE * sizeof(float);
+  if (int err = launch_config(flash_bwd_dkv_kernel, smem)) return err;
+  const dim3 grid((T + BT - 1) / BT, H, B);
+  const long long* s = strides;
+  flash_bwd_dkv_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(kv_mask), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dk),
+      static_cast<float*>(dv), T, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
+      strides_at(s, 3), strides_at(s, 4), strides_at(s, 5), scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dss_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -1,7 +1,18 @@
 // Masked flash-attention forward for Hopper (sm_90a), packed (B, T, H, hd) layout.
 //
-// Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_kernel_packed
-// (launched by _flash_forward_packed). Same math: non-causal
+// Replaces, in deep_spectral_tpu/models/flash_attention.py:
+//   * _flash_kernel_packed (launched by _flash_forward_packed): the
+//     WRITE_LSE = false instantiation, the inference forward;
+//   * _flash_kernel (launched by _flash_forward, save_residuals=True) for bf16:
+//     the WRITE_LSE = true instantiation, the forward of every attention whose
+//     q/k/v need a gradient, which also writes the row log-sum-exp
+//     lse = m + log(max(l, 1e-30)) as (B, H, T) f32. In-kernel m is the max
+//     of the scaled scores in log2 units and l the sum of exp2(s - m), so the
+//     epilogue writes (m + log2(max(l, 1e-30))) ln 2. A row with no valid key
+//     keeps m = MASK_VALUE (log2 units): its lse need not equal the Pallas
+//     kernel's, since the backward selects p = 0 on masked keys either way.
+//     (The f32 build of _flash_kernel stays on CUDA cores, flash_attn_train.cu.)
+// Same math in both: non-causal
 // softmax(q k^T / sqrt(hd)) v per (batch, head); keys whose kv_mask is false
 // score MASK_VALUE = -0.7 * FLT_MAX and get p = 0 by a select; online-softmax
 // statistics in f32; p is rounded to bf16 at the running max before the P.V
@@ -11,7 +22,9 @@
 // hd=64) the two products are 4 T^2 hd flops per (b, h), 2.99e10 in all, 30 us
 // at the bf16 tensor-core peak, against 66 MB of q/k/v/out traffic (20 us at
 // 3.35 TB/s): compute bound. At hd=64 the exponentials (T^2 per (b, h), 117 M)
-// cost the SFUs about as long as the products cost the tensor cores.
+// cost the SFUs about as long as the products cost the tensor cores. At the
+// train shape (B=144, T=197) both builds are bytes bound: 88 MB of q/k/v/out
+// (and lse) traffic, 26 us, against 8.6 GFLOP (9 us).
 //
 // What the design does about it: one CTA per (128-row q tile, head, batch),
 // 8 x 6 x 24 = 1152 CTAs on the main path, of three warpgroups. Warpgroup 2
@@ -37,17 +50,14 @@
 // other strides multiples of 8 elements (16 bytes, as TMA needs), 16-byte
 // aligned base pointers. out is contiguous (B, T, H, 64).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "errors.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int HD = 64;                    // head dim: one 128-byte row per token
 constexpr int BQ = 128;                   // q rows per CTA (64 per consumer warpgroup)
 constexpr int BK = 128;                   // keys per K/V tile
 constexpr int STAGES = 3;                 // K/V ring depth
@@ -56,126 +66,6 @@ constexpr int THREADS = (CONSUMERS + 1) * 128;
 constexpr int TILE_BYTES = BK * HD * 2;   // 16 KB, also the q tile's size
 constexpr int SMEM_BYTES = 1024 /* alignment slack */ + TILE_BYTES * (1 + 2 * STAGES) +
                            16 * STAGES + 8 * (2 * STAGES + 1);
-constexpr float MASK_VALUE = -0.7f * 3.402823466e38f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT_%=:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT_%=;\n"
-      "}\n" :: "r"(bar), "r"(parity) : "memory");
-}
-
-// One box of the 4-d map (hd, H, T, B) at (0, h, t0, b) into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int t0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(0), "r"(h), "r"(t0), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128B-swizzled tile whose 8-row groups
-// are 1024 bytes apart: start address, both byte offsets (1024; the one that
-// is not the 8-row stride is unused at these shapes) and the 128B layout.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1024 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D(64 x 128, f32) (+)= A(64 x 16) B(16 x 128): A and B K-major in 128B-swizzled
-// shared memory; scale_d == 0 overwrites D.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,
-                                                  uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D(64 x 64, f32) += A(64 x 16, registers) B(16 x 64): B MN-major (transposed)
-// in 128B-swizzled shared memory.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The consumer warpgroups take turns issuing their products (named barriers
 // 1 and 2, 256 threads: one warpgroup syncs, the other arrives), so one's
@@ -185,11 +75,6 @@ __device__ __forceinline__ void sched_sync(int wg) {
 }
 __device__ __forceinline__ void sched_arrive(int wg) {
   asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + wg) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // S = Q K^T, 64 x 128 per warpgroup: k-steps of 16 over hd are 32 bytes
@@ -275,13 +160,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const uint4& vb, in
     softmax_step<true>(s, vw, t, scale_log2, m_run, l_run, alpha);
 }
 
+// lse is last among the parameters so that the WRITE_LSE = false
+// instantiation's code is the same as without it.
+template <bool WRITE_LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const uint8_t* __restrict__ kv_mask,  // (B, T) or null
                         __nv_bfloat16* __restrict__ out,      // (B, T, H, HD)
-                        int T, int H, float scale_log2) {
+                        int T, int H, float scale_log2,
+                        float* __restrict__ lse) {            // (B, H, T), WRITE_LSE only
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-aligned for the swizzle
@@ -401,6 +290,9 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
       const float inv = l == 0.f ? 1.f : 1.f / l;
       const int row = q0 + wg * 64 + (warp & 3) * 16 + g + 8 * r;
       if (row >= T) continue;
+      if constexpr (WRITE_LSE) {
+        if (t == 0) lse[((long long)b * H + h) * T + row] = (m_run[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
+      }
       __nv_bfloat16* orow = out + (((long long)b * T + row) * H + h) * HD;
 #pragma unroll
       for (int j = 0; j < 8; ++j)
@@ -408,45 +300,6 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
             __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The (hd, H, T, B) view of one of q/k/v with its element strides, in boxes
-// of (64, 1, 128, 1), 128B-swizzled, zero-filled out of range.
-bool make_map(CUtensorMap* map, const void* base, int B, int T, int H, long long sb,
-              long long st, long long sh) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {HD, 1, BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -461,23 +314,27 @@ extern "C" int dss_flash_fwd_packed_shape(int B, int T, int H, int* shape5) {
   return 0;
 }
 
+// lse null: the inference forward (kernel 1); else also the (B, H, T) f32
+// row log-sum-exp (kernel 3's bf16 route).
 extern "C" int dss_flash_fwd_packed(const void* q, const void* k, const void* v,
-                                    const void* kv_mask, void* out,
+                                    const void* kv_mask, void* out, void* lse,
                                     int B, int T, int H,
                                     long long qsb, long long qst, long long qsh,
                                     long long ksb, long long kst, long long ksh,
                                     long long vsb, long long vst, long long vsh,
                                     float sm_scale, void* stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, T, H, qsb, qst, qsh) || !make_map(&tk, k, B, T, H, ksb, kst, ksh) ||
-      !make_map(&tv, v, B, T, H, vsb, vst, vsh))
+  if (!make_map(&tq, q, B, T, H, qsb, qst, qsh, BQ) ||
+      !make_map(&tk, k, B, T, H, ksb, kst, ksh, BK) ||
+      !make_map(&tv, v, B, T, H, vsb, vst, vsh, BK))
     return DSS_ERR_TENSOR_MAP;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  auto kernel = lse == nullptr ? flash_fwd_packed_kernel<false> : flash_fwd_packed_kernel<true>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_packed_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, static_cast<const uint8_t*>(kv_mask), static_cast<__nv_bfloat16*>(out), T, H,
-      sm_scale * LOG2E);
+      sm_scale * LOG2E, static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

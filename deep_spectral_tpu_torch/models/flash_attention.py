@@ -1,19 +1,21 @@
 """Masked flash attention over the packed (B, T, H, hd) layout: forward and
 backward.
 
-Four hand-written Hopper kernels, each behind a wrapper that launches it for
+Hand-written Hopper kernels, each behind a wrapper that launches it for
 CUDA tensors and computes the same function with its plain PyTorch twin for
 CPU tensors. There is no other fallback: a CUDA tensor a kernel does not take
 raises.
   * `flash_attention_packed` (`csrc/flash_fwd.cu`, the port of the Pallas
     `_flash_kernel_packed`; wgmma products fed by TMA loads): the bf16
     inference forward; twin `flash_attention_packed_plain`.
-  * `flash_attention_lse` (`csrc/flash_attn_train.cu`, the port of
-    `_flash_kernel`): forward that also returns the row log-sum-exp, in bf16
-    or f32; twin `flash_attention_lse_plain`.
-  * `flash_bwd_dkv` and `flash_bwd_dq` (`csrc/flash_attn_train.cu`, the ports
-    of `_flash_bwd_dkv_kernel` and `_flash_bwd_dq_kernel`), run together by
-    `flash_backward`; twin `flash_backward_plain`.
+  * `flash_attention_lse` (the port of `_flash_kernel`): forward that also
+    returns the row log-sum-exp; bf16 runs `csrc/flash_fwd.cu`'s lse-writing
+    instantiation (wgmma + TMA), f32 `csrc/flash_attn_train.cu` (CUDA
+    cores); twin `flash_attention_lse_plain`.
+  * `flash_bwd_dkv` (the port of `_flash_bwd_dkv_kernel`; bf16
+    `csrc/flash_bwd_dkv.cu` on wgmma + TMA, f32 `csrc/flash_attn_train.cu`)
+    and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; `csrc/flash_attn_train.cu`),
+    run together by `flash_backward`; twin `flash_backward_plain`.
 `FlashAttentionFn` is the autograd function over them (the port of
 `flash_attention_trainable`'s custom VJP).
 
@@ -62,7 +64,8 @@ def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check_qkv(x: torch.Tensor, name: str, shape) -> None:
+def _check_tma(x: torch.Tensor, name: str, shape) -> None:
+    """Raise unless x is a bf16 view of `shape` that the TMA loads take."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bf16 {name}; got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -93,27 +96,35 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        _check_qkv(x, name, (B, T, H, hd))
+        _check_tma(x, name, (B, T, H, hd))
     if kv_mask is not None:
         if kv_mask.device != q.device or tuple(kv_mask.shape) != (B, T):
             raise ValueError(f"kv_mask must be ({B}, {T}) on {q.device}; got "
                              f"{tuple(kv_mask.shape)} on {kv_mask.device}")
         kv_mask = kv_mask.to(torch.bool).contiguous()
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    from .. import _build
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        err = lib.dss_flash_fwd_packed(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
-            B, T, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_attention_packed")
+    _launch_packed(q, k, v, kv_mask, out, None, "flash_attention_packed")
     flash_attention_packed.launches += 1
     return out
 
 
 flash_attention_packed.launches = 0
+
+
+def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> None:
+    """`csrc/flash_fwd.cu` on checked operands; lse None: the inference
+    build, else the build that also writes the (B, H, T) lse."""
+    from .. import _build
+    B, T, H, hd = q.shape
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        err = lib.dss_flash_fwd_packed(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            B, T, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, what)
 
 
 # ------------------------------------------------ trainable forward / backward
@@ -243,10 +254,13 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(hd), kv-masked) v and the row log-sum-exp.
 
     q/k/v (B, T, H, hd), read through their strides. CPU tensors: the plain
-    twin. CUDA tensors: kernel 3 (`csrc/flash_attn_train.cu`) for bf16 or f32
-    with hd == 64; anything else raises. Returns o, a new contiguous
-    (B, T, H, hd) tensor in q's dtype, and lse, (B, H, T) f32.
-    `flash_attention_lse.launches` counts kernel launches."""
+    twin. CUDA tensors with hd == 64: bf16 runs kernel 3 on wgmma + TMA
+    (`csrc/flash_fwd.cu`, the build that writes the lse), which needs every
+    stride but hd's a multiple of 8 elements and 16-byte aligned data
+    pointers, as `flash_attention_packed` does; f32 runs its CUDA-core build
+    (`csrc/flash_attn_train.cu`); anything else raises. Returns o, a new
+    contiguous (B, T, H, hd) tensor in q's dtype, and lse, (B, H, T) f32.
+    `flash_attention_lse.launches` counts kernel launches (either build)."""
     if not q.is_cuda:
         return flash_attention_lse_plain(q, k, v, kv_mask)
     B, T, H, hd = q.shape
@@ -254,15 +268,20 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = _bool_mask(kv_mask)
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    from .. import _build
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.dss_flash_fwd_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, T, H, int(q.dtype == torch.bfloat16), _strides(q, k, v, o),
-            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_attention_lse")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            _check_tma(x, name, (B, T, H, hd))
+        _launch_packed(q, k, v, mask, o, lse, "flash_attention_lse")
+    else:
+        from .. import _build
+        lib = _build.load()
+        with torch.cuda.device(dev):
+            err = lib.dss_flash_fwd_lse_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if mask is None else mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                B, T, H, _strides(q, k, v, o), 1.0 / math.sqrt(hd),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "flash_attention_lse")
     flash_attention_lse.launches += 1
     return o, lse
 
@@ -281,24 +300,32 @@ def _bwd_operands(q, k, v, kv_mask, do, lse, di):
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, dk=None, dv=None):
     """dk and dv of masked flash attention from the saved lse and
     di = rowsum(o * do), both (B, H, T) f32. CPU tensors: the plain twin.
-    CUDA tensors: kernel 4, writing into `dk`/`dv` when given (any
-    (B, T, H, hd) views with unit stride on hd, e.g. slices of one
-    (B, T, 3, H, hd) buffer). `flash_bwd_dkv.launches` counts launches."""
+    CUDA tensors: kernel 4, writing into `dk`/`dv` when given ((B, T, H, hd)
+    views with unit stride on hd, e.g. slices of one (B, T, 3, H, hd)
+    buffer); bf16 runs it on wgmma + TMA (`csrc/flash_bwd_dkv.cu`), which
+    needs every operand's strides but hd's a multiple of 8 elements and
+    16-byte aligned data pointers, f32 on the CUDA cores
+    (`csrc/flash_attn_train.cu`). `flash_bwd_dkv.launches` counts launches."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, kv_mask, lse, do, di)[1:]
     B, T, H, dev, mask = _bwd_operands(q, k, v, kv_mask, do, lse, di)
     dk = torch.empty_like(q, memory_format=torch.contiguous_format) if dk is None else dk
     dv = torch.empty_like(q, memory_format=torch.contiguous_format) if dv is None else dv
     _check_train_args({"q": q, "dk": dk, "dv": dv}, None, B, T, H)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("dk", dk), ("dv", dv)):
+            _check_tma(x, name, (B, T, H, KERNEL_HEAD_DIM))
     from .. import _build
     lib = _build.load()
+    launch = lib.dss_flash_bwd_dkv_bf16 if bf16 else lib.dss_flash_bwd_dkv_f32
     with torch.cuda.device(dev):
-        err = lib.dss_flash_bwd_dkv(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H,
-            int(q.dtype == torch.bfloat16), _strides(q, k, v, do, dk, dv),
-            1.0 / math.sqrt(q.shape[-1]), torch.cuda.current_stream().cuda_stream)
+            _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(q.shape[-1]),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

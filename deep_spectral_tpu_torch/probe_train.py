@@ -1,14 +1,21 @@
 """Probes of chip_smoke.py's phase-7 train step on one GPU.
 
-    python -m deep_spectral_tpu_torch.probe_train
+    python -m deep_spectral_tpu_torch.probe_train [sensitivity] [profile] [steps]
 
-Run from the repository root: it reuses chip_smoke.py's synthetic batch
-(`blob_batch`) and its routing of kernels 3-5 through their twins.
+(no argument: sensitivity, then profile). Run from the repository root: it
+reuses chip_smoke.py's synthetic batch (`blob_batch`) and its routing of
+kernels 3-5 through their twins.
 
 `profile`: the b144 bf16 flash step's wall time (CUDA events, no profiler),
 then torch.profiler over 3 steps with the kernels grouped by name and the
-device's idle share against the unprofiled step; and the wall time of the
-fp32 flash and fp32 einsum steps.
+device's idle share against the unprofiled step, for one unfrozen block
+(chip_smoke phase 7b) and for the whole backbone unfrozen (phase 7c); and
+the wall time of the fp32 flash and fp32 einsum steps.
+
+`steps`: the wall time of the two bf16 flash steps alone (one unfrozen
+block, the whole backbone), with no profiler. The file runs unchanged in
+an older checkout of the port, so two commits' steps can be compared in
+one call.
 
 `sensitivity`: how far the step's gradients move when the frozen blocks'
 attention changes by bf16 rounding alone. The frozen blocks run through the
@@ -27,15 +34,16 @@ import numpy as np
 import torch
 
 STEPS_TIMED, STEPS_PROFILED = 10, 3
+BF16_STEPS = (("bf16", "flash", 1), ("bf16", "flash", -1))
 
 
-def _state(dev, precision: str, impl: str):
+def _state(dev, precision: str, impl: str, unfrozen: int = 1):
     import chip_smoke as C
     from .models.deeplab import DeepLabViT
     from .models.vit import get_model_config
     from .tasks import semantic_segmentation as SS
     cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=C.CLASSES, lr=5e-3,
-                         batch_size=C.TRAIN_B, unfrozen_backbone_layers=1,
+                         batch_size=C.TRAIN_B, unfrozen_backbone_layers=unfrozen,
                          precision=precision, seed=0)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     model = DeepLabViT(get_model_config("dino_vits16"), C.CLASSES, compute_dtype=dtype,
@@ -49,25 +57,42 @@ def _batch(dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
+def _timed_state(dev, x, y, precision: str, impl: str, unfrozen: int):
+    """A fresh train state after 2 warm-up steps and STEPS_TIMED timed ones
+    (CUDA events, printed); returns (state, generator, ms per step)."""
+    from .tasks.semantic_segmentation import train_step
+    state = _state(dev, precision, impl, unfrozen)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for _ in range(2):
+        train_step(state, x, y, gen)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(STEPS_TIMED):
+        train_step(state, x, y, gen)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / STEPS_TIMED
+    blocks = "whole backbone" if unfrozen < 0 else f"{unfrozen} block"
+    print(f"== {precision} {impl}, {blocks} unfrozen: {step_ms:.3f} ms/step = "
+          f"{x.shape[0] / step_ms * 1e3:.2f} img/s (CUDA events, mean of {STEPS_TIMED})",
+          flush=True)
+    return state, gen, step_ms
+
+
+def steps(dev) -> None:
+    x, y = _batch(dev)
+    print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
+    for config in BF16_STEPS:
+        _timed_state(dev, x, y, *config)
+
+
 def profile(dev) -> None:
     from torch.autograd import DeviceType
     from .tasks.semantic_segmentation import train_step
     x, y = _batch(dev)
-    for precision, impl in (("bf16", "flash"), ("fp32", "flash"), ("fp32", "einsum")):
-        state = _state(dev, precision, impl)
-        gen = torch.Generator(device=dev).manual_seed(12)
-        for _ in range(2):
-            train_step(state, x, y, gen)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(STEPS_TIMED):
-            train_step(state, x, y, gen)
-        end.record()
-        end.synchronize()
-        step_ms = start.elapsed_time(end) / STEPS_TIMED
-        print(f"== {precision} {impl}: {step_ms:.3f} ms/step = {x.shape[0] / step_ms * 1e3:.2f}"
-              f" img/s (CUDA events, mean of {STEPS_TIMED})", flush=True)
+    for precision, impl, unfrozen in BF16_STEPS + (("fp32", "flash", 1), ("fp32", "einsum", 1)):
+        state, gen, step_ms = _timed_state(dev, x, y, precision, impl, unfrozen)
         if (precision, impl) != ("bf16", "flash"):
             continue
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -83,7 +108,8 @@ def profile(dev) -> None:
         total = sum(t for t, _ in kern.values())
         print(f"summed kernel time {total:.3f} ms/step; idle share against the unprofiled "
               f"step {1 - total / step_ms:.3f}")
-        groups = [("kernels 3-5", r"flash_fwd_lse|flash_bwd_d"),
+        groups = [("kernels 3-5",
+                   r"flash_fwd_lse|flash_bwd_d|flash_fwd_packed_kernel(<true>|ILb1E)"),
                   ("packed flash kernel", r"flash_fwd_packed"),
                   ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn|implicit|winograd|fft"),
                   ("gemm (cuBLAS)", r"gemm|Gemm|cutlass|Kernel2|splitK|nvjet"),
@@ -146,5 +172,7 @@ def sensitivity(dev) -> None:
 
 
 if __name__ == "__main__":
-    sensitivity(torch.device("cuda", 0))
-    profile(torch.device("cuda", 0))
+    import sys
+    probes = {"sensitivity": sensitivity, "profile": profile, "steps": steps}
+    for name in sys.argv[1:] or ["sensitivity", "profile"]:
+        probes[name](torch.device("cuda", 0))

@@ -9,6 +9,10 @@ runs one key block); bf16 inputs to 1.6e-2 (outputs of magnitude ~1 carry a
 bf16 ulp of 2^-7..2^-8, and the online kernel rounds p to bf16 relative to
 running maxima where the twin uses the row max). The backward twin is held
 to the JAX package's own backward test tolerance (atol 2e-3, rtol 1e-3).
+The torch renderings of the bf16 Hopper kernels' arithmetic (kernel 3's
+exp2-domain lse, kernel 4's transposed order with the bf16 hi/lo pair) are
+held to the Pallas kernels within 1e-4 (lse) and 1e-5 of the largest entry
+(dk, dv).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -163,6 +167,138 @@ def test_flash_backward_wrapper_on_cpu_is_the_twin():
     for a, b in zip(flash_backward(q, k, v, mask, o, lse, do).unbind(2),
                     flash_backward_plain(q, k, v, mask, o, lse, do)):
         assert torch.equal(a, b)
+
+
+# ------------------------------- the Hopper kernels' arithmetic, emulated in torch
+#
+# Kernels 3 (bf16: csrc/flash_fwd.cu's lse-writing build) and 4 (bf16:
+# csrc/flash_bwd_dkv.cu) cannot run here; these render their arithmetic in
+# torch f32 on bf16-valued inputs and hold it to the Pallas kernels in
+# interpret mode.
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+KEY_TILE, Q_TILE = 128, 64      # kernel 3's key tile; kernel 4's streamed q tile
+
+
+def _f32(x):
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def _kernel3_lse(q, k, mask):
+    """Kernel 3's lse: the scale folded into log2 units (scale log2 e in f32),
+    the online max and exp2 sum over key tiles of 128 (keys past T and masked
+    keys score MASK_VALUE, already in log2 units, and add p = 0), and the
+    epilogue (m + log2(max(l, 1e-30))) ln 2. q, k (B, T, H, hd) f32; mask
+    (B, T) bool. Returns (B, H, T)."""
+    B, T, H, hd = q.shape
+    scale_log2 = _f32(1.0 / np.sqrt(hd)) * _f32(LOG2E)
+    qh, kh = q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3)
+    m = torch.full((B, H, T), -np.inf)
+    l = torch.zeros((B, H, T))
+    for k0 in range(0, T, KEY_TILE):
+        valid = mask[:, None, None, k0:k0 + KEY_TILE]
+        s = torch.where(valid, (qh @ kh[:, :, k0:k0 + KEY_TILE].transpose(-1, -2)) * scale_log2,
+                        _f32(-0.7 * np.finfo(np.float32).max))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp2(s - m_new[..., None]), 0.0)
+        l = torch.exp2(m - m_new) * l + p.sum(-1)
+        m = m_new
+    return (m + torch.log2(torch.clamp(l, min=1e-30))) * _f32(LN2)
+
+
+def _kernel4_dkv(q, k, v, do, mask, lse, di, hi_lo=True):
+    """Kernel 4's dk and dv in its transposed order: per q tile of 64 rows,
+    S^T = K Q^T and dP^T = V dO^T with keys on the rows, P^T = select(key
+    valid and q < T, exp2(S^T scale log2 e - lse log2 e), 0), dS^T = P^T
+    (dP^T - di), then dV += P^T dO and dK += dS^T Q with P^T and dS^T as a
+    bf16 hi/lo pair (hi_lo=False: one bf16 rounding, the design not taken).
+    All (B, T, H, hd) f32 but mask (B, T) and lse, di (B, H, T)."""
+    B, T, H, hd = q.shape
+    scale = _f32(1.0 / np.sqrt(hd))
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    key_ok = mask[:, None, :, None]                                     # (B, 1, T, 1)
+    lse2 = lse * _f32(LOG2E)
+    dk = torch.zeros((B, H, T, hd))
+    dv = torch.zeros((B, H, T, hd))
+
+    def rounded(x):
+        hi = x.to(torch.bfloat16).float()
+        return (hi, (x - hi).to(torch.bfloat16).float()) if hi_lo else (hi,)
+
+    for q0 in range(0, T, Q_TILE):
+        rows = slice(q0, q0 + Q_TILE)
+        sT = kh @ qh[:, :, rows].transpose(-1, -2)                       # (B, H, keys, q)
+        dpT = vh @ doh[:, :, rows].transpose(-1, -2)
+        pT = torch.where(key_ok, torch.exp2(sT * (scale * _f32(LOG2E)) - lse2[:, :, None, rows]),
+                         0.0)
+        dsT = pT * (dpT - di[:, :, None, rows])
+        for part in rounded(pT):
+            dv += part @ doh[:, :, rows]
+        for part in rounded(dsT):
+            dk += part @ qh[:, :, rows]
+    return (dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _bf16_inputs(T, seed):
+    """q, k, v, do (3, T, 2, 64) with bf16 values (what the kernels read),
+    as f32; a ragged end in batch 0, batch 1 all-masked, a masked start in 2."""
+    q, k, v, mask = _inputs(3, T, 2, 64, seed=seed)
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    return [torch.from_numpy(x).to(torch.bfloat16).float() for x in (q, k, v, do)] + \
+        [torch.from_numpy(mask)]
+
+
+def _pallas_forward(q, k, v, mask):
+    o, lse = _flash_forward(*(_bhtd(x.numpy()) for x in (q, k, v)), jnp.asarray(mask.numpy()),
+                            interpret=True, save_residuals=True)
+    T = q.shape[1]
+    return np.asarray(o), np.asarray(lse)[..., :T, 0]
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 197])
+def test_kernel3_lse_arithmetic_matches_pallas(T):
+    """Kernel 3's exp2-domain lse within 1e-4 of the Pallas forward's on
+    every batch row with a valid key (f32 rounding of the folded scale and of
+    log2 vs log; lse is O(5)); a row with no valid key gets a finite lse below
+    -1e38 (kernel 4 selects p = 0 for it whatever the value)."""
+    q, k, v, _, mask = _bf16_inputs(T, seed=T)
+    _, lse_ref = _pallas_forward(q, k, v, mask)
+    lse = _kernel3_lse(q, k, mask)
+    valid = mask.any(dim=1).numpy()
+    np.testing.assert_allclose(lse.numpy()[valid], lse_ref[valid], atol=1e-4, rtol=0)
+    assert torch.isfinite(lse).all() and (lse[~mask.any(dim=1)] < -1e38).all()
+
+
+@pytest.mark.parametrize("T", [1, 63, 65, 197])
+def test_kernel4_transposed_hi_lo_matches_pallas(T):
+    """Kernel 4's transposed order with the bf16 hi/lo pair, fed kernel 3's
+    lse, against the Pallas backward (fed its own forward's lse): dk and dv
+    within 1e-5 of the largest Pallas entry (the pair keeps ~16 bits of p and
+    ds; the rest is f32 summation order and exp2 vs exp). The all-masked batch
+    row is exactly 0. Prints the single-rounding design's error beside it."""
+    q, k, v, do, mask = _bf16_inputs(T, seed=100 + T)
+    jq, jk, jv, jdo = (_bhtd(x.numpy()) for x in (q, k, v, do))
+    jm = jnp.asarray(mask.numpy())
+    o, lse_j = _flash_forward(jq, jk, jv, jm, interpret=True, save_residuals=True)
+    _, dk_ref, dv_ref = (np.asarray(x).transpose(0, 2, 1, 3)
+                         for x in _flash_backward(jq, jk, jv, jm, o, lse_j, jdo, interpret=True))
+    o = torch.from_numpy(np.array(o)).permute(0, 2, 1, 3)
+    di = (o * do).sum(-1).permute(0, 2, 1)
+    lse = _kernel3_lse(q, k, mask)
+    got = {split: _kernel4_dkv(q, k, v, do, mask, lse, di, hi_lo=split)
+           for split in (True, False)}
+    valid = mask.any(dim=1).numpy()
+    errs = {}
+    for split, (dk, dv) in got.items():
+        for name, g, r in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+            errs[split, name] = (np.abs(g.numpy()[valid] - r[valid]).max()
+                                 / np.abs(r[valid]).max())
+    print(f"T={T}: max |emulated - Pallas| / max |Pallas|: hi/lo pair dk "
+          f"{errs[True, 'dk']:.3e} dv {errs[True, 'dv']:.3e}; single bf16 rounding dk "
+          f"{errs[False, 'dk']:.3e} dv {errs[False, 'dv']:.3e}")
+    assert errs[True, "dk"] <= 1e-5 and errs[True, "dv"] <= 1e-5, errs
+    dk, dv = got[True]
+    assert not dk[1].any() and not dv[1].any()
 
 
 @pytest.fixture(scope="module", autouse=True)
