@@ -6,10 +6,11 @@
 Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
      `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time and
-     each kernel's registers and spills (`-Xptxas -v`); count the HGMMA
-     (wgmma) instructions in the SASS (`cuobjdump -sass` on the built
-     library) of the three wgmma kernels (the packed flash forward, its
-     lse-writing build, the bf16 dKV kernel), each of which must be > 0;
+     each kernel's registers and spills (`-Xptxas -v`; the wgmma kernels
+     must not spill); count the HGMMA (wgmma) instructions in the SASS
+     (`cuobjdump -sass` on the built library) of the four wgmma kernels
+     (the packed flash forward, its lse-writing build, the bf16 dKV and dQ
+     kernels), each of which must be > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, and
      at the train path's frozen-block shape (b144, T=197) and b4 T=197, with a
@@ -32,11 +33,13 @@ Phases, each of which must pass:
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
      the train shape (b144, T=197, H=6, bf16, fused-qkv views), b4 T=901 with
      a ragged mask and an all-masked row in bf16 and f32, and b2 T=3601 f32;
-     in bf16 also the dKV kernel's hi/lo precision (`dkv_rounding`: the share
-     of dk and dv entries not bit-equal to the twin, at most DKV_SHARE_MAX);
-     at the train shape also the dKV kernel's grid and shared memory, their
-     bounds and SDPA's forward (inputs that need a gradient) and backward
-     (dq, dk and dv together) as yardsticks;
+     in bf16 also the dKV and dQ kernels' hi/lo precision (`hi_lo_reading`:
+     the share of dk and dv entries on valid keys, and of dq entries in
+     batch rows with a valid key, not bit-equal to the twin, at most
+     DKV_SHARE_MAX and DQ_SHARE_MAX); at the train shape also the dKV and dQ
+     kernels' grids and shared memory, their bounds and SDPA's forward
+     (inputs that need a gradient) and backward (dq, dk and dv together) as
+     yardsticks;
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
      (bf16 backbone, flash attention, 21 classes) at crop 224, b144, one
      unfrozen block, lr 5e-3, on synthetic blob images: (a) one step through
@@ -67,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -87,8 +91,11 @@ SUBSPACE_MIN = 0.99
 F32_TOL = 1e-4     # f32 kernels vs twins: true f32 on both sides, summation order differs
 GRAD_REL_TOL = 2e-2  # bf16 gradients vs twins, relative to max |twin|; the lse is
 #                      f32 in both dtypes (m + log l) and is held to F32_TOL
-DKV_SHARE_MAX = 0.03  # bf16 dk/dv entries not bit-equal to the twin (`dkv_rounding`):
+DKV_SHARE_MAX = 0.03  # bf16 dk/dv entries not bit-equal to the twin (`hi_lo_reading`):
 #                       0.0024-0.0028 with p and ds as hi/lo pairs, 0.416-0.424 for the
+#                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
+DQ_SHARE_MAX = 0.03   # bf16 dq entries not bit-equal to the twin (the same reading):
+#                       0.0024-0.0027 with ds as a hi/lo pair, 0.419-0.424 for the
 #                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
 TRAIN_B, CROP, CLASSES = 144, 224, 21
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
@@ -208,7 +215,8 @@ def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
 # The wgmma kernels by mangled-name fragment: name in the SASS and ptxas logs.
 WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
                  "flash_fwd_packed_kernelILb1E": "flash_fwd_packed_kernel<true>",
-                 "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel"}
+                 "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel"}
 
 
 def _kernel_label(line: str) -> str:
@@ -226,12 +234,17 @@ def phase_build():
     log(f"[1] built {_build.last_build['path']} from "
         f"{[p.name for p in _build._sources()]} in "
         f"{time.perf_counter() - t0:.1f} s (nvcc {_build.last_build['seconds']:.1f} s)")
-    func = ""
+    func, spills = "", {}
     for line in _build.last_build["log"].splitlines():
         if "Compiling entry function" in line:
             func = _kernel_label(line)
         elif "registers" in line or "spill" in line or "wgmma" in line:
             log(f"    ptxas {func}: {line.strip()}")
+            if func in WGMMA_KERNELS.values():
+                spills[func] = spills.get(func, 0) + sum(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    if any(spills.values()):
+        raise AssertionError(f"a wgmma kernel spills registers (bytes): {spills}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _build.last_build["path"]],
                           capture_output=True, text=True, check=True).stdout
@@ -510,17 +523,25 @@ def train_kernel_inputs(b: int, T: int, dtype, ragged: bool, g, dev):
     return (*qkv.unbind(2), do, mask.to(dev))
 
 
-def dkv_rounding(got, ref, mask) -> tuple[float, float]:
-    """Kernel 4's precision reading on valid keys: the share of dk (or dv)
-    entries not bit-equal to the twin's, and the RMS difference over max
-    |twin|. The bf16 output's own rounding makes the largest difference one
-    ulp either way; carrying p and ds as hi/lo pairs leaves the f32 sums
-    ~1e-6 from the twin's, so few entries round differently, where a single
-    bf16 rounding of p and ds moves many (`probe_dkv` runs that control)."""
-    keys = mask[:, :, None, None].expand_as(ref)
-    d = (got.float() - ref.float())[keys]
+def hi_lo_reading(got, ref, rows) -> tuple[float, float]:
+    """A bf16 backward kernel's precision reading over the (b, T) bool
+    `rows` (kernel 4: the valid keys; kernel 5: every query row of a batch
+    row with a valid key): the share of entries not bit-equal to the twin's,
+    and the RMS difference over max |twin|. The bf16 output's own rounding
+    makes the largest difference one ulp either way; carrying p and ds as
+    hi/lo pairs leaves the f32 sums ~1e-6 from the twin's, so few entries
+    round differently, where a single bf16 rounding of p and ds moves many
+    (`probe_dkv` runs that control of both kernels)."""
+    sel = rows[:, :, None, None].expand_as(ref)
+    d = (got.float() - ref.float())[sel]
     return ((d != 0).float().mean().item(),
-            d.square().mean().sqrt().item() / ref.float()[keys].abs().max().item())
+            d.square().mean().sqrt().item() / ref.float()[sel].abs().max().item())
+
+
+def hi_lo_rows(mask) -> dict:
+    """The rows `hi_lo_reading` reads for dk, dv and dq, from the (b, T) key
+    mask."""
+    return {"dk": mask, "dv": mask, "dq": mask.any(dim=1, keepdim=True).expand_as(mask)}
 
 
 def phase_train_kernels(dev) -> dict:
@@ -556,13 +577,15 @@ def phase_train_kernels(dev) -> dict:
             raise AssertionError("trainable flash: the all-masked batch row is not 0")
         bad = {n: e for n, e in errs.items() if not np.isfinite(e) or e > tols[n]}
         if not f32:
-            reading = {n: dkv_rounding(got, ref, mask) for n, got, ref in
-                       (("dk", dk, refs[1]), ("dv", dv, refs[2]))}
-            log(f"[6] b{b} T={T} bf16 dKV precision (dkv_rounding): " + ", ".join(
-                f"{n} share not bit-equal {sh:.4f} (max {DKV_SHARE_MAX}), RMS diff / max "
+            rows, limit = hi_lo_rows(mask), {"dk": DKV_SHARE_MAX, "dv": DKV_SHARE_MAX,
+                                             "dq": DQ_SHARE_MAX}
+            reading = {n: hi_lo_reading(got, ref, rows[n]) for n, got, ref in
+                       (("dk", dk, refs[1]), ("dv", dv, refs[2]), ("dq", dq, refs[0]))}
+            log(f"[6] b{b} T={T} bf16 dKV and dQ precision (hi_lo_reading): " + ", ".join(
+                f"{n} share not bit-equal {sh:.4f} (max {limit[n]}), RMS diff / max "
                 f"|twin| {rms:.3e}" for n, (sh, rms) in reading.items()))
             bad.update({f"{n} share not bit-equal": sh for n, (sh, _) in reading.items()
-                        if not sh <= DKV_SHARE_MAX})
+                        if not sh <= limit[n]})
         if bad:
             raise AssertionError(f"trainable flash kernels disagree with their twins: {bad} "
                                  f"(tolerances {tols})")
@@ -580,9 +603,11 @@ def phase_train_kernels(dev) -> dict:
               f"{t['dq']} vs twin backward {t['bwd_plain']}")
         if (b, T) == TRAIN_KERNEL_SHAPES[0][:2]:
             times = t
-            gx, gy, gz, threads, smem = launch_shape("dss_flash_bwd_dkv_bf16_shape", b, T, 6)
-            log(f"[6] bf16 dKV grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of {threads} "
-                f"threads, {smem} B of dynamic shared memory")
+            for name in ("dkv", "dq"):
+                gx, gy, gz, threads, smem = launch_shape(f"dss_flash_bwd_{name}_bf16_shape",
+                                                         b, T, 6)
+                log(f"[6] bf16 {name} grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of "
+                    f"{threads} threads, {smem} B of dynamic shared memory")
             # SDPA (unmasked) on the (B, H, T, hd) views: the forward with inputs
             # that need a gradient, and one backward giving dq, dk and dv
             qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
@@ -884,7 +909,7 @@ def main() -> int:
           "launches": train_launches[name], **train_kernels[name]}
          for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
                                     ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
-                                    ("flash_bwd_dq", "flash_attn_train.cu", 156))]
+                                    ("flash_bwd_dq", "flash_bwd_dq.cu", 156))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

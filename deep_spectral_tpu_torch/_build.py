@@ -56,8 +56,10 @@ _SIGNATURES = {
     "dss_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
     "dss_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
     "dss_flash_bwd_dkv_bf16_shape": [_I, _I, _I, _IP],
-    # q, k, v, kv_mask, do, lse, di, dq; B, T, H, is_bf16; strides; scale; stream
-    "dss_flash_bwd_dq": [_P] * 8 + [_I] * 4 + [_LLP, _F, _P],
+    # q, k, v, kv_mask, do, lse, di, dq; B, T, H; strides; scale; stream
+    "dss_flash_bwd_dq_f32": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dq_bf16_shape": [_I, _I, _I, _IP],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,35 +1,33 @@
-// Differentiable masked flash attention on the CUDA cores (sm_90a): the
-// forward that also writes the row log-sum-exp, and the two backward kernels.
+// Differentiable masked flash attention on the CUDA cores (sm_90a), f32 only:
+// the forward that also writes the row log-sum-exp, and the two backward
+// kernels. (Their bf16 builds run on tensor cores: flash_fwd.cu's WRITE_LSE
+// build, flash_bwd_dkv.cu and flash_bwd_dq.cu.)
 //
-// Replaces, in deep_spectral_tpu/models/flash_attention.py:
-//   * _flash_kernel          (launched by _flash_forward, save_residuals=True),
-//                            f32 only: bf16 runs flash_fwd.cu's WRITE_LSE build
-//   * _flash_bwd_dkv_kernel  (launched by _flash_backward), f32 only: bf16
-//                            runs flash_bwd_dkv.cu (wgmma)
-//   * _flash_bwd_dq_kernel   (launched by _flash_backward), bf16 and f32
+// Replaces, in deep_spectral_tpu/models/flash_attention.py, for f32:
+//   * _flash_kernel          (launched by _flash_forward, save_residuals=True)
+//   * _flash_bwd_dkv_kernel  (launched by _flash_backward)
+//   * _flash_bwd_dq_kernel   (launched by _flash_backward)
 // Same math. Per (batch, head), with s = q k^T * scale and keys whose kv_mask
 // is false scoring MASK_VALUE = -0.7 * FLT_MAX:
-//   forward: online softmax over key tiles; l from the unrounded p; p rounded
-//            to the element type before P.V; o = acc / l (l == 0 -> o = 0);
-//            lse = m + log(max(l, 1e-30)).
+//   forward: online softmax over key tiles; l from p; o = acc / l
+//            (l == 0 -> o = 0); lse = m + log(max(l, 1e-30)).
 //   dKV:     per key tile, over q tiles: p = select(valid, exp(s - lse), 0),
 //            dv += p^T do, ds = p * (do v^T - di), dk += scale * ds^T q.
 //   dQ:      per q tile, over key tiles: dq += scale * ds k.
-// p, dp and ds stay f32 (the Pallas kernels keep them f32; rounding them to
-// bf16 would be a different kernel). di = rowsum(o * do) comes from the caller.
-// The mask is on keys only: masked query rows still get o, lse and dq.
+// p, dp and ds stay f32, as in the Pallas kernels. di = rowsum(o * do) comes
+// from the caller. The mask is on keys only: masked query rows still get o,
+// lse and dq.
 //
 // What bounds it on this card: nothing yet but the simple design. Every
-// product runs as f32 FMAs on the CUDA cores (exact f32 for the f32
-// instantiation; for bf16 the products of bf16 values are exact in f32, as on
-// the MXU with f32 accumulation), so the ceiling is the 67 TFLOP/s f32 rate,
-// and each thread reads 8 shared-memory words per 16 FMAs, which caps it at
-// about half of that. At the train shape (b144, T=197, H=6, hd=64) the
-// forward is 8.6 GFLOP and the two backward kernels 30 GFLOP together.
+// product runs as exact f32 FMAs on the CUDA cores (tensor cores would mean
+// TF32, other numerics), so the ceiling is the 67 TFLOP/s f32 rate, and each
+// thread reads 8 shared-memory words per 16 FMAs, which caps it at about half
+// of that. At the train shape (b144, T=197, H=6, hd=64) the forward is 8.6
+// GFLOP and the two backward kernels 30 GFLOP together.
 //
 // Design: one CTA of 256 threads per (64-row tile, head, batch); the other
 // sequence axis is a loop inside the CTA (the Pallas grid's sequential axis).
-// Tiles are staged in shared memory as f32 with a pitch of 65 words, so the
+// Tiles are staged in shared memory with a pitch of 65 words, so the
 // row-wise and column-wise operand reads of all three product shapes are free
 // of bank conflicts. Each thread owns a 4x4 block of every 64x64 tile (rows
 // ty + 16 i, columns tx + 16 j); the 16 threads that share a row sit in one
@@ -38,11 +36,7 @@
 // unit stride on hd: the views into the fused (B, T, 3, H, hd) qkv projection
 // need no transposes, and dq/dk/dv can be written into one such buffer. The
 // ragged T edge is masked in the kernel; nothing is padded.
-// The f32 builds stay here (tensor cores would mean TF32, other numerics):
-// the forward and dKV kernels are f32 only, dQ is templated on the element
-// type (bf16 or f32). Not done yet for bf16 dQ (later work): tensor cores, TMA, double buffering.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,39 +54,28 @@ struct Strides {
   long long b, t, h;  // element strides of (batch, token, head); hd is unit stride
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Stage rows [r0, r0 + BT) of one (b, h) slice as f32; rows past T are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+// Stage rows [r0, r0 + BT) of one (b, h) slice; rows past T are zero.
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           Strides s, int b, int h, int r0, int T_) {
-  const T* base = src + b * s.b + h * s.h;
+  const float* base = src + b * s.b + h * s.h;
   for (int idx = threadIdx.x; idx < BT * HD; idx += THREADS) {
     const int r = idx / HD, c = idx % HD, t = r0 + r;
-    dst[r * LDS + c] = t < T_ ? to_f32(base[t * s.t + c]) : 0.f;
+    dst[r * LDS + c] = t < T_ ? base[t * s.t + c] : 0.f;
   }
 }
 
 // Store this thread's 4 x 4 block (rows ty + 16 i, hd columns tx + 16 j) of a
 // (BT x HD) result tile, times `mul`, for rows below T.
-template <typename T>
-__device__ __forceinline__ void store_tile(T* __restrict__ dst, Strides s, int b, int h,
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, Strides s, int b, int h,
                                            int r0, int T_, const float (&c)[4][4],
                                            float mul, int ty, int tx) {
-  T* base = dst + b * s.b + h * s.h;
+  float* base = dst + b * s.b + h * s.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = r0 + ty + 16 * i;
     if (t >= T_) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) base[t * s.t + tx + 16 * j] = from_f32<T>(c[i][j] * mul);
+    for (int j = 0; j < 4; ++j) base[t * s.t + tx + 16 * j] = c[i][j] * mul;
   }
 }
 
@@ -339,13 +322,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_tile(dv, dvs, b, h, k0, T_, dv_acc, 1.f, ty, tx);
 }
 
-// Kernel 5: dq of one 64-row q tile, accumulated over all key tiles.
-template <typename T>
+// Kernel 5 (f32): dq of one 64-row q tile, accumulated over all key tiles.
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const uint8_t* __restrict__ kv_mask,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ di, T* __restrict__ dq, int T_, int H,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const uint8_t* __restrict__ kv_mask,
+                    const float* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ di, float* __restrict__ dq, int T_, int H,
                     Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
                     float scale) {
   extern __shared__ float smem[];
@@ -392,27 +374,11 @@ int launch_config(Kernel kernel, int smem_bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
-template <typename T>
-int bwd_dq(const void* q, const void* k, const void* v, const void* kv_mask,
-           const void* dout, const void* lse, const void* di, void* dq, int B, int T_, int H,
-           const long long* s, float scale, cudaStream_t stream) {
-  const int smem = 5 * TILE * sizeof(float);
-  if (int err = launch_config(flash_bwd_dq_kernel<T>, smem)) return err;
-  const dim3 grid((T_ + BT - 1) / BT, H, B);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(kv_mask), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<T*>(dq),
-      T_, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
-      strides_at(s, 4), scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Entry points. `strides` is a host array of (batch, token, head) element
-// strides, three per tensor, in argument order; dQ's is_bf16 selects the
-// element type (bf16 or f32). lse and di are contiguous (B, H, T) f32.
+// strides, three per tensor, in argument order; lse and di are contiguous
+// (B, H, T) f32.
 extern "C" int dss_flash_fwd_lse_f32(const void* q, const void* k, const void* v,
                                      const void* kv_mask, void* o, void* lse, int B, int T,
                                      int H, const long long* strides, float scale,
@@ -445,13 +411,19 @@ extern "C" int dss_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dss_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* kv_mask, const void* dout, const void* lse,
-                                const void* di, void* dq, int B, int T, int H, int is_bf16,
-                                const long long* strides, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd_dq<__nv_bfloat16>(q, k, v, kv_mask, dout, lse, di, dq, B, T, H, strides,
-                                         scale, st)
-                 : bwd_dq<float>(q, k, v, kv_mask, dout, lse, di, dq, B, T, H, strides, scale,
-                                 st);
+extern "C" int dss_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
+                                    const void* kv_mask, const void* dout, const void* lse,
+                                    const void* di, void* dq, int B, int T, int H,
+                                    const long long* strides, float scale, void* stream) {
+  const int smem = 5 * TILE * sizeof(float);
+  if (int err = launch_config(flash_bwd_dq_kernel, smem)) return err;
+  const dim3 grid((T + BT - 1) / BT, H, B);
+  const long long* s = strides;
+  flash_bwd_dq_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(kv_mask), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(dq),
+      T, H, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
+      strides_at(s, 4), scale);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -74,23 +74,6 @@ constexpr int STATS_BYTES = 2 * BQ * 4;    // lse and di of one q tile
 constexpr int SMEM_BYTES = 1024 /* alignment slack */ + 2 * KV_BYTES +
                            STAGES * (2 * Q_BYTES + STATS_BYTES) + 8 * (2 * STAGES + 1);
 
-// Split 32 f32 accumulator fragments (64 x 64 per warpgroup) into bf16 hi and
-// lo register A operands: columns 16kk..16kk+15 are the fragments of 8-column
-// blocks 2kk and 2kk + 1 (the forward's pack_p, twice).
-__device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)[4][4],
-                                            uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = x[8 * kk + 2 * i], c = x[8 * kk + 2 * i + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
-      const float2 hf = __bfloat1622float2(h);
-      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[kk][i] = pack_bf16x2(a - hf.x, c - hf.y);
-    }
-}
-
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,   // boxes of BQ rows
                            const __grid_constant__ CUtensorMap tk,   // boxes of BKV rows

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA attention
-// kernels (flash_fwd.cu, flash_bwd_dkv.cu): mbarriers, 4-d TMA loads of
-// (hd, H, T, B) views, wgmma descriptors and products, and the host-side
-// tensor-map encoder. Everything here is inline or in an anonymous
-// namespace, so each source gets its own copy.
+// kernels (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu): mbarriers, 4-d
+// TMA loads of (hd, H, T, B) views, wgmma descriptors and products, the
+// backward kernels' bf16 hi/lo split, and the host-side tensor-map encoder.
+// Everything here is inline or in an anonymous namespace, so each source gets
+// its own copy.
 #pragma once
 
 #include <cuda.h>
@@ -81,6 +82,23 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Split 32 f32 accumulator fragments (64 x 64 per warpgroup) into bf16 hi and
+// lo register A operands: columns 16kk..16kk+15 are the fragments of 8-column
+// blocks 2kk and 2kk + 1 (the forward's pack_p, twice).
+__device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = x[8 * kk + 2 * i], c = x[8 * kk + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+      const float2 hf = __bfloat1622float2(h);
+      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][i] = pack_bf16x2(a - hf.x, c - hf.y);
+    }
 }
 
 // D(64 x 128, f32) (+)= A(64 x 16) B(16 x 128): A and B K-major in 128B-swizzled

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .vit import ViTConfig, VisionTransformer, get_model_config
 
 
@@ -153,11 +154,14 @@ def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
 
 def load_model(model_name: str, ckpt_dir: Optional[str] = None, seed: int = 0,
                precision: str = "fp32",
-               device: str | torch.device = "cpu") -> VisionTransformer:
-    """The ViT for `model_name` on `device`, in eval mode: the local DINO
-    checkpoint when one is found, a seeded random init otherwise.
-    precision='bf16' sets the compute dtype to bfloat16 (params stay f32;
-    LayerNorm and softmax statistics stay f32); 'fp32' runs true f32."""
+               device: str | torch.device | None = None) -> VisionTransformer:
+    """The ViT for `model_name` on `device` (CUDA unless the caller asks for
+    the CPU; a CUDA device with no card raises RuntimeError), in eval mode:
+    the local DINO checkpoint when one is found, a seeded random init
+    otherwise. precision='bf16' sets the compute dtype to bfloat16 (params
+    stay f32; LayerNorm and softmax statistics stay f32); 'fp32' runs true
+    f32."""
+    device = resolve_device(device, "load_model")
     if precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be 'fp32' or 'bf16'; got {precision!r}")
     cfg = get_model_config(model_name)

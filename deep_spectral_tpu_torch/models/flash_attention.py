@@ -13,9 +13,10 @@ raises.
     instantiation (wgmma + TMA), f32 `csrc/flash_attn_train.cu` (CUDA
     cores); twin `flash_attention_lse_plain`.
   * `flash_bwd_dkv` (the port of `_flash_bwd_dkv_kernel`; bf16
-    `csrc/flash_bwd_dkv.cu` on wgmma + TMA, f32 `csrc/flash_attn_train.cu`)
-    and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; `csrc/flash_attn_train.cu`),
-    run together by `flash_backward`; twin `flash_backward_plain`.
+    `csrc/flash_bwd_dkv.cu`) and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; bf16
+    `csrc/flash_bwd_dq.cu`), both on wgmma + TMA, f32 builds in
+    `csrc/flash_attn_train.cu`, run together by `flash_backward`; twin
+    `flash_backward_plain`.
 `FlashAttentionFn` is the autograd function over them (the port of
 `flash_attention_trainable`'s custom VJP).
 
@@ -297,6 +298,31 @@ def _bwd_operands(q, k, v, kv_mask, do, lse, di):
     return B, T, H, dev, _bool_mask(kv_mask)
 
 
+def _launch_bwd(kernel: str, q, k, v, mask, do, lse, di, outs: dict, dev) -> None:
+    """Kernel 4 (`kernel` "dkv") or 5 ("dq") on checked operands, writing
+    the `outs` views: bf16 on wgmma + TMA (`csrc/flash_bwd_{kernel}.cu`), which
+    needs every operand's strides but hd's a multiple of 8 elements and
+    16-byte aligned data pointers, f32 on the CUDA cores
+    (`csrc/flash_attn_train.cu`)."""
+    from .. import _build
+    B, T, H, hd = q.shape
+    _check_train_args({"q": q, **outs}, None, B, T, H)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, x in {"q": q, "k": k, "v": v, "do": do, **outs}.items():
+            _check_tma(x, name, (B, T, H, hd))
+    launch = getattr(_build.load(), f"dss_flash_bwd_{kernel}_{'bf16' if bf16 else 'f32'}")
+    out = list(outs.values())
+    with torch.cuda.device(dev):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            di.data_ptr(), *(x.data_ptr() for x in out), B, T, H,
+            _strides(q, k, v, do, *out), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, f"flash_bwd_{kernel}")
+
+
 def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, dk=None, dv=None):
     """dk and dv of masked flash attention from the saved lse and
     di = rowsum(o * do), both (B, H, T) f32. CPU tensors: the plain twin.
@@ -311,22 +337,7 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, dk=None, dv=None):
     B, T, H, dev, mask = _bwd_operands(q, k, v, kv_mask, do, lse, di)
     dk = torch.empty_like(q, memory_format=torch.contiguous_format) if dk is None else dk
     dv = torch.empty_like(q, memory_format=torch.contiguous_format) if dv is None else dv
-    _check_train_args({"q": q, "dk": dk, "dv": dv}, None, B, T, H)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("dk", dk), ("dv", dv)):
-            _check_tma(x, name, (B, T, H, KERNEL_HEAD_DIM))
-    from .. import _build
-    lib = _build.load()
-    launch = lib.dss_flash_bwd_dkv_bf16 if bf16 else lib.dss_flash_bwd_dkv_f32
-    with torch.cuda.device(dev):
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H,
-            _strides(q, k, v, do, dk, dv), 1.0 / math.sqrt(q.shape[-1]),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_bwd_dkv")
+    _launch_bwd("dkv", q, k, v, mask, do, lse, di, {"dk": dk, "dv": dv}, dev)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -336,23 +347,15 @@ flash_bwd_dkv.launches = 0
 
 def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, dq=None):
     """dq of masked flash attention (see `flash_bwd_dkv`). CPU tensors: the
-    plain twin. CUDA tensors: kernel 5, writing into `dq` when given.
-    `flash_bwd_dq.launches` counts launches."""
+    plain twin. CUDA tensors: kernel 5, writing into `dq` when given; bf16
+    runs it on wgmma + TMA (`csrc/flash_bwd_dq.cu`, with the same stride and
+    alignment needs as kernel 4's), f32 on the CUDA cores
+    (`csrc/flash_attn_train.cu`). `flash_bwd_dq.launches` counts launches."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, kv_mask, lse, do, di)[0]
     B, T, H, dev, mask = _bwd_operands(q, k, v, kv_mask, do, lse, di)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if dq is None else dq
-    _check_train_args({"q": q, "dq": dq}, None, B, T, H)
-    from .. import _build
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = lib.dss_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), B, T, H, int(q.dtype == torch.bfloat16),
-            _strides(q, k, v, do, dq), 1.0 / math.sqrt(q.shape[-1]),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_bwd_dq")
+    _launch_bwd("dq", q, k, v, mask, do, lse, di, {"dq": dq}, dev)
     flash_bwd_dq.launches += 1
     return dq
 

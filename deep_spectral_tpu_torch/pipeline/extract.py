@@ -26,6 +26,7 @@ from ..models.vit import extract_patch_keys, get_model_config
 from ..ops.eigen import (resolve_eig_chunk, spectral_decompose_batched,
                          validate_cheb_window_init)
 from ..utils import bucketing
+from ..utils.device import resolve_device
 from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_rgb,
                               read_image_list)
 from ..utils.serialization import load_pth, load_pth_meta, save_pth
@@ -58,13 +59,6 @@ class _AsyncWriter:
         self._pool.shutdown()
 
 
-def _device(device: Optional[str]) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
-    return dev
-
-
 # ----------------------------------------------------------- stage 1: features
 
 def extract_features(
@@ -83,7 +77,7 @@ def extract_features(
     (reference: extract/extract.py:21-116), batched per shape bucket; the
     saved per-image dict is schema-identical to the reference's."""
     make_output_dir(output_dir)
-    dev = _device(device)
+    dev = resolve_device(device, "extract_features")
     model_name = model_name.lower()
     cfg = get_model_config(model_name)
     model = load_model(model_name, ckpt_dir, precision=precision, device=dev)
@@ -198,7 +192,7 @@ def extract_eigs(
     if chunk and batch_size % chunk != 0:
         raise ValueError(
             f"--eig_chunk {chunk} must divide --batch_size {batch_size}")
-    dev = _device(device)
+    dev = resolve_device(device, "extract_eigs")
     make_output_dir(output_dir)
 
     pending = []

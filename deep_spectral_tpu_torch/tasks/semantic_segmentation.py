@@ -35,6 +35,7 @@ from ..models.deeplab import DeepLabViT, backbone_param_labels
 from ..models.vit import ViTConfig, get_model_config, interpolate_pos_embed
 from ..ops import metrics as M
 from ..ops.resize import resize_bilinear
+from ..utils.device import resolve_device
 from ..utils.image_io import IMAGENET_MEAN, IMAGENET_STD, load_image_rgb
 from ..utils.precision import exact_f32
 from ..utils.serialization import load_segmap_png
@@ -378,11 +379,13 @@ class TrainState:
 
 def create_train_state(cfg: TrainConfig, model: DeepLabViT,
                        backbone_params: Optional[dict] = None,
-                       device: str | torch.device = "cpu") -> TrainState:
+                       device: str | torch.device | None = None) -> TrainState:
     """Seeded init of `model` (or the DINO-named backbone state dict
-    `backbone_params`), moved to `device`; freeze labels per
-    `unfrozen_backbone_layers`; AdamW over the trainable parameters; an EMA
-    copy of every parameter with use_ema."""
+    `backbone_params`), moved to `device` (CUDA unless the caller asks for
+    the CPU; a CUDA device with no card raises RuntimeError); freeze labels
+    per `unfrozen_backbone_layers`; AdamW over the trainable parameters; an
+    EMA copy of every parameter with use_ema."""
+    device = resolve_device(device, "create_train_state")
     init_deeplab_(model, cfg.seed)
     if backbone_params is not None:
         model.backbone.load_state_dict(backbone_params)
@@ -698,10 +701,7 @@ def train(cfg: TrainConfig, dataset_train, dataset_val=None,
     no card raises RuntimeError. Returns the final state and the best
     validation mIoU."""
     from ..utils.logging import MetricWriter
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"train: device {str(device)!r} requested but CUDA is not "
-                           f"available (pass device='cpu' to train on the CPU)")
+    device = resolve_device(device, "train")
     state = create_train_state(cfg, build_model(cfg), backbone_params, device)
     start_step = 0
     if resume:

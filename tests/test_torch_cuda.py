@@ -10,8 +10,9 @@ kernel rounds p to bf16 at running maxima where the twin uses the row max:
 1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (true
 f32 on both sides, summation order differs); in bf16: 1e-2 on o and 2e-2
 relative to the largest twin entry on the gradients (inputs and outputs are
-rounded to bf16; p and ds are f32 on both sides, the bf16 dKV kernel feeds
-them to the tensor cores as a hi/lo pair); the lse is f32 in both builds:
+rounded to bf16; p and ds are f32 on both sides, the bf16 dKV and dQ
+kernels feed them to the tensor cores as a hi/lo pair); the lse is f32 in
+both builds:
 1e-4. Filter outputs satisfy |T_d| <= 1 after the rescale; the summation
 order differs and a last-bit change can flip one bf16(T_j) rounding
 downstream: 1e-3. Solver results: eigenvalues 1e-4, |cosine| >= 0.999.
@@ -205,9 +206,9 @@ def test_trainable_kernels_reject_what_they_do_not_take(cuda):
 
 
 def test_bf16_trainable_kernels_raise_on_misaligned_views(cuda):
-    """The bf16 forward with lse and dKV read their operands by TMA: a view
-    whose data pointer or rows are not 16-byte aligned raises (it is not
-    handed to another kernel)."""
+    """The bf16 forward with lse, dKV and dQ read their operands by TMA: a
+    view (an operand, or dQ's output) whose data pointer or rows are not
+    16-byte aligned raises (it is not handed to another kernel)."""
     shifted = torch.zeros(2 * 8 * 2 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:]
     shifted = shifted.view(2, 8, 2, 64)                   # data pointer 2 bytes off
     odd_rows = torch.zeros((2, 8, 2, 68), device=cuda, dtype=torch.bfloat16)[..., :64]
@@ -218,6 +219,10 @@ def test_bf16_trainable_kernels_raise_on_misaligned_views(cuda):
             flash_attention_lse(ok, bad, ok)
         with pytest.raises(ValueError):
             flash_bwd_dkv(ok, ok, ok, None, bad, lse, lse)
+        with pytest.raises(ValueError):
+            flash_bwd_dq(ok, ok, ok, None, bad, lse, lse)
+        with pytest.raises(ValueError):
+            flash_bwd_dq(ok, ok, ok, None, ok, lse, lse, bad)
     torch.cuda.synchronize()
 
 

@@ -72,7 +72,8 @@ def _states(impl="einsum", **kw):
                                     else rng.normal(0, 0.3, x.shape), jnp.float32),
         jstate.batch_stats)
     jstate = jstate.replace(batch_stats=stats)
-    tstate = TSS.create_train_state(tcfg, t_deeplab.DeepLabViT(T_TINY, 3, attention_impl=impl))
+    tstate = TSS.create_train_state(tcfg, t_deeplab.DeepLabViT(T_TINY, 3, attention_impl=impl),
+                                    device="cpu")
     tstate.model.load_state_dict(
         flax_deeplab_to_torch_state_dict(jstate.params, stats, T_TINY), strict=True)
     return jstate, tstate
@@ -176,7 +177,7 @@ def test_nan_guard_reverts_full_state():
     """A non-finite loss reverts params, Adam moments, schedule count, BN
     statistics and EMA exactly; the next finite step trains on."""
     _, tcfg = _cfgs(use_ema=True, unfrozen_backbone_layers=-1)
-    state = TSS.create_train_state(tcfg, TSS.build_model(tcfg))
+    state = TSS.create_train_state(tcfg, TSS.build_model(tcfg), device="cpu")
     x, y = _batch(3)
     gen = torch.Generator().manual_seed(0)
     logs = TSS.train_step(state, torch.from_numpy(x), torch.from_numpy(y), gen,
@@ -260,7 +261,7 @@ def test_checkpoint_round_trip_and_resume(voc, tmp_path, capsys):
     state, _ = TSS.train(tcfg, ds, log_every=0, max_steps=3, device="cpu")
     path = TSS.save_checkpoint(str(tmp_path / "ck"), state, 3)
     assert path.name == "step_3.pt"
-    fresh = TSS.create_train_state(tcfg, TSS.build_model(tcfg))
+    fresh = TSS.create_train_state(tcfg, TSS.build_model(tcfg), device="cpu")
     TSS.restore_checkpoint(str(tmp_path / "ck"), fresh)
     assert int(fresh.step) == 3
     for a, b in zip((*state.model.state_dict().values(), *state.opt.state.values(),
@@ -274,11 +275,11 @@ def test_checkpoint_round_trip_and_resume(voc, tmp_path, capsys):
     assert "trained steps 3..6: 3 steps" in capsys.readouterr().out
     # EMA presence mismatch, both ways
     _, no_ema = _cfgs(max_train_steps=6)
-    other = TSS.create_train_state(no_ema, TSS.build_model(no_ema))
+    other = TSS.create_train_state(no_ema, TSS.build_model(no_ema), device="cpu")
     TSS.restore_checkpoint(str(path), other)
     assert other.ema_params is None and int(other.step) == 3
     p2 = TSS.save_checkpoint(str(tmp_path / "ck2"), other, 3, keep_best=True)
-    with_ema = TSS.create_train_state(tcfg, TSS.build_model(tcfg))
+    with_ema = TSS.create_train_state(tcfg, TSS.build_model(tcfg), device="cpu")
     TSS.restore_checkpoint(str(p2), with_ema)
     assert with_ema.ema_params is not None and int(with_ema.step) == 3
     assert "no EMA state" in capsys.readouterr().out
@@ -297,6 +298,19 @@ def test_train_without_a_card_raises(voc, monkeypatch, device):
                         lambda *a, **k: pytest.fail("train() went on without a card"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TSS.train(tcfg, ds, log_every=0, max_steps=2, device=device)
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_create_train_state_without_a_card_raises(monkeypatch, device):
+    """create_train_state() defaults to CUDA and never falls back to the CPU:
+    with no card, device=None and an explicit CUDA device raise before the
+    model is initialized."""
+    _, tcfg = _cfgs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(TSS, "init_deeplab_",
+                        lambda *a, **k: pytest.fail("create_train_state() went on without a card"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TSS.create_train_state(tcfg, t_deeplab.DeepLabViT(T_TINY, 3), device=device)
+
 
 def test_semantic_train_cli(voc, tmp_path, capsys):
     args = ["semantic_train", f"data.root={voc}", f"segments_dir={voc / 'pseudo'}",

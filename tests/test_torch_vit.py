@@ -182,12 +182,24 @@ def test_vit_bf16_close_to_jax_bf16():
     assert cos[mask].min() > 0.99
 
 
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_load_model_without_a_card_raises(monkeypatch, device):
+    """load_model() defaults to CUDA and never falls back to the CPU: with no
+    card, device=None and an explicit CUDA device raise before any weight is
+    made."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(t_convert, "random_init_",
+                        lambda *a, **k: pytest.fail("load_model() went on without a card"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_convert.load_model("test_vit_tiny", device=device)
+
+
 def test_load_model_checkpoint_and_random_init(tmp_path):
     """A DINO-style checkpoint ('module.' prefix, projection head) loads by
     name from ckpt_dir; without one the init is seeded and deterministic."""
-    a = t_convert.load_model("test_vit_tiny", seed=0)
-    b = t_convert.load_model("test_vit_tiny", seed=0)
-    c = t_convert.load_model("test_vit_tiny", seed=1)
+    a = t_convert.load_model("test_vit_tiny", seed=0, device="cpu")
+    b = t_convert.load_model("test_vit_tiny", seed=0, device="cpu")
+    c = t_convert.load_model("test_vit_tiny", seed=1, device="cpu")
     for (k, va), vb, vc in zip(a.state_dict().items(), b.state_dict().values(),
                                c.state_dict().values()):
         assert torch.equal(va, vb), k
@@ -195,7 +207,8 @@ def test_load_model_checkpoint_and_random_init(tmp_path):
     sd = {f"module.{k}": v for k, v in c.state_dict().items()}
     sd["module.head.weight"] = torch.zeros(3, 3)
     torch.save({"state_dict": sd}, tmp_path / "test_vit_tiny.pth")
-    d = t_convert.load_model("test_vit_tiny", ckpt_dir=str(tmp_path), precision="bf16")
+    d = t_convert.load_model("test_vit_tiny", ckpt_dir=str(tmp_path), precision="bf16",
+                               device="cpu")
     assert d.compute_dtype == torch.bfloat16
     for k, v in c.state_dict().items():
         assert torch.equal(d.state_dict()[k], v), k
@@ -247,7 +260,7 @@ def test_real_weights_match_jax():
                     "dino_vits16.pth to enable)")
     from deep_spectral_tpu.models.convert import load_params
     jmodel, params = load_params("dino_vits16")
-    tmodel = t_convert.load_model("dino_vits16")
+    tmodel = t_convert.load_model("dino_vits16", device="cpu")
     x = np.random.default_rng(0).standard_normal((1, 224, 224, 3)).astype(np.float32)
     ref = np.asarray(j_keys(jmodel, params, jnp.asarray(x)))[0]
     got = t_keys(tmodel, torch.from_numpy(x))[0].numpy()
