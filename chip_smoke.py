@@ -12,16 +12,21 @@ Phases, each of which must pass:
      (the packed flash forward, its lse-writing build, the bf16 dKV and dQ
      kernels), each of which must be > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
-     T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, and
-     at the train path's frozen-block shape (b144, T=197) and b4 T=197, with a
-     ragged mask and one all-masked batch row, with the kernel's grid and
-     shared memory, its bound and `F.scaled_dot_product_attention` on the
-     same views as its library yardstick; and the fp32 no-grad route (the
-     f32 build of the residual-saving forward) at b24 T=901;
+     T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, at
+     phase 9's dino_vits8 512x512 shape (b4, T=4097), at the train path's
+     frozen-block shape (b144, T=197) and b4 T=197, and at phase 10's stage-1
+     buckets (b4, T=1025 and 769), with a ragged mask and one all-masked
+     batch row, with the kernel's grid and shared memory, its bound and
+     `F.scaled_dot_product_attention` on the same views as its library
+     yardstick; and the fp32 no-grad route (the f32 build of the
+     residual-saving forward) at b24 T=901 (ragged) and at phase 10's
+     localization forwards (b1, T=901 and 601, no mask);
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
-     with per-image (c, e) and at degree 3 with (2, 1), and b2 N=3600, with
-     the step kernel's grid (more than one CTA per image) and shared memory
-     and the chain's bound (no PyTorch call computes it);
+     with per-image (c, e) and at degree 3 with (2, 1), b2 N=3600, phase 9's
+     b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23), and
+     phase 10's stage-2 buckets (b4, N=1024 and 640), with the step kernel's
+     grid (more than one CTA per image) and shared memory and the chain's
+     bound (no PyTorch call computes it);
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
@@ -54,9 +59,31 @@ Phases, each of which must pass:
      3-5): ms/step over 3 steps after a warm-up step;
   8. `python -m deep_spectral_tpu_torch.tasks.cli semantic_train` (the yaml's
      fp32 einsum defaults) on a synthetic VOC tree: 4 steps with evals at 2
-     and 4, a checkpoint, and a resume that runs only the remaining steps.
+     and 4, a checkpoint, and a resume that runs only the remaining steps;
+  9. stage 2's other routes: (a) LOBPCG, a seeded random-weight dino_vits8
+     at 512x512 (T=4097, N=4096), b4, bf16, then `spectral_decompose_batched`
+     (K=5) on base + 0.02 k through 'auto', which must reach LOBPCG, its
+     results finite and, on 2 images, within the dense-eigh gates; (b) the
+     color-fused graph, phase 4's model's features upsampled to a 60x60 grid
+     (`image_downsample_factor` 8, N=3600) plus lambda times `knn_affinity`
+     of blob images, through the filter kernel, within the same gates;
+     (c) recorded, not gated: the guard's re-solves at K=20 on phase 4's
+     features, and the N=3600 solve through 'chebyshev' and 'lobpcg';
+ 10. localization on a synthetic VOC tree (480x480 and 320x480 blob images,
+     the blob as the GT box), in this process: stages 1-2
+     (`extract_features`, `extract_eigs` with the color-fused graph), then
+     `tasks.cli.main(["localization", ...])` with --eigenseg from those eigs
+     (CorLoc at least CORLOC_FLOOR) and --lost and --dino_seg on the fly
+     (the CLI's f32 ViT: kernel 3's f32 build); each run with the launch
+     counts zeroed before it and checked after it (stage 1: the packed kernel
+     per block and batch; stage 2: filter chains; LOST and dino_seg: the f32
+     forward per block and image), every kernel shape among those phases 2-3
+     hold, each results.txt counting every image; then stages 1-2 again with
+     no batch in flight (DSS_TPU_INFLIGHT=0), which must write the same bytes.
 Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
-calls: the median window, with the min-max printed beside it.
+calls: the median window, with the min-max printed beside it; phase 9's
+solves, which sync the host every iteration, are 5 single calls after a
+warm-up call.
 Then it prints one JSON line with each kernel's launches, error, times, bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its tensor-core or
 f32 flops over the card's peak, `bound_by` naming which) and library time
@@ -98,6 +125,17 @@ DQ_SHARE_MAX = 0.03   # bf16 dq entries not bit-equal to the twin (the same read
 #                       0.0024-0.0027 with ds as a hi/lo pair, 0.419-0.424 for the
 #                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
 TRAIN_B, CROP, CLASSES = 144, 224, 21
+LOBPCG_B, LOBPCG_IMG = 4, 512   # dino_vits8: T=4097, N=4096, above CHEB_MAX_N
+COLOR_LAMBDA = 1.0
+# phase 10's kernel shapes: stage 1 buckets its 480x480 and 320x480 images to
+# 32x32 and 24x32 patches (granularity 8) in b4 batches with a padded image,
+# stage 2 to 32x32 and 20x32 (granularity 4); the localization forwards see
+# one whole image, unmasked, in f32
+LOC_FLASH_T = (1025, 769)   # packed kernel, b4 bf16, ragged
+LOC_LSE_T = (901, 601)      # kernel 3's f32 build, b1, no mask
+LOC_CHEB_N = (1024, 640)    # filter kernel, b4, m=8
+CORLOC_FLOOR = 80.0  # color-fused eigenseg on phase 10's blob images; the same
+#                      script logic found 8/8 blobs on the CPU at lambda 1 and 10
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
@@ -267,7 +305,8 @@ def phase_flash(dev) -> dict:
     g = torch.Generator().manual_seed(1)
     worst, main = 0.0, None
     for (b, T, ragged) in [(B, 901, False), (B, 901, True), (4, 3601, True),
-                           (TRAIN_B, 197, False), (4, 197, True)]:
+                           (LOBPCG_B, 4097, False), (TRAIN_B, 197, False), (4, 197, True),
+                           *((4, t, True) for t in LOC_FLASH_T)]:
         qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
         q, k, v = qkv.unbind(2)
         mask = torch.ones((b, T), dtype=torch.bool)
@@ -302,17 +341,29 @@ def phase_flash(dev) -> dict:
                     **bd}
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
-    qkv = torch.randn((B, 901, 3, 6, 64), generator=g).to(dev)
-    q, k, v = qkv.unbind(2)
-    mask = torch.ones((B, 901), dtype=torch.bool, device=dev)
-    mask[0, 500:] = False
-    out = flash_attention_lse(q, k, v, mask)[0]
-    ref = flash_attention_lse_plain(q, k, v, mask)[0]
-    err = (out - ref).abs().max().item()
-    log(f"[2] fp32 no-grad route (kernel 3's f32 build) b{B} T=901: max |kernel - twin| "
-        f"{err:.3e} (tol {F32_TOL})")
-    if not np.isfinite(err) or err > F32_TOL:
-        raise AssertionError(f"fp32 flash route disagrees with its twin: {err}")
+    # the fp32 no-grad route (kernel 3's f32 build): a ragged b24 batch, and
+    # phase 10's localization forwards
+    for (b, T, masked) in [(B, 901, True), *((1, t, False) for t in LOC_LSE_T)]:
+        qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev)
+        q, k, v = qkv.unbind(2)
+        mask = None
+        if masked:
+            mask = torch.ones((b, T), dtype=torch.bool, device=dev)
+            mask[0, 500:] = False
+        out = flash_attention_lse(q, k, v, mask)[0]
+        ref = flash_attention_lse_plain(q, k, v, mask)[0]
+        err = (out - ref).abs().max().item()
+        if not np.isfinite(err) or err > F32_TOL:
+            raise AssertionError(f"fp32 flash route disagrees with its twin: {err}")
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
+                 cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+        bd = attention_work(q, mask, products=2, io_tensors=4, stats=1)
+        log(f"[2] fp32 no-grad route (kernel 3's f32 build) b{b} T={T} masked={masked}: max "
+            f"|kernel - twin| {err:.3e} (tol {F32_TOL}); kernel {times[0]}, twin {times[1]}, "
+            f"SDPA (unmasked, f32) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
     return {"max_abs_err": worst, **main}
 
 
@@ -330,10 +381,16 @@ def phase_cheb(dev) -> dict:
         chebyshev_filter, chebyshev_filter_plain)
     g = torch.Generator().manual_seed(2)
     worst, main = 0.0, None
-    for (b, N, degree, window) in [(B, 900, 10, "per-image"), (B, 900, 3, "(2, 1)"),
-                                   (2, 3600, 10, "per-image")]:
+    # (batch, N, degree, window, block m): the main path's two windows, then
+    # phase 9's color-fused first filter at N=3600 and its K=20 block (m=23),
+    # then stage 2's buckets in phase 10
+    for (b, N, degree, window, m) in [(B, 900, 10, "per-image", 8), (B, 900, 3, "(2, 1)", 8),
+                                      (2, 3600, 10, "per-image", 8),
+                                      (LOBPCG_B, 3600, 3, "(2, 1)", 8),
+                                      (B, 900, 10, "per-image", 23),
+                                      *((4, n, 10, "per-image", 8) for n in LOC_CHEB_N)]:
         S = whitened_operators(b, N, dev, g)
-        X = torch.randn((b, N, 8), generator=g).to(dev)
+        X = torch.randn((b, N, m), generator=g).to(dev)
         if window == "(2, 1)":
             c, e = 2.0, 1.0
         else:
@@ -350,9 +407,9 @@ def phase_cheb(dev) -> dict:
                  cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)))
         # S read once, X read and the result written once; degree products
         # of 2 N^2 m flops each on the bf16 tensor cores
-        bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * 8, PEAK_BF16)
-        gx, gy, gz, threads, smem = launch_shape("dss_cheb_filter_shape", b, N, 8)
-        log(f"[3] cheb b{b} N={N} m=8 degree={degree} (c, e) {window}: max "
+        bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * m, PEAK_BF16)
+        gx, gy, gz, threads, smem = launch_shape("dss_cheb_filter_shape", b, N, m)
+        log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}: max "
             f"|kernel - twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]}, twin {times[1]} "
             f"({TIMING}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
             f"{bd['bound_ms'] / times[0].ms:.1%} of it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
@@ -360,7 +417,7 @@ def phase_cheb(dev) -> dict:
             f"rescale pass")
         if gx * gy <= 1 and N >= 900:
             raise AssertionError("the filter runs one CTA per image")
-        if (b, N, degree) == (B, 900, 10):
+        if (b, N, degree, m) == (B, 900, 10, 8):
             main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": None, **bd}
     return {"max_abs_err": worst, **main}
 
@@ -503,6 +560,316 @@ def phase_cli(tmp: Path, device: str) -> None:
         if not ok:
             raise AssertionError(f"{name}: unexpected .pth schema")
     log(f"[5] {len(names)} feature and eig .pth files have the expected schema")
+
+
+def dense_gates(what: str, feats, mask, evals, vecs, color_W=None, n: int = 2) -> None:
+    """Hold the first `n` images' eigenpairs against dense eigh of the same
+    graph: eigenvalues within EIG_TOL, subspace cosine >= SUBSPACE_MIN."""
+    from deep_spectral_tpu_torch.ops.eigen import spectral_decompose_batched
+    ev_d, vec_d = spectral_decompose_batched(
+        feats[:n], mask[:n], None if color_W is None else color_W[:n], K=K, solver="eigh",
+        image_color_lambda=COLOR_LAMBDA)
+    ev_err = (evals[:n] - ev_d).abs().max().item()
+    cos = min(subspace_cos(vecs[i], vec_d[i]) for i in range(n))
+    log(f"[9] {what} vs dense eigh ({n} images): max |eigenvalue diff| {ev_err:.3e} "
+        f"(tol {EIG_TOL}), min subspace cosine {cos:.6f} (min {SUBSPACE_MIN})")
+    if not (ev_err <= EIG_TOL and cos >= SUBSPACE_MIN):
+        raise AssertionError(f"{what}: eigenpairs disagree with dense eigh")
+
+
+def calls_ms(fn) -> Timing:
+    """`cuda_ms` for calls that sync the host themselves (the solvers test
+    convergence on the host every iteration): CUDA events around each of 5
+    single calls after a warm-up call, so the host's share is in the time."""
+    return cuda_ms(fn, iters=1, windows=5, warmup=1)
+
+
+CALLS_TIMING = "CUDA events, median [min-max] of 5 single calls after a warm-up"
+
+
+def blob_images_lr(b: int, grid: int, rng) -> np.ndarray:
+    """(b, grid, grid, 3) float images in [0, 1]: phase 5's 480x480 blob
+    images, downsampled as stage 2 loads them (PIL bilinear)."""
+    from PIL import Image
+    out = np.empty((b, grid, grid, 3), np.float32)
+    for i in range(b):
+        img = (rng.random((IMG, IMG, 3)) * 100).astype(np.uint8)
+        y, x = rng.integers(40, IMG - 120, 2)
+        img[y:y + 100, x:x + 100] = [210, 70, 60]
+        out[i] = np.asarray(Image.fromarray(img).resize((grid, grid), Image.BILINEAR),
+                            np.float32) / 255.0
+    return out
+
+
+def fused_filter_timing(feats, color_W) -> None:
+    """Kernel 2 against its twin on the whitened color-fused operator (degree
+    10, per-image windows), with times and the chain's bound."""
+    import torch
+    from deep_spectral_tpu_torch.ops.affinity import degree_vector, feature_affinity
+    from deep_spectral_tpu_torch.ops.cheb_filter import (
+        chebyshev_filter, chebyshev_filter_plain)
+    b, N, _ = feats.shape
+    W = feature_affinity(feats) + COLOR_LAMBDA * color_W
+    s = torch.rsqrt(degree_vector(W))
+    S = (s[:, :, None] * W * s[:, None, :]).to(torch.bfloat16)
+    g = torch.Generator().manual_seed(3)
+    X = torch.randn((b, N, 8), generator=g).to(feats.device)
+    lam_cut = (torch.rand(b, generator=g) * 0.9 + 0.05).to(feats.device)
+    c, e = (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
+    out = chebyshev_filter(S, X, c, e, 10)
+    torch.cuda.synchronize()
+    err = (out - chebyshev_filter_plain(S, X, c, e, 10)).abs().max().item()
+    times = (cuda_ms(lambda: chebyshev_filter(S, X, c, e, 10)),
+             cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, 10)))
+    bd = bound(S.numel() * 2 + 2 * X.numel() * 4, 10 * 2 * b * N * N * 8, PEAK_BF16)
+    log(f"[9b] filter kernel on the fused operator b{b} N={N} m=8 degree 10: max |kernel - "
+        f"twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]}, twin {times[1]} ({TIMING}); "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} "
+        f"of it")
+    if not np.isfinite(err) or err > CHEB_TOL:
+        raise AssertionError(f"cheb kernel disagrees with its twin on the fused graph: {err}")
+
+
+def phase_stage2_routes(dev) -> None:
+    import torch
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
+    from deep_spectral_tpu_torch.models.vit import (
+        VisionTransformer, extract_patch_keys, get_model_config)
+    from deep_spectral_tpu_torch.ops import eigen
+    from deep_spectral_tpu_torch.ops.affinity import knn_affinity
+    from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
+    from deep_spectral_tpu_torch.ops.resize import resize_bilinear
+    rng = np.random.default_rng(9)
+
+    # (a) LOBPCG: dino_vits8 at 512x512, N=4096
+    cfg = get_model_config("dino_vits8")
+    model = random_init_(VisionTransformer(cfg, torch.bfloat16), seed=0).to(dev).eval()
+    grid = LOBPCG_IMG // cfg.patch_size
+    N = grid * grid
+    if eigen._resolve_solver(N, K + 3, True, "auto") != "lobpcg":
+        raise AssertionError(f"'auto' does not send N={N} to LOBPCG")
+    images = torch.from_numpy(rng.standard_normal(
+        (LOBPCG_B, LOBPCG_IMG, LOBPCG_IMG, 3)).astype(np.float32)).to(dev)
+    mask = torch.ones((LOBPCG_B, N), dtype=torch.bool, device=dev)
+    _zero_launches()
+    k = extract_patch_keys(model, images, token_mask=mask)
+    fwd_launches = flash_attention_packed.launches
+    fwd_t = calls_ms(lambda: extract_patch_keys(model, images, token_mask=mask))
+    base = torch.from_numpy(structured_features(LOBPCG_B, grid, cfg.embed_dim, rng)).to(dev)
+    feats = base + 0.02 * k.float()
+    calls, orig = [], eigen._lobpcg_laplacian
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape)
+        return orig(*a, **kw)
+
+    eigen._lobpcg_laplacian = counted
+    try:
+        _zero_launches()
+        evals, vecs = eigen.spectral_decompose_batched(feats, mask, K=K)
+    finally:
+        eigen._lobpcg_laplacian = orig
+    solve_t = calls_ms(lambda: eigen.spectral_decompose_batched(feats, mask, K=K))
+    log(f"[9a] dino_vits8 {LOBPCG_IMG}x{LOBPCG_IMG} b{LOBPCG_B} bf16 (T={N + 1}): forward "
+        f"{fwd_t} per batch, {fwd_launches} launches of the packed flash kernel; "
+        f"'auto' K={K} solve at N={N}: {solve_t} per batch through LOBPCG "
+        f"({len(calls)} call), {chebyshev_filter.launches} filter launches ({CALLS_TIMING})")
+    # blocks 0..10 attend; the last block's qkv projection is the feature
+    if fwd_launches != cfg.depth - 1 or len(calls) != 1 or chebyshev_filter.launches:
+        raise AssertionError("phase 9a did not run the packed kernel per block and LOBPCG")
+    if not (torch.isfinite(evals).all() and torch.isfinite(vecs).all()):
+        raise AssertionError("LOBPCG results are not finite")
+    dense_gates("LOBPCG N=4096", feats, mask, evals, vecs)
+    del model, images, k, base, feats, evals, vecs
+    torch.cuda.empty_cache()
+
+    # (b) the color-fused graph: phase 4's model at 480x480 (30x30 patches),
+    # features upsampled to the 60x60 grid of image_downsample_factor 8
+    _, base16, cfg16, mask16, out4 = main_path_step(dev)
+    k16 = out4[0][:LOBPCG_B]
+    g16, g_lr = IMG // cfg16.patch_size, IMG // 8
+    N = g_lr * g_lr
+    feats = (base16[:LOBPCG_B] + 0.02 * k16.float()).reshape(LOBPCG_B, g16, g16, -1)
+    feats = resize_bilinear(feats, (g_lr, g_lr)).to(torch.float16).float()
+    feats = feats.reshape(LOBPCG_B, N, -1)
+    mask = torch.ones((LOBPCG_B, N), dtype=torch.bool, device=dev)
+    imgs = torch.from_numpy(blob_images_lr(LOBPCG_B, g_lr, rng)).to(dev)
+    color_W = knn_affinity(imgs, mask=mask)
+    knn_t = calls_ms(lambda: knn_affinity(imgs, mask=mask))
+
+    def fused_solve():
+        return eigen.spectral_decompose_batched(
+            feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, return_residual=True)
+
+    _zero_launches()
+    evals, vecs, res = fused_solve()
+    cheb = chebyshev_filter.launches
+    solve_t = calls_ms(fused_solve)
+    bad = int((res > eigen.CHEB_RESIDUAL_TOL).sum().item())
+    fused_filter_timing(feats, color_W)
+    log(f"[9b] color-fused graph (lambda {COLOR_LAMBDA}, knn) b{LOBPCG_B} N={N}: knn_affinity "
+        f"{knn_t}, 'auto' K={K} solve {solve_t} per batch ({CALLS_TIMING}), {cheb} filter "
+        f"launches, residuals {[f'{r:.3e}' for r in res.tolist()]} ({bad} above the guard)")
+    if cheb <= 0:
+        raise AssertionError("the color-fused solve did not run the filter kernel")
+    ev_g, vec_g = eigen.spectral_decompose_batched(
+        feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA)  # the guard
+    if not (torch.isfinite(ev_g).all() and torch.isfinite(vec_g).all()):
+        raise AssertionError("color-fused results are not finite")
+    dense_gates("color-fused N=3600", feats, mask, ev_g, vec_g, color_W)
+
+    # (c) recorded, not gated
+    _, f4, _, _, _ = out4
+    _, _, res20 = eigen.spectral_decompose_batched(f4, mask16, K=20, return_residual=True)
+    resolved20 = int((res20 > eigen.CHEB_RESIDUAL_TOL).sum().item())
+    times = {}
+    for solver in ("chebyshev", "lobpcg"):
+        times[solver] = calls_ms(lambda s=solver: eigen.spectral_decompose_batched(
+            feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, solver=s,
+            return_residual=True))
+    res_c = eigen.spectral_decompose_batched(
+        feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, solver="chebyshev",
+        return_residual=True)[2]
+    log(f"[9c] recorded: K=20 on phase 4's b{B} features: {resolved20}/{B} residuals above "
+        f"the guard (max {res20.max().item():.3e}); N={N} b{LOBPCG_B} color-fused K={K}: "
+        f"chebyshev {times['chebyshev']} (residual max {res_c.max().item():.3e}, "
+        f"unguarded), lobpcg {times['lobpcg']} ({CALLS_TIMING})")
+
+
+def make_loc_voc(root: Path) -> list:
+    """Phase 10's VOC tree: phase 5's blob images, the blob as the GT box."""
+    from PIL import Image
+    for d in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(42)
+    ids = []
+    for i in range(6):
+        h, w = [(480, 480), (320, 480)][i % 2]
+        img = (rng.random((h, w, 3)) * 100).astype(np.uint8)
+        y, x = int(rng.integers(40, h - 120)), int(rng.integers(40, w - 120))
+        img[y:y + 100, x:x + 100] = [210, 70, 60]
+        ids.append(f"v{i}")
+        Image.fromarray(img).save(root / "JPEGImages" / f"v{i}.jpg", quality=95)
+        (root / "Annotations" / f"v{i}.xml").write_text(
+            f"<annotation><object><name>blob</name><truncated>0</truncated>"
+            f"<difficult>0</difficult><bndbox><xmin>{x + 1}</xmin><ymin>{y + 1}</ymin>"
+            f"<xmax>{x + 100}</xmax><ymax>{y + 100}</ymax></bndbox></object></annotation>")
+    (root / "ImageSets" / "Main" / "trainval.txt").write_text("\n".join(ids))
+    return ids
+
+
+@contextlib.contextmanager
+def kernel_shapes(seen: set):
+    """Add (kernel, batch, T or N, dtype or block width) to `seen` for every
+    kernel wrapper call that the ViT and the eigensolvers make."""
+    from deep_spectral_tpu_torch.models import vit
+    from deep_spectral_tpu_torch.ops import eigen
+    sites = [(vit, "flash_attention_packed", lambda q, *_: (q.shape[0], q.shape[1], q.dtype)),
+             (vit, "flash_attention_lse", lambda q, *_: (q.shape[0], q.shape[1], q.dtype)),
+             (eigen, "chebyshev_filter", lambda S, X, *_: tuple(X.shape))]
+    saved = [getattr(mod, name) for mod, name, _ in sites]
+    for (mod, name, shape), fn in zip(sites, saved):
+        def call(*a, _fn=fn, _name=name, _shape=shape, **kw):
+            seen.add((_name, *_shape(*a)))
+            return _fn(*a, **kw)
+        setattr(mod, name, call)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(sites, saved):
+            setattr(mod, name, fn)
+
+
+def phase_localization(tmp: Path) -> None:
+    """Stages 1-2 and the localization CLI in this process, each with the
+    launch counts set to 0 just before it and read just after; the shapes
+    they give the kernels must be among those phases 2-3 hold. Stages 1-2
+    run again with no batch in flight and must write the same bytes."""
+    import torch
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.pipeline.extract import extract_eigs, extract_features
+    from deep_spectral_tpu_torch.tasks import cli as task_cli
+    from deep_spectral_tpu_torch.utils import native_cc
+    voc = tmp / "voc"
+    ids = make_loc_voc(voc)
+    (tmp / "list.txt").write_text("\n".join(f"{i}.jpg" for i in ids))
+    # blocks that attend before the feature (the last block's qkv) or the
+    # attention map (the last block's, on the einsum route)
+    blocks = get_model_config("dino_vits16").depth - 1
+    batches = 2  # one b4 batch per image size
+    held = ({("flash_attention_packed", 4, t, torch.bfloat16) for t in LOC_FLASH_T}
+            | {("flash_attention_lse", 1, t, torch.float32) for t in LOC_LSE_T}
+            | {("chebyshev_filter", 4, n, K + 3) for n in LOC_CHEB_N})
+
+    def stages(suffix: str) -> list:
+        feats, eigs = str(tmp / f"features{suffix}"), str(tmp / f"eigs{suffix}")
+        return [("extract_features" + suffix, lambda: extract_features(
+                    str(tmp / "list.txt"), str(voc / "JPEGImages"), "dino_vits16", 4, feats,
+                    device="cuda"), {"flash_attention_packed": blocks * batches}),
+                ("extract_eigs" + suffix, lambda: extract_eigs(
+                    str(voc / "JPEGImages"), feats, eigs, K=K, batch_size=4,
+                    image_color_lambda=COLOR_LAMBDA, device="cuda"),
+                 {"chebyshev_filter": None})]
+
+    loc = ["localization", "--dataset_root", str(voc), "--model_name", "dino_vits16",
+           "--device", "cuda"]
+    runs = stages("") + [
+        (method, lambda f=flags, m=method: task_cli.main(loc + f + ["--output_dir",
+                                                                    str(tmp / m)]), want)
+        for method, flags, want in (
+            ("eigenseg", ["--eigenseg", "--precomputed_eigs_dir", str(tmp / "eigs")], {}),
+            ("lost", ["--lost"], {"flash_attention_lse": blocks * len(ids)}),
+            ("dino_seg", ["--dino_seg"], {"flash_attention_lse": blocks * len(ids)}))]
+    seen = set()
+
+    def drive(name, run, want):
+        """`want`: each kernel's launches, None for at least one; others 0."""
+        t0 = time.perf_counter()
+        _zero_launches()
+        with kernel_shapes(seen):
+            run()
+        torch.cuda.synchronize()
+        launches = _launches()
+        log(f"[10] {name}: {time.perf_counter() - t0:.1f} s (host clock), launches {launches}")
+        off = {n: c for n, c in launches.items()
+               if not (c > 0 if want.get(n, 0) is None else c == want.get(n, 0))}
+        if off:
+            raise AssertionError(f"{name}: launches {off}, expected {want} and no others")
+
+    os.environ.pop("DSS_TPU_INFLIGHT", None)  # the default: one batch in flight
+    scores = {}
+    for name, run, want in runs:
+        drive(name, run, want)
+        if name in ("eigenseg", "lost", "dino_seg"):
+            _, score, count = (tmp / name / "results.txt").read_text().strip().split(",")
+            if int(count) != len(ids):
+                raise AssertionError(f"{name}: results.txt counts {count} of {len(ids)} images")
+            scores[name] = float(score)
+    os.environ["DSS_TPU_INFLIGHT"] = "0"
+    try:
+        for run in stages("0"):
+            drive(*run)
+    finally:
+        del os.environ["DSS_TPU_INFLIGHT"]
+    log(f"[10] kernel shapes of the phase: {sorted(map(str, seen))}")
+    if not seen <= held:
+        raise AssertionError(f"shapes phases 2-3 do not hold: {seen - held}")
+    for kind in ("features", "eigs"):
+        files = sorted((tmp / kind).iterdir())
+        differ = [f.name for f in files if f.read_bytes() != (tmp / f"{kind}0" / f.name)
+                  .read_bytes()]
+        if len(files) != len(ids) or differ:
+            raise AssertionError(f"{kind}: {len(files)} files, {differ} differ with no batch "
+                                 f"in flight")
+    log(f"[10] stages 1-2 with no batch in flight (DSS_TPU_INFLIGHT=0) wrote the same bytes "
+        f"({len(ids)} feature and {len(ids)} eig files)")
+    log(f"[10] CorLoc over {len(ids)} blob images (random-weight dino_vits16, f32 on-the-fly "
+        f"forwards): {scores}; connected components: {native_cc.backend()}")
+    if scores["eigenseg"] < CORLOC_FLOOR:
+        raise AssertionError(f"color-fused eigenseg CorLoc {scores['eigenseg']} is below "
+                             f"{CORLOC_FLOOR}")
+
 
 
 def _max_err(got, ref, valid):
@@ -893,6 +1260,9 @@ def main() -> int:
     train_launches = phase_train(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_cli(Path(tmp))
+    phase_stage2_routes(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_localization(Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [

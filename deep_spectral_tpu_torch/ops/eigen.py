@@ -1,4 +1,4 @@
-"""Batched graph eigensolvers for stage 2 (the main-path subset of
+"""Batched graph eigensolvers for stage 2 (the port of
 `deep_spectral_tpu.ops.eigen`).
 
 The reference solves, per image on the host, (D - W) x = lam D x for the K
@@ -11,19 +11,26 @@ package, the port whitens (A = I - D^-1/2 W D^-1/2), solves A, and unwhitens
   * 'chebyshev': Chebyshev-filtered subspace iteration (`_chebyshev_laplacian`),
     whose filter chain is the hand-written CUDA kernel on the GPU
     (`ops/cheb_filter.py`), residual-guarded;
-  * 'lobpcg' (graphs above the chebyshev admission, or lapnorm=False at
-    N >= 512) is not ported yet and raises NotImplementedError.
+  * 'lobpcg': block LOBPCG (`ops/lobpcg.py`) on the Gershgorin-shifted
+    operator, for graphs above the chebyshev admission (CHEB_MAX_N) and for
+    lapnorm=False at N >= 512.
+
+`spectral_decompose_batched` also runs the reference's other `which_matrix`
+modes ('affinity' and 'affinity_torch': the largest eigenpairs of W;
+'affinity_svd': the feature matrix's left singular vectors;
+'matting_laplacian', routed down the laplacian branch as in the JAX package)
+and the color-fused graph W = W_feat / max + lambda W_color.
 
 Every function here is batched over a leading image dimension. The JAX
-package runs its adaptive outer loop as a `lax.while_loop` under `vmap`,
-where a lane that has converged keeps its carry frozen while the batch loops
-on; the port loops on the host (one device sync per outer iteration) and
-freezes converged lanes with `torch.where`, so an image's result does not
-depend on its batch-mates.
+package runs its iterative solvers as `lax.while_loop`s under `vmap`, where
+a lane that has converged keeps its carry frozen while the batch loops on;
+the port loops on the host (one device sync per iteration) and freezes
+converged lanes with `torch.where`, so an image's result does not depend on
+its batch-mates.
 
-Precision: the solver's Rayleigh-Ritz products, the residual and A_mv run in
-true f32 (`exact_f32()`, no TF32), the filter chain on a bf16 operator with
-f32 accumulation; the small m x m eighs use `torch.linalg.eigh`.
+Precision: the solvers' Rayleigh-Ritz products, the residual, LOBPCG and
+A_mv run in true f32 (`exact_f32()`, no TF32), the filter chain on a bf16
+operator with f32 accumulation; the small eighs use `torch.linalg.eigh`.
 """
 from __future__ import annotations
 
@@ -32,8 +39,10 @@ from typing import Optional, Union
 import torch
 
 from ..utils.precision import exact_f32
-from .affinity import degree_vector, feature_affinity
+from .affinity import degree_vector, feature_affinity, l2_normalize
 from .cheb_filter import chebyshev_filter
+from .lobpcg import eigh_finite as _eigh_finite
+from .lobpcg import lobpcg_standard
 
 # Convergence guard for the Chebyshev subspace solver: max whitened residual
 # ||A x_k - theta_k x_k|| above which a result is rejected and the exact dense
@@ -99,12 +108,7 @@ def _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale=None):
     evals, V = evals[:, :K], evecs[:, :, :K]
     if lapnorm:
         V = torch.rsqrt(d)[:, :, None] * V  # unwhiten: x^T D x = 1
-    vectors = V.transpose(1, 2)
-    if mask is not None:
-        vectors = vectors * mask.to(vectors.dtype)[:, None, :]
-    if apply_sign_fix:
-        vectors = sign_fix(vectors, mask)
-    return evals, vectors
+    return evals, _as_vectors(V, mask, apply_sign_fix)
 
 
 def _resolve_solver(N: int, m_block: int, lapnorm: bool, solver: str) -> str:
@@ -144,13 +148,25 @@ def default_start_block(N: int, m: int) -> torch.Tensor:
     return torch.randn((N, m), generator=torch.Generator().manual_seed(0))
 
 
-def _eigh_finite(M: torch.Tensor):
-    """Batched eigh that tolerates non-finite lanes: they are solved as the
-    identity and flagged, instead of making LAPACK/cuSOLVER raise."""
-    bad = ~torch.isfinite(M).all(dim=-1).all(dim=-1)
-    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    w, V = torch.linalg.eigh(torch.where(bad[:, None, None], eye, M))
-    return w, V, bad
+def _start_block(x0, B: int, N: int, m: int, mask, device) -> torch.Tensor:
+    """The iterative solvers' (B, N, m) start block: x0 (N, m), or
+    `default_start_block`, with padded rows zeroed."""
+    X = default_start_block(N, m) if x0 is None else torch.as_tensor(x0, dtype=torch.float32)
+    X = X.to(device, torch.float32).expand(B, N, m)
+    if mask is not None:
+        X = X * mask.to(torch.float32)[:, :, None]
+    return X
+
+
+def _as_vectors(V, mask, apply_sign_fix):
+    """(B, N, K) solver columns -> (B, K, N) rows, padding zeroed, signs
+    fixed as the reference does."""
+    vectors = V.transpose(1, 2)
+    if mask is not None:
+        vectors = vectors * mask.to(vectors.dtype)[:, None, :]
+    if apply_sign_fix:
+        vectors = sign_fix(vectors, mask)
+    return vectors
 
 
 def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
@@ -175,11 +191,7 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
     def A_mv(X):  # I - D^-1/2 W D^-1/2, true f32
         return X - sc[:, :, None] * (W @ (sc[:, :, None] * X))
 
-    X = (default_start_block(N, m_block) if x0 is None
-         else torch.as_tensor(x0, dtype=torch.float32))
-    X = X.to(dev, torch.float32).expand(B, N, m_block)
-    if mask is not None:
-        X = X * mask.to(torch.float32)[:, :, None]
+    X = _start_block(x0, B, N, m_block, mask, dev)
 
     def rr(X):
         X = X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
@@ -231,17 +243,47 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
             res = torch.where(active, res_n, res)
             outers += active.to(torch.int32)
 
-    evals = theta[:, :K]
-    vectors = (inv_sqrt_d[:, :, None] * X[:, :, :K]).transpose(1, 2)
-    if mask is not None:
-        vectors = vectors * mask.to(vectors.dtype)[:, None, :]
-    if apply_sign_fix:
-        vectors = sign_fix(vectors, mask)
-    return evals, vectors, res, outers
+    vectors = _as_vectors(inv_sqrt_d[:, :, None] * X[:, :, :K], mask, apply_sign_fix)
+    return theta[:, :K], vectors, res, outers
+
+
+def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
+                      apply_sign_fix, w_scale=None, x0=None):
+    """Block LOBPCG for the smallest-K Laplacian eigenpairs, batched: the
+    largest of the shifted operator c I - A, c a Gershgorin bound per image,
+    with a block of m_block = K + extra. Padded rows stay zero (zero start
+    rows, zero matvec rows). `iters` caps the iterations and `tol` is
+    `lobpcg_standard`'s. x0: optional (N, m_block) start block (default
+    `default_start_block`). W (B, N, N), d (B, N), w_scale (B,) or None."""
+    B, N, _ = W.shape
+    if lapnorm:
+        inv_sqrt_d = torch.rsqrt(d)
+        s = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
+        c = 1.0 + (s[:, :, None] * W * s[:, None, :]).abs().sum(dim=2).amax(dim=1)
+
+        def mv(X):
+            return (c - 1.0)[:, None, None] * X + s[:, :, None] * (W @ (s[:, :, None] * X))
+    else:
+        wsc = (torch.ones(B, dtype=W.dtype, device=W.device) if w_scale is None
+               else w_scale)
+        c = (d + wsc[:, None] * W.abs().sum(dim=2)).amax(dim=1) + 1.0
+
+        def mv(X):
+            return ((c[:, None] - d)[:, :, None] * X
+                    + wsc[:, None, None] * (W @ X))
+
+    X0 = _start_block(x0, B, N, m_block, mask, W.device)
+    with exact_f32():
+        theta, V, _ = lobpcg_standard(mv, X0, m=iters, tol=tol)
+    V = V[:, :, :K]
+    if lapnorm:
+        V = torch.rsqrt(d)[:, :, None] * V
+    return (c[:, None] - theta)[:, :K], _as_vectors(V, mask, apply_sign_fix)
 
 
 def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
-                            apply_sign_fix=True, solver="auto", cheb_outer=4,
+                            apply_sign_fix=True, solver="auto", lobpcg_iters=None,
+                            lobpcg_tol=None, lobpcg_block_extra=3, cheb_outer=4,
                             cheb_degree=10, cheb_guard=True,
                             cheb_window_init="auto", return_residual=False,
                             w_scale=None, w_premasked=False, x0=None):
@@ -259,30 +301,37 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
         d = torch.where(d_raw < 1e-12, 1.0, d_raw)
 
     validate_cheb_window_init(cheb_window_init)
-    solver = _resolve_solver(N, K + 3, lapnorm, solver)
-    if solver == "lobpcg":
-        raise NotImplementedError(
-            f"LOBPCG (N={N}, lapnorm={lapnorm}) is not ported yet")
-    if solver == "chebyshev":
-        if not lapnorm:
-            raise ValueError("solver='chebyshev' supports lapnorm=True only")
-        evals, vectors, res, _ = _chebyshev_laplacian(
-            W, d, K, K + 3, cheb_outer, cheb_degree, mask, apply_sign_fix,
-            w_scale=w_scale, window_init=cheb_window_init, x0=x0)
+    m_block = K + lobpcg_block_extra
+    solver = _resolve_solver(N, m_block, lapnorm, solver)
+    if solver in ("lobpcg", "chebyshev"):
+        if solver == "lobpcg":
+            iters = lobpcg_iters if lobpcg_iters is not None else (60 if N <= 2048 else 100)
+            evals, vectors = _lobpcg_laplacian(W, d, K, m_block, iters, lobpcg_tol, lapnorm,
+                                               mask, apply_sign_fix, w_scale=w_scale, x0=x0)
+            res = torch.zeros(B, dtype=torch.float32, device=W.device)
+        else:
+            if not lapnorm:
+                raise ValueError("solver='chebyshev' supports lapnorm=True only")
+            evals, vectors, res, _ = _chebyshev_laplacian(
+                W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
+                w_scale=w_scale, window_init=cheb_window_init, x0=x0)
         if return_residual:
             return evals, vectors, res
         if cheb_guard:
-            # The solver's fallback, as the reference's ARPACK retry
-            # (extract/extract.py:227-234); rr() gives non-finite lanes res=inf.
-            bad = torch.nonzero(~(res <= CHEB_RESIDUAL_TOL)).flatten()
+            # The solvers' fallback, as the reference's ARPACK retry
+            # (extract/extract.py:227-234): a lane whose residual is above
+            # the guard or whose result is not finite is re-solved with eigh.
+            ok = ((res <= CHEB_RESIDUAL_TOL) & torch.isfinite(evals).all(dim=1)
+                  & torch.isfinite(vectors).flatten(1).all(dim=1))
+            bad = torch.nonzero(~ok).flatten()
             if bad.numel():
-                print(f"eigs: chebyshev residual above {CHEB_RESIDUAL_TOL} on "
-                      f"{bad.numel()}/{B} image(s) in a batch; re-solving those "
-                      f"with dense eigh")
-                ev_d, vec_d = _dense_laplacian(
-                    W[bad], d[bad], K, lapnorm,
-                    None if mask is None else mask[bad], apply_sign_fix,
-                    None if w_scale is None else w_scale[bad])
+                print(f"eigs: {solver} under-converged on {bad.numel()}/{B} image(s) "
+                      f"in a batch; re-solving those with dense eigh")
+                with exact_f32():
+                    ev_d, vec_d = _dense_laplacian(
+                        W[bad], d[bad], K, lapnorm,
+                        None if mask is None else mask[bad], apply_sign_fix,
+                        None if w_scale is None else w_scale[bad])
                 evals, vectors = evals.clone(), vectors.clone()
                 evals[bad], vectors[bad] = ev_d, vec_d
         return evals, vectors
@@ -296,6 +345,9 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
 def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
                    mask: Optional[torch.Tensor] = None,
                    apply_sign_fix: bool = True, solver: str = "auto",
+                   lobpcg_iters: Optional[int] = None,
+                   lobpcg_tol: Optional[float] = None,
+                   lobpcg_block_extra: int = 3,
                    cheb_outer: int = 4, cheb_degree: int = 10,
                    cheb_guard: bool = True, cheb_window_init: str = "auto",
                    return_residual: bool = False, w_scale=None,
@@ -304,15 +356,20 @@ def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
 
     lapnorm=True: (D - W) x = lam D x via the whitened operator (the
     reference default); lapnorm=False: (D - W) x = lam x. solver: 'eigh',
-    'chebyshev' or 'auto' (see `_resolve_solver`). With cheb_guard a
-    chebyshev result whose residual exceeds CHEB_RESIDUAL_TOL is replaced by
-    the dense solve; return_residual returns (evals, vectors, residual)
-    unguarded. w_scale: solve w_scale * W without materializing it;
+    'chebyshev', 'lobpcg' or 'auto' (see `_resolve_solver`). lobpcg_iters
+    caps LOBPCG's iterations (None: 60 up to N = 2048, 100 above),
+    lobpcg_tol is its exit tolerance (None: f32 epsilon), and its block is
+    K + lobpcg_block_extra (also the chebyshev block). With cheb_guard an
+    iterative result that is not finite, or a chebyshev result whose
+    residual exceeds CHEB_RESIDUAL_TOL, is replaced by the dense solve;
+    return_residual returns (evals, vectors, residual) unguarded. w_scale: solve w_scale * W without materializing it;
     w_premasked: W already has zero padded rows and columns. Returns
     eigenvalues (K,) ascending and eigenvectors (K, N)."""
     out = _laplacian_eigs_batched(
         W[None], K, lapnorm=lapnorm, mask=None if mask is None else mask[None],
-        apply_sign_fix=apply_sign_fix, solver=solver, cheb_outer=cheb_outer,
+        apply_sign_fix=apply_sign_fix, solver=solver, lobpcg_iters=lobpcg_iters,
+        lobpcg_tol=lobpcg_tol, lobpcg_block_extra=lobpcg_block_extra,
+        cheb_outer=cheb_outer,
         cheb_degree=cheb_degree, cheb_guard=cheb_guard,
         cheb_window_init=cheb_window_init, return_residual=return_residual,
         w_scale=None if w_scale is None else torch.as_tensor(w_scale).reshape(1),
@@ -329,8 +386,45 @@ def resolve_eig_chunk(eig_chunk: Union[int, str, None], B: int) -> Optional[int]
     return eig_chunk or None
 
 
+def affinity_eigs(W: torch.Tensor, K: int, *, mask: Optional[torch.Tensor] = None,
+                  apply_sign_fix: bool = True):
+    """Largest-K eigenpairs of affinities W (B, N, N), with the reference's
+    quirk (extract/extract.py:166-172): the eigenvalues ascending (ARPACK's
+    order), the eigenvectors (B, K, N) in descending eigenvalue order. Padded
+    eigenvalues are pushed below the valid spectrum."""
+    W = W.float()
+    if mask is not None:
+        m = mask.to(W.dtype)
+        W = W * m[:, :, None] * m[:, None, :]
+        bound = W.abs().sum(dim=-1).amax(dim=-1) + 1.0
+        W = W - torch.diag_embed(torch.where(mask, 0.0, bound[:, None]))
+    evals, evecs = torch.linalg.eigh(W)
+    return evals[:, -K:], _as_vectors(evecs[:, :, -K:].flip(-1), mask, apply_sign_fix)
+
+
+def affinity_svd_eigs(feats: torch.Tensor, K: int, *,
+                      mask: Optional[torch.Tensor] = None,
+                      apply_sign_fix: bool = True):
+    """The reference's 'affinity_svd' mode (extract/extract.py:160-163): the
+    top-K singular values of the (masked) features (B, N, D) and their left
+    singular vectors (B, K, N)."""
+    f = feats.float()
+    if mask is not None:
+        f = f * mask.to(f.dtype)[:, :, None]
+    U, S, _ = torch.linalg.svd(f, full_matrices=False)
+    vectors = U[:, :, :K].transpose(1, 2)
+    if apply_sign_fix:
+        vectors = sign_fix(vectors, mask)
+    return S[:, :K], vectors
+
+
+_WHICH_MATRIX = ("laplacian", "matting_laplacian", "affinity", "affinity_torch",
+                 "affinity_svd")
+
+
 def spectral_decompose_batched(
-        feats: torch.Tensor, masks: Optional[torch.Tensor] = None, *,
+        feats: torch.Tensor, masks: Optional[torch.Tensor] = None,
+        color_W: Optional[torch.Tensor] = None, *,
         K: int = 5, which_matrix: str = "laplacian", normalize: bool = True,
         threshold_at_zero: bool = True, lapnorm: bool = True,
         image_color_lambda: float = 0.0, solver: str = "auto",
@@ -339,39 +433,61 @@ def spectral_decompose_batched(
         eig_chunk: Union[int, str, None] = "auto", x0=None):
     """Affinity -> Laplacian -> eigensolve for a batch of images.
 
-    feats (B, N, D), masks (B, N) bool. The affinity's max-normalization is
-    deferred into the solver (w_scale). With return_residual, also returns
-    the per-image chebyshev residuals (0 for eigh), unguarded; without it,
-    images whose residual exceeds CHEB_RESIDUAL_TOL are re-solved with dense
-    eigh by `_laplacian_eigs_batched`'s guard, which prints how many. eig_chunk
+    feats (B, N, D), masks (B, N) bool, color_W (B, N, N) or None. With
+    color_W and image_color_lambda > 0 the solved graph is the reference's
+    W_feat / max + lambda W_color (extract/extract.py:199-221); otherwise the
+    affinity's max-normalization is deferred into the solver (w_scale).
+    which_matrix: 'laplacian' or 'matting_laplacian' (the Laplacian
+    eigenpairs), 'affinity' or 'affinity_torch' (`affinity_eigs`),
+    'affinity_svd' (`affinity_svd_eigs`). With return_residual, also
+    returns the per-image chebyshev residuals (0 for the other solvers and
+    modes), unguarded; without it, images whose iterative solve did not
+    converge (a residual above CHEB_RESIDUAL_TOL or a non-finite result) are
+    re-solved with dense eigh by `_laplacian_eigs_batched`'s guard, which
+    prints how many. eig_chunk
     solves the batch in sequential sub-batches (see resolve_eig_chunk).
-    Returns eigenvalues (B, K) and eigenvectors (B, K, N)."""
-    if which_matrix != "laplacian":
-        raise NotImplementedError(
-            f"which_matrix={which_matrix!r} is not ported yet (laplacian only)")
-    if image_color_lambda > 0:
-        raise NotImplementedError("color-fused affinities (image_color_lambda "
-                                  "> 0) are not ported yet")
+    x0: the iterative solvers' (N, K + 3) start block. Returns eigenvalues
+    (B, K) and eigenvectors (B, K, N)."""
+    if which_matrix not in _WHICH_MATRIX:
+        raise ValueError(f"unknown which_matrix: {which_matrix}")
     B, N, _ = feats.shape
     if masks is None:
         masks = torch.ones((B, N), dtype=torch.bool, device=feats.device)
+    fuse = color_W is not None and image_color_lambda > 0
 
-    def solve(f, m):
-        W = feature_affinity(f, normalize=normalize,
-                             threshold_at_zero=threshold_at_zero,
-                             max_normalize=False, mask=m)
-        w_scale = 1.0 / torch.clamp_min(W.amax(dim=(-2, -1)), 1e-12)
-        return _laplacian_eigs_batched(
-            W, K, lapnorm=lapnorm, mask=m, solver=solver, cheb_degree=cheb_degree,
-            cheb_window_init=cheb_window_init, return_residual=return_residual,
-            w_scale=w_scale, w_premasked=True, x0=x0)
+    def solve(f, m, cw):
+        if which_matrix in ("laplacian", "matting_laplacian"):
+            kw = dict(lapnorm=lapnorm, mask=m, solver=solver, cheb_degree=cheb_degree,
+                      cheb_window_init=cheb_window_init,
+                      return_residual=return_residual, w_premasked=True, x0=x0)
+            W = feature_affinity(f, normalize=normalize,
+                                 threshold_at_zero=threshold_at_zero,
+                                 max_normalize=fuse, mask=m)
+            if fuse:
+                # both terms have zero padded rows and columns
+                return _laplacian_eigs_batched(
+                    W + cw.float() * image_color_lambda, K, **kw)
+            w_scale = 1.0 / torch.clamp_min(W.amax(dim=(-2, -1)), 1e-12)
+            return _laplacian_eigs_batched(W, K, w_scale=w_scale, **kw)
+        if which_matrix == "affinity_svd":
+            out = affinity_svd_eigs(l2_normalize(f.float()) if normalize else f, K,
+                                    mask=m)
+        else:
+            W = feature_affinity(f, normalize=normalize,
+                                 threshold_at_zero=threshold_at_zero,
+                                 max_normalize=False, mask=m)
+            out = affinity_eigs(W, K, mask=m)
+        if return_residual:
+            return (*out, torch.zeros(f.shape[0], dtype=torch.float32, device=f.device))
+        return out
 
     chunk = resolve_eig_chunk(eig_chunk, B)
     if not chunk or chunk >= B:
-        return solve(feats, masks)
+        return solve(feats, masks, color_W)
     if B % chunk:
         raise ValueError(f"eig_chunk={chunk} must divide the batch size {B}")
-    parts = [solve(feats[i:i + chunk], masks[i:i + chunk])
+    parts = [solve(feats[i:i + chunk], masks[i:i + chunk],
+                   None if color_W is None else color_W[i:i + chunk])
              for i in range(0, B, chunk)]
     return tuple(torch.cat(p) for p in zip(*parts))
 

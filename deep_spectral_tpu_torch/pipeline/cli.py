@@ -9,7 +9,8 @@
 Flags have the same names as `deep_spectral_tpu.pipeline.cli` (and the
 reference's, extract/extract.py:837-850), plus `--device` (default cuda).
 Implemented with argparse by introspecting each stage function's signature.
-Only stages 1-2 are ported so far.
+Only stages 1-2 are ported so far; every stage-2 flag of the JAX CLI runs but
+`--cheb_filter_impl` other than auto.
 """
 from __future__ import annotations
 

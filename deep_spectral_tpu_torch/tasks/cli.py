@@ -1,14 +1,20 @@
 """Task CLI of the port.
 
+  python -m deep_spectral_tpu_torch.tasks.cli localization \
+      --eigenseg --precomputed_eigs_dir E --dataset VOC12 --dataset_root R
+      (argparse flags of the JAX CLI, object-localization/main.py:26-131,
+      plus --device)
   python -m deep_spectral_tpu_torch.tasks.cli semantic_train [cfg overrides]
 
-YAML + key=value overrides, mirroring the JAX package's
-`deep_spectral_tpu.tasks.cli semantic_train` (and the reference's hydra
-command); the default config is `configs/semantic_train.yaml`. One key is the
-port's own: `device=cuda|cpu` (default: cuda, which raises RuntimeError when
-there is no card; pass `device=cpu` to train on the CPU). The JAX CLI's other
-tasks (localization, object_segmentation, semantic_eval, semantic_generate)
-are not ported yet: they exit with the usage line.
+`semantic_train` takes YAML + key=value overrides, mirroring the JAX
+package's `deep_spectral_tpu.tasks.cli semantic_train` (and the reference's
+hydra command); the default config is `configs/semantic_train.yaml`. The
+port's own options choose the device, `device=cuda|cpu` for semantic_train
+and `--device cuda|cpu` for localization (default: cuda, which raises
+RuntimeError when there is no card). Localization's on-the-fly ViT runs in
+f32, as the JAX CLI's does. The JAX CLI's other
+tasks (object_segmentation, semantic_eval, semantic_generate) are not ported
+yet: they exit with the usage line.
 """
 from __future__ import annotations
 
@@ -18,7 +24,63 @@ import sys
 from pathlib import Path
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
-NOT_PORTED = ("localization", "object_segmentation", "semantic_eval", "semantic_generate")
+NOT_PORTED = ("object_segmentation", "semantic_eval", "semantic_generate")
+
+
+def localization(argv) -> float:
+    """CorLoc of eigenseg (from precomputed eigs or on the fly), LOST or
+    dino_seg over a VOC or COCO20k split; returns the score."""
+    from . import localization as L
+    p = argparse.ArgumentParser(prog="localization")
+    p.add_argument("--dataset", default="VOC12", choices=["VOC07", "VOC12", "COCO20k"])
+    p.add_argument("--set", default="trainval", dest="image_set")
+    p.add_argument("--dataset_root", required=True)
+    p.add_argument("--eigenseg", action="store_true")
+    p.add_argument("--lost", action="store_true")
+    p.add_argument("--dino_seg", action="store_true")
+    p.add_argument("--precomputed_eigs_dir", default=None)
+    p.add_argument("--which_matrix", default="laplacian")
+    p.add_argument("--model_name", default="dino_vits16")
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--remove_hards", action="store_true")
+    p.add_argument("--output_dir", default="./outputs/localization")
+    p.add_argument("--coco_annotations", default=None,
+                   help="COCO instances json (default: "
+                        "<dataset_root>/annotations/instances_train2014.json)")
+    p.add_argument("--coco20k_list", default=None,
+                   help="LOST's published sel_20k file-name list; without it a "
+                        "seeded 20k fallback subset is used (not paper-comparable)")
+    p.add_argument("--keep_iscrowd", action="store_true",
+                   help="keep crowd GT boxes (the reference removes them by "
+                        "default, datasets.py:217)")
+    p.add_argument("--device", default="cuda",
+                   help="device of the on-the-fly ViT and solve (cuda or cpu)")
+    a = p.parse_args(argv)
+    if a.dataset == "COCO20k":
+        root = Path(a.dataset_root)
+        ann_json = a.coco_annotations or str(
+            root / "annotations" / "instances_train2014.json")
+        images_dir = next((root / d for d in ("train2014", "images")
+                           if (root / d).is_dir()), root)
+        ids = L.select_coco_20k(ann_json, sel_file=a.coco20k_list)
+        pairs = L.load_coco_detection(images_dir, ann_json, subset_ids=ids,
+                                      remove_iscrowd=not a.keep_iscrowd)
+    else:
+        year = {"VOC07": "2007", "VOC12": "2012"}[a.dataset]
+        pairs = L.load_voc_detection(a.dataset_root, year=year, image_set=a.image_set)
+    method = "lost" if a.lost else "dino_seg" if a.dino_seg else "eigenseg"
+    model, patch_size = None, 16
+    if a.precomputed_eigs_dir is None or method != "eigenseg":
+        from ..models.convert import load_model
+        from ..models.vit import get_model_config
+        model = load_model(a.model_name, a.ckpt_dir, device=a.device)
+        patch_size = get_model_config(a.model_name).patch_size
+    score, _, _ = L.evaluate_corloc(
+        pairs, a.precomputed_eigs_dir if method == "eigenseg" else None,
+        which_matrix=a.which_matrix, output_dir=a.output_dir,
+        remove_hards=a.remove_hards, method=method, model=model,
+        patch_size=patch_size)
+    return score
 
 
 def semantic_train(argv) -> float:
@@ -61,7 +123,7 @@ def semantic_train(argv) -> float:
     return best
 
 
-TASKS = {"semantic_train": semantic_train}
+TASKS = {"localization": localization, "semantic_train": semantic_train}
 
 
 def main(argv=None) -> int:
@@ -72,7 +134,7 @@ def main(argv=None) -> int:
             print(f"{argv[0]} is not ported to deep_spectral_tpu_torch yet",
                   file=sys.stderr)
         print(f"usage: python -m deep_spectral_tpu_torch.tasks.cli "
-              f"<{'/'.join(TASKS)}> [key=value ...]", file=sys.stderr)
+              f"<{'/'.join(TASKS)}> [flags or key=value ...]", file=sys.stderr)
         return 2
     TASKS[argv[0]](argv[1:])
     return 0

@@ -1,15 +1,18 @@
 """The port's stage-2 ops against the JAX package: affinity, the Chebyshev
 filter twin (vs the Pallas kernel in interpret mode), sign fix, the dense
 Laplacian, the Chebyshev solver (JAX's own start block passed in) and
-spectral_decompose_batched, on image-structured graphs. (The CUDA filter
-kernel against the twin: tests/test_torch_cuda.py.)
+spectral_decompose_batched in every which_matrix mode and on the
+color-fused graph, on image-structured graphs. (The CUDA filter kernel
+against the twin: tests/test_torch_cuda.py; LOBPCG: tests/test_torch_lobpcg.py.)
 
 Tolerances: the affinity and dense paths are f32 throughout, 1e-5/1e-6. The
 filter twin and the Pallas kernel both take bf16 operands with f32
 accumulation; they differ in summation order only, and a last-bit change can
 flip one bf16(T_j) rounding downstream: 1e-4 on |T_d| <= 1. Solver
 eigenvalues agree to 1e-4 and eigenvector |cosines| to 0.999 (the residual
-guard's 2e-3 bounds what either side can leave unconverged).
+guard's 2e-3 bounds what either side can leave unconverged). The affinity
+modes are one dense eigh (or SVD) of an f32 matrix of norm up to ~500 on
+each side: eigenvalues to 1e-5 relative, vectors to |cosine| 0.999.
 """
 import sys
 from pathlib import Path
@@ -282,6 +285,28 @@ def test_spectral_decompose_batched_matches_jax():
     np.testing.assert_allclose(ev_s.numpy(), ev[0].numpy(), atol=1e-6)
 
 
+def test_guard_resolves_non_finite_lobpcg_lanes(monkeypatch):
+    """The solver's one fallback covers LOBPCG too: a lane whose result is
+    not finite is re-solved with eigh, the other lane is left as solved."""
+    feats, *_ = _graphs([7, 8], HW)
+    f_t = torch.from_numpy(feats)
+    solve = te._lobpcg_laplacian
+
+    def one_nan_lane(*a, **kw):
+        evals, vectors = solve(*a, **kw)
+        return evals, torch.where(torch.arange(2)[:, None, None] == 1, torch.nan, vectors)
+
+    monkeypatch.setattr(te, "_lobpcg_laplacian", one_nan_lane)
+    ev, vec = te.spectral_decompose_batched(f_t, K=K, solver="lobpcg")
+    _, vec_raw, _ = te.spectral_decompose_batched(f_t, K=K, solver="lobpcg",
+                                                  return_residual=True)
+    ev_e, vec_e = te.spectral_decompose_batched(f_t, K=K, solver="eigh")
+    assert torch.isnan(vec_raw[1]).all() and torch.isfinite(vec).all()
+    np.testing.assert_array_equal(ev[1].numpy(), ev_e[1].numpy())
+    np.testing.assert_array_equal(vec[1].numpy(), vec_e[1].numpy())
+    np.testing.assert_array_equal(vec[0].numpy(), vec_raw[0].numpy())
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """Parallel test workers each get one torch thread: with torch's default
@@ -306,15 +331,102 @@ def test_solver_selection_matches_jax():
 
 
 def test_unported_paths_raise():
-    f = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 4000, 8)).astype(np.float32))
-    with pytest.raises(NotImplementedError):
-        te.spectral_decompose_batched(f[:, :600], lapnorm=False)  # lobpcg
-    with pytest.raises(NotImplementedError):
-        te.spectral_decompose_batched(f[:, :100], which_matrix="affinity")
-    with pytest.raises(NotImplementedError):
-        te.spectral_decompose_batched(f[:, :100], image_color_lambda=1.0)
+    """What still raises is a caller's error; the graphs and solvers that
+    raised NotImplementedError before run (LOBPCG for lapnorm=False at
+    N=600, an affinity mode, the color-fused graph)."""
     with pytest.raises(ValueError):
         te.laplacian_eigs(torch.eye(8), 2, cheb_window_init="narrow")
+    f = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 600, 8)).astype(np.float32))
+    with pytest.raises(ValueError):
+        te.spectral_decompose_batched(f[:, :100], which_matrix="laplacian_sym")
+    outs = [te.spectral_decompose_batched(f, lapnorm=False, K=3),
+            te.spectral_decompose_batched(f[:, :100], which_matrix="affinity", K=3),
+            te.spectral_decompose_batched(f[:, :100], torch.ones((1, 100), dtype=torch.bool),
+                                          torch.eye(100)[None], image_color_lambda=1.0, K=3)]
+    for (ev, vec), n in zip(outs, (600, 100, 100)):
+        assert ev.shape == (1, 3) and vec.shape == (1, 3, n)
+        assert torch.isfinite(ev).all() and torch.isfinite(vec).all()
+
+
+def _masked_batch():
+    feats, *_ = _graphs([7, 8], HW)
+    mask = np.ones((2, 24, 24), bool)
+    mask[1, 21:, :] = False
+    mask = mask.reshape(2, -1)
+    feats[1][~mask[1]] = 5.0  # garbage in the padding
+    return feats, mask
+
+
+@pytest.mark.parametrize("which_matrix", ["affinity", "affinity_torch", "affinity_svd",
+                                          "matting_laplacian"])
+def test_which_matrix_modes_match_jax(which_matrix):
+    """The reference's other eigen modes, masked and batched: the affinity
+    modes' ascending values with descending vectors, the SVD mode, and
+    'matting_laplacian' down the laplacian branch (its chebyshev solve from
+    JAX's start block)."""
+    feats, mask = _masked_batch()
+    ev, vec, res = te.spectral_decompose_batched(
+        torch.from_numpy(feats), torch.from_numpy(mask), K=K, which_matrix=which_matrix,
+        return_residual=True, x0=_jax_start_block(feats.shape[1]))
+    jev, jvec, jres = (np.asarray(o) for o in je.spectral_decompose_batched(
+        jnp.asarray(feats), jnp.asarray(mask), K=K, which_matrix=which_matrix,
+        return_residual=True))
+    if which_matrix == "matting_laplacian":
+        assert res.max().item() <= te.CHEB_RESIDUAL_TOL and 0 < jres.max() <= te.CHEB_RESIDUAL_TOL
+        np.testing.assert_allclose(ev.numpy(), jev, atol=1e-4)
+    else:
+        assert not res.any() and not jres.any()
+        np.testing.assert_allclose(ev.numpy(), jev, rtol=1e-5)
+        if which_matrix != "affinity_svd":
+            assert (np.diff(ev.numpy(), axis=1) >= 0).all()  # ascending values
+    assert _abs_cos(vec.numpy(), jvec).min() > 0.999
+    if which_matrix != "affinity_svd":
+        assert not vec[1][:, ~mask[1]].any()
+
+
+@pytest.mark.parametrize("color", ["knn", "rw"])
+def test_color_fused_matches_jax(color):
+    """W = W_feat / max + lambda W_color (extract/extract.py:199-221) on
+    bucket-padded images, the color graph from the port's own affinity."""
+    from deep_spectral_tpu_torch.ops import affinity as ta_
+    feats, mask = _masked_batch()
+    imgs = np.random.default_rng(0).random((2, 24, 24, 3)).astype(np.float32)
+    imgs[:, 5:12, 6:15] = [0.9, 0.2, 0.1]
+    m_t = torch.from_numpy(mask)
+    cw = getattr(ta_, f"{color}_affinity")(torch.from_numpy(imgs), mask=m_t)
+    ev, vec, res = te.spectral_decompose_batched(
+        torch.from_numpy(feats), m_t, cw, K=K, image_color_lambda=2.0,
+        return_residual=True, x0=_jax_start_block(feats.shape[1]))
+    jev, jvec, jres = (np.asarray(o) for o in je.spectral_decompose_batched(
+        jnp.asarray(feats), jnp.asarray(mask), jnp.asarray(cw.numpy()), K=K,
+        image_color_lambda=2.0, return_residual=True))
+    assert res.max().item() <= te.CHEB_RESIDUAL_TOL and jres.max() <= te.CHEB_RESIDUAL_TOL
+    np.testing.assert_allclose(ev.numpy(), jev, atol=1e-4)
+    assert _abs_cos(vec.numpy(), jvec).min() > 0.999
+    assert not vec[1][:, ~mask[1]].any()
+    ev0, _ = te.spectral_decompose_batched(torch.from_numpy(feats), m_t, K=K,
+                                           x0=_jax_start_block(feats.shape[1]))
+    assert (ev0 - ev).abs().max() > 1e-3  # the color graph changed the spectrum
+
+
+def test_auto_reaches_lobpcg_above_cheb_max_n(monkeypatch):
+    """At N = 63^2 = 3969 (a P=8 backbone at 504^2) 'auto' routes lapnorm
+    graphs to LOBPCG in both packages; the port's solve runs (cut to 2
+    iterations here) with the auto iteration budget of 100."""
+    N = 63 * 63
+    assert je._resolve_solver(N, K + 3, True, "auto") == "lobpcg"
+    assert te._resolve_solver(N, K + 3, True, "auto") == "lobpcg"
+    budgets, orig = [], te._lobpcg_laplacian
+
+    def short(W, d, K_, m_block, iters, *a, **kw):
+        budgets.append((W.shape[-1], m_block, iters))
+        return orig(W, d, K_, m_block, 2, *a, **kw)
+
+    monkeypatch.setattr(te, "_lobpcg_laplacian", short)
+    f = torch.from_numpy(np.random.default_rng(1).standard_normal((1, N, 8)).astype(np.float32))
+    ev, vec = te.spectral_decompose_batched(f, K=K)
+    assert budgets == [(N, K + 3, 100)]
+    assert vec.shape == (1, K, N) and torch.isfinite(vec).all()
 
 
 def test_laplacian_eigs_single_image_guard():

@@ -2,11 +2,21 @@
 synthetic images, with the same weights (a DINO-format checkpoint of the
 port's seeded init, loaded by both packages through `ckpt_dir`).
 
+Stage 2 runs on the same feature files in both packages in its default
+configuration and, on two of the images (`VARIANT_IMAGES`: each of the JAX
+stage's bucket shapes costs a compile), in the variants of `VARIANTS` (the
+color-fused graph with the knn and rw color affinities, features upsampled
+to a grid of half the patch size, the 'affinity' mode). The port's stages
+run once more with no batch in flight (`DSS_TPU_INFLIGHT=0`), which must
+write the same bytes.
+
 Tolerances: features are stored as fp16; the two fp32 forwards differ by
 ~1e-5, which can move a value across one fp16 rounding step (2^-10
 relative), so 1e-3 relative + 1e-3 absolute. Eigenvalues from identical
-feature files agree to 1e-4 and eigenvectors to |cosine| >= 0.999.
+feature files agree to 1e-4 and eigenvectors to |cosine| >= 0.999; the
+'affinity' mode's eigenvalues (of W, up to ~N) to 1e-5 relative.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +38,24 @@ MODEL = "test_vit_tiny"
 # solver's regime; the others take dense eigh).
 SIZES = [(96, 128), (112, 96), (64, 72), (200, 200)]
 FEATURE_KEYS = {"k", "indices", "file", "id", "model_name", "patch_size", "shape"}
+VARIANTS = {"color_knn": dict(image_color_lambda=1.0, which_color_matrix="knn"),
+            "color_rw": dict(image_color_lambda=1.0, which_color_matrix="rw"),
+            "upsampled": dict(image_downsample_factor=4),  # 2x the P=8 grid
+            "affinity": dict(which_matrix="affinity")}
+# 12x16 (768 nodes upsampled: chebyshev) and 8x9 (ragged in its 8x12 bucket)
+VARIANT_IMAGES = [0, 2]
+
+
+def _no_batch_in_flight(fn, **kw):
+    old = os.environ.get("DSS_TPU_INFLIGHT")
+    os.environ["DSS_TPU_INFLIGHT"] = "0"
+    try:
+        fn(**kw)
+    finally:
+        if old is None:
+            del os.environ["DSS_TPU_INFLIGHT"]
+        else:
+            os.environ["DSS_TPU_INFLIGHT"] = old
 
 
 @pytest.fixture(scope="module")
@@ -59,6 +87,20 @@ def run(tmp_path_factory):
                           device="cpu", **eig)
     t_stages.extract_eigs(features_dir=str(root / "t_feats"), output_dir=str(root / "tt_eigs"),
                           device="cpu", **eig)
+    (root / "j_feats_some").mkdir()
+    for i in VARIANT_IMAGES:
+        stem = Path(names[i]).stem
+        (root / "j_feats_some" / f"{stem}.pth").write_bytes(
+            (root / "j_feats" / f"{stem}.pth").read_bytes())
+    for name, kw in VARIANTS.items():
+        j_stages.extract_eigs(features_dir=str(root / "j_feats_some"),
+                              output_dir=str(root / f"j_eigs_{name}"), **eig, **kw)
+        t_stages.extract_eigs(features_dir=str(root / "j_feats_some"),
+                              output_dir=str(root / f"t_eigs_{name}"), device="cpu", **eig, **kw)
+    _no_batch_in_flight(t_stages.extract_features, output_dir=str(root / "t_feats_0"),
+                        device="cpu", **common)
+    _no_batch_in_flight(t_stages.extract_eigs, features_dir=str(root / "t_feats"),
+                        output_dir=str(root / "tt_eigs_0"), device="cpu", **eig)
     return root, names
 
 
@@ -99,6 +141,40 @@ def test_eigs_match_jax(run, port_eigs):
         assert cos.min() >= 0.999, (stem, cos)
 
 
+def _cos(a, b):
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return np.abs((a * b).sum(1)) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_eigs_variants_match_jax(run, variant):
+    """The stage-2 flags that raised NotImplementedError before this port
+    slice, each against the JAX stage on the same feature files."""
+    root, names = run
+    f = VARIANTS[variant].get("image_downsample_factor", 8)
+    for i in VARIANT_IMAGES:
+        stem, (h, w) = Path(names[i]).stem, SIZES[i]
+        j = load_pth(root / f"j_eigs_{variant}" / f"{stem}.pth")
+        t = load_pth(root / f"t_eigs_{variant}" / f"{stem}.pth")
+        n = ((h // 8) * 8 // f) * ((w // 8) * 8 // f)
+        assert t["eigenvalues"].shape == (5,) and t["eigenvectors"].shape == (5, n)
+        if variant == "affinity":
+            np.testing.assert_allclose(t["eigenvalues"], j["eigenvalues"], rtol=1e-5)
+        else:
+            np.testing.assert_allclose(t["eigenvalues"], j["eigenvalues"], atol=1e-4)
+        assert _cos(t["eigenvectors"], j["eigenvectors"]).min() >= 0.999, stem
+
+
+def test_no_batch_in_flight_same_bytes(run):
+    """DSS_TPU_INFLIGHT=0 (fetch each batch at once) writes the bytes the
+    default (one batch in flight) writes, in both stages."""
+    root, names = run
+    for a, b in (("t_feats", "t_feats_0"), ("tt_eigs", "tt_eigs_0")):
+        for stem in _stems(names):
+            assert (root / a / f"{stem}.pth").read_bytes() == \
+                (root / b / f"{stem}.pth").read_bytes(), (a, stem)
+
+
 def test_stages_resume_and_cli(run, tmp_path, capsys):
     root, names = run
     t_cli.main(["extract_features", "--images_list", str(root / "images.txt"),
@@ -109,12 +185,17 @@ def test_stages_resume_and_cli(run, tmp_path, capsys):
                 "--features_dir", str(root / "t_feats"), "--output_dir", str(tmp_path / "e"),
                 "--K", "3", "--solver", "eigh", "--device", "cpu"])
     assert len(list((tmp_path / "e").iterdir())) == len(names)
-    for flags in (["--image_color_lambda", "1.0"], ["--which_matrix", "affinity"],
-                  ["--cheb_filter_impl", "xla"]):
-        with pytest.raises(NotImplementedError):
-            t_cli.main(["extract_eigs", "--images_root", str(root / "images"),
-                        "--features_dir", str(root / "t_feats"),
-                        "--output_dir", str(tmp_path / "x"), "--device", "cpu", *flags])
+    eigs = ["extract_eigs", "--images_root", str(root / "images"),
+            "--features_dir", str(root / "t_feats"), "--device", "cpu", "--K", "3"]
+    with pytest.raises(NotImplementedError):  # the port has one filter
+        t_cli.main(eigs + ["--output_dir", str(tmp_path / "x"), "--cheb_filter_impl", "xla"])
+    for i, flags in enumerate((["--image_color_lambda", "1.0", "--which_color_matrix", "rw"],
+                               ["--which_matrix", "affinity_svd"],
+                               ["--image_downsample_factor", "16", "--lapnorm", "false"])):
+        t_cli.main(eigs + ["--output_dir", str(tmp_path / f"v{i}"), *flags])
+        assert len(list((tmp_path / f"v{i}").iterdir())) == len(names)
+    n = (200 // 16) ** 2  # the 200x200 image on a 16-pixel grid
+    assert load_pth(tmp_path / "v2" / "img_3.pth")["eigenvectors"].shape == (3, n)
     with pytest.raises(SystemExit):
         t_cli.main(["extract_bboxes"])  # not ported: not a stage of this CLI
 
@@ -123,7 +204,10 @@ def test_port_imports_no_jax():
     code = ("import sys, deep_spectral_tpu_torch, deep_spectral_tpu_torch.pipeline.extract, "
             "deep_spectral_tpu_torch.pipeline.cli, deep_spectral_tpu_torch._build, "
             "deep_spectral_tpu_torch.tasks.cli, deep_spectral_tpu_torch.tasks.semantic_segmentation, "
-            "deep_spectral_tpu_torch.models.deeplab; "
+            "deep_spectral_tpu_torch.models.deeplab, deep_spectral_tpu_torch.ops.lobpcg, "
+            "deep_spectral_tpu_torch.ops.metrics, deep_spectral_tpu_torch.utils.native_cc, "
+            "deep_spectral_tpu_torch.tasks.localization, "
+            "deep_spectral_tpu_torch.tasks.localization_vis; "
             "assert 'jax' not in sys.modules and 'deep_spectral_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parents[1])
