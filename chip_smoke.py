@@ -18,7 +18,11 @@ Phases, each of which must pass:
      buckets (b4, T=1025 and 769), with a ragged mask and one all-masked
      batch row, with the kernel's grid and shared memory, its bound and
      `F.scaled_dot_product_attention` on the same views as its library
-     yardstick; and the fp32 no-grad route (the f32 build of the
+     yardstick; at phase 11's stage-6 buckets (b16, T=65, 257 and 1025)
+     with crop masks (mostly masked: a 5x30-patch crop keeps 151 of 1025
+     keys; 3 padding rows with the CLS key alone), held on the valid rows
+     and on every CLS row, with its bound over the valid keys and SDPA with
+     the key mask; and the fp32 no-grad route (the f32 build of the
      residual-saving forward) at b24 T=901 (ragged) and at phase 10's
      localization forwards (b1, T=901 and 601, no mask);
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
@@ -79,7 +83,19 @@ Phases, each of which must pass:
      per block and batch; stage 2: filter chains; LOST and dino_seg: the f32
      forward per block and image), every kernel shape among those phases 2-3
      hold, each results.txt counting every image; then stages 1-2 again with
-     no batch in flight (DSS_TPU_INFLIGHT=0), which must write the same bytes.
+     no batch in flight (DSS_TPU_INFLIGHT=0), which must write the same bytes;
+ 11. stages 1-8 and both evaluations on a synthetic VOC tree (SEG_IMAGES blob
+     images, 480x480 and 320x480, GT class maps and saliency masks), in
+     this process, at the stages' defaults but stage 1's b4 and stage 2's
+     K=5 b4 (phase 10's held shapes): seeded random-weight dino_vits16 in
+     bf16; `tasks.cli.main` runs semantic_eval (Hungarian, 21 clusters) on
+     stage 8's segmaps and object_segmentation on stage 4's masks. Each run
+     with the launch counts zeroed before and checked after (stage 6: kernel
+     1 once per block and batch), every kernel shape among those phases 2-3
+     hold, each stage's wall time printed, every output with the JAX schema,
+     mIoU and IoU finite (random weights: a smoke of the path); stages 3 and
+     6 again with no batch in flight must write the same bytes; stage 6 once
+     more under torch.profiler for its device time.
 Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
 calls: the median window, with the min-max printed beside it; phase 9's
 solves, which sync the host every iteration, are 5 single calls after a
@@ -95,7 +111,9 @@ fails. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -134,6 +152,10 @@ COLOR_LAMBDA = 1.0
 LOC_FLASH_T = (1025, 769)   # packed kernel, b4 bf16, ragged
 LOC_LSE_T = (901, 601)      # kernel 3's f32 build, b1, no mask
 LOC_CHEB_N = (1024, 640)    # filter kernel, b4, m=8
+# stage 6's kernel shapes: box crops in square power-of-two buckets of 8, 16
+# and 32 patches a side (dino_vits16 on images up to 512 pixels), b16
+STAGE6_B, STAGE6_T = 16, (65, 257, 1025)
+SEG_IMAGES = 24  # phase 11's VOC tree: >= 20 boxes for stage 7's 20 clusters
 CORLOC_FLOOR = 80.0  # color-fused eigenseg on phase 10's blob images; the same
 #                      script logic found 8/8 blobs on the CPU at lambda 1 and 10
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
@@ -187,16 +209,20 @@ def bound(nbytes: float, flops: float, peak: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def attention_work(q, mask, products: int, io_tensors: int, stats: int = 0) -> dict:
+def attention_work(q, mask, products: int, io_tensors: int, kv_tensors: int = 0,
+                   stats: int = 0) -> dict:
     """Bound of a flash kernel over (B, T, H, 64) tensors: `products` T x T x 64
     matrix products per (b, h), over the valid keys only (2 flops per MAC);
-    `io_tensors` (B, T, H, 64) tensors read or written, `stats` (B, H, T) f32
-    rows, and the mask."""
+    `io_tensors` (B, T, H, 64) tensors read or written at every row,
+    `kv_tensors` such tensors read at the valid keys only (a masked key's K
+    and V rows are never needed), `stats` (B, H, T) f32 rows, and the mask."""
     import torch
     b, T, H, hd = q.shape
     keys = mask.sum(dim=1).double() if mask is not None else torch.full((b,), float(T))
     flops = products * 2 * hd * H * T * keys.sum().item()
-    nbytes = io_tensors * q.numel() * q.element_size() + stats * b * H * T * 4 \
+    row_bytes = H * hd * q.element_size()
+    nbytes = io_tensors * q.numel() * q.element_size() \
+        + kv_tensors * keys.sum().item() * row_bytes + stats * b * H * T * 4 \
         + (mask.numel() if mask is not None else 0)
     peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
     return bound(nbytes, flops, peak)
@@ -328,7 +354,7 @@ def phase_flash(dev) -> dict:
         times = (cuda_ms(lambda: flash_attention_packed(q, k, v, mask)),
                  cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)),
                  cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-        bd = attention_work(q, mask, products=2, io_tensors=4)
+        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2)
         log(f"[2] flash b{b} T={T} H=6 hd=64 bf16 ragged={ragged}: max |kernel - twin| "
             f"on valid rows {err:.3e} (tol {FLASH_TOL}); kernel {times[0]}, twin {times[1]}, "
             f"SDPA (unmasked) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
@@ -339,6 +365,36 @@ def phase_flash(dev) -> dict:
                 f"threads, {smem} B of dynamic shared memory")
             main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": times[2].ms,
                     **bd}
+    stage6 = []
+    for T in STAGE6_T:
+        qkv = torch.randn((STAGE6_B, T, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        mask = crop_token_masks(math.isqrt(T - 1), g).to(dev)
+        out = flash_attention_packed(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = flash_attention_packed_plain(q, k, v, mask)
+        diff = (out.float() - ref.float()).abs()
+        err, cls_err = diff[mask].max().item(), diff[:, 0].max().item()
+        if not (np.isfinite(err) and np.isfinite(cls_err)) or max(err, cls_err) > FLASH_TOL:
+            raise AssertionError(f"flash kernel disagrees with its twin at stage 6's "
+                                 f"b{STAGE6_B} T={T}: {err}, CLS rows {cls_err}")
+        worst = max(worst, err, cls_err)
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        key_mask = mask[:, None, None, :]
+        times = (cuda_ms(lambda: flash_attention_packed(q, k, v, mask)),
+                 cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                                attn_mask=key_mask)))
+        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2)
+        log(f"[2] flash at stage 6's bucket b{STAGE6_B} T={T} bf16, {int(mask.sum())} of "
+            f"{mask.numel()} keys valid: max |kernel - twin| on valid rows {err:.3e}, on the "
+            f"CLS rows {cls_err:.3e} (tol {FLASH_TOL}); kernel {times[0]}, twin {times[1]}, "
+            f"SDPA (key mask) {times[2]} ({TIMING}); bound over the valid keys "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} "
+            f"of it")
+        stage6.append({"b": STAGE6_B, "T": T, "valid_keys": int(mask.sum()),
+                       "max_abs_err": max(err, cls_err), "ms": times[0].ms,
+                       "plain_ms": times[1].ms, "library_ms": times[2].ms, **bd})
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
     # the fp32 no-grad route (kernel 3's f32 build): a ragged b24 batch, and
@@ -359,12 +415,32 @@ def phase_flash(dev) -> dict:
         times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
                  cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
                  cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-        bd = attention_work(q, mask, products=2, io_tensors=4, stats=1)
+        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2, stats=1)
         log(f"[2] fp32 no-grad route (kernel 3's f32 build) b{b} T={T} masked={masked}: max "
             f"|kernel - twin| {err:.3e} (tol {F32_TOL}); kernel {times[0]}, twin {times[1]}, "
             f"SDPA (unmasked, f32) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
             f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
-    return {"max_abs_err": worst, **main}
+    return {"max_abs_err": worst, **main, "stage6": stage6}
+
+
+def crop_token_masks(side: int, g):
+    """(STAGE6_B, 1 + side^2) key masks as stage 6 makes them: the CLS token,
+    then each crop's hp x wp patches at the top left of its side x side
+    bucket (the smallest power of two >= max(hp, wp, 8)); row 0 a strip 5
+    patches high and side - 2 wide (151 of 1025 keys at side 32), the last
+    3 rows the padding images of a short last batch (the CLS token alone)."""
+    import torch
+    lo = side // 2 + 1 if side > 8 else 1
+    masks = torch.zeros((STAGE6_B, side, side), dtype=torch.bool)
+    for i in range(STAGE6_B - 3):
+        long_ = int(torch.randint(lo, side + 1, (1,), generator=g))
+        short = int(torch.randint(1, side + 1, (1,), generator=g))
+        hp, wp = (long_, short) if i % 2 else (short, long_)
+        if i == 0:
+            hp, wp = 5, side - 2
+        masks[i, :hp, :wp] = True
+    return torch.cat([torch.ones((STAGE6_B, 1), dtype=torch.bool),
+                      masks.reshape(STAGE6_B, -1)], 1)
 
 
 def whitened_operators(b: int, N: int, dev, g):
@@ -872,6 +948,247 @@ def phase_localization(tmp: Path) -> None:
 
 
 
+def make_seg_voc(root: Path) -> list:
+    """Phase 11's trees: SEG_IMAGES VOC-layout blob images (480x480 and
+    320x480; two blobs of VOC classes; GT SegmentationClass, a third of the
+    images in val) and, beside them, the first blob as a 0/255 saliency mask
+    for the object-segmentation task."""
+    from PIL import Image
+    for d in ("JPEGImages", "SegmentationClass", "ImageSets/Segmentation", "saliency"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(11)
+    ids = []
+    for i in range(SEG_IMAGES):
+        h, w = [(480, 480), (320, 480)][i % 2]
+        img = (rng.random((h, w, 3)) * 100).astype(np.uint8)
+        gt = np.zeros((h, w), np.uint8)
+        for j, size in enumerate((120, 80)):
+            y, x = int(rng.integers(0, h - size)), int(rng.integers(0, w - size))
+            c = int(rng.integers(1, 21))
+            img[y:y + size, x:x + size] = [40 + 10 * c, 200 - 8 * c, 60 + 90 * j]
+            gt[y:y + size, x:x + size] = c
+            if j == 0:
+                sal = np.zeros((h, w), np.uint8)
+                sal[y:y + size, x:x + size] = 255
+        ids.append(f"s{i:02d}")
+        Image.fromarray(img).save(root / "JPEGImages" / f"{ids[-1]}.jpg", quality=95)
+        Image.fromarray(gt).save(root / "SegmentationClass" / f"{ids[-1]}.png")
+        Image.fromarray(sal).save(root / "saliency" / f"{ids[-1]}.png")
+    (root / "ImageSets" / "Segmentation" / "val.txt").write_text("\n".join(ids[::3]))
+    return ids
+
+
+def stage6_batches(bbox_file: Path, patch: int = 16) -> dict:
+    """{side: batches} of stage 6's square buckets for a bbox file, as the
+    stage groups its crops (b STAGE6_B)."""
+    import torch
+    from deep_spectral_tpu_torch.utils.bucketing import square_pow2_bucket
+    sides: dict = {}
+    for bd in torch.load(bbox_file, weights_only=False):
+        for xmin, ymin, xmax, ymax in bd["bboxes_original_resolution"]:
+            side = square_pow2_bucket(max((ymax - ymin) // patch, 1),
+                                      max((xmax - xmin) // patch, 1)).h
+            sides[side] = sides.get(side, 0) + 1
+    return {side: -(-n // STAGE6_B) for side, n in sides.items()}
+
+
+@contextlib.contextmanager
+def lloyd_steps(record: list):
+    """Append the Lloyd steps of every lane (an int tensor of the lanes'
+    shape) of every k-means call to `record`."""
+    from deep_spectral_tpu_torch.ops import kmeans as KM
+    real = KM.lloyd
+
+    def lloyd(*args, **kw):
+        res = real(*args, **kw)
+        record.append(res.n_iter.cpu())
+        return res
+    KM.lloyd = lloyd
+    try:
+        yield
+    finally:
+        KM.lloyd = real
+
+
+def _cli_output(argv: list) -> str:
+    """Run the port's task CLI in this process; its standard output."""
+    from deep_spectral_tpu_torch.tasks import cli as task_cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = task_cli.main(argv)
+    out = buf.getvalue()
+    for line in out.strip().splitlines()[-4:]:
+        log(f"    {line}")
+    if rc != 0:
+        raise AssertionError(f"{argv[0]}: rc {rc}")
+    return out
+
+
+def phase_segments(tmp: Path) -> dict:
+    """Stages 1-8 and both evaluations in this process on phase 11's tree
+    (dino_vits16, seeded random weights, bf16), each run with the launch
+    counts set to 0 just before it and read just after, its wall time
+    printed; stage 6 must launch kernel 1 once per block and batch, at
+    shapes phase 2 holds; every output must have the JAX schema; stages 3
+    and 6 rerun with no batch in flight must write the same bytes; stage 6
+    runs once more under torch.profiler for its device time. Returns
+    stage 6's kernel-1 launches."""
+    import torch
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.pipeline import extract as S
+    voc = tmp / "voc"
+    ids = make_seg_voc(voc)
+    jpegs = str(voc / "JPEGImages")
+    (tmp / "list.txt").write_text("\n".join(f"{i}.jpg" for i in ids))
+    out = {k: str(tmp / k) for k in ("features", "eigs", "multi", "single", "semantic",
+                                     "multi0")}
+    boxes, feats6, clusters = (str(tmp / f) for f in ("bboxes.pth", "bbox_features.pth",
+                                                      "bbox_clusters.pth"))
+    feats6_0 = str(tmp / "inflight0" / "bbox_features.pth")  # same name: same bytes
+    blocks = get_model_config("dino_vits16").depth
+    held = ({("flash_attention_packed", 4, t, torch.bfloat16) for t in LOC_FLASH_T}
+            | {("flash_attention_packed", STAGE6_B, t, torch.bfloat16) for t in STAGE6_T}
+            | {("chebyshev_filter", 4, n, K + 3) for n in LOC_CHEB_N})
+    seen, walls, steps = set(), {}, []
+
+    def stage6_want():
+        return {"flash_attention_packed": blocks * sum(stage6_batches(Path(boxes)).values())}
+
+    def drive(name, run, want):
+        """`want`: each kernel's launches, None for at least one; others 0."""
+        _zero_launches()
+        n_calls = len(steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with kernel_shapes(seen), lloyd_steps(steps):
+            result = run()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches = _launches()
+        want = want() if callable(want) else want
+        log(f"[11] {name}: {walls[name]:.3f} s (host clock), launches {launches}")
+        from deep_spectral_tpu_torch.utils.device import POLL_EVERY
+        for it in steps[n_calls:]:
+            log(f"[11]   k-means call, {it.numel()} lanes (images x restarts): Lloyd steps "
+                f"per lane mean {it.float().mean().item():.1f}, max {it.max().item()}, so "
+                f"{-(-it.max().item() // POLL_EVERY) + 1} host checks (one every {POLL_EVERY} "
+                f"steps, and the last after the slowest lane stopped)")
+        off = {n: c for n, c in launches.items()
+               if not (c > 0 if want.get(n, 0) is None else c == want.get(n, 0))}
+        if off:
+            raise AssertionError(f"{name}: launches {off}, expected {want} and no others")
+        return result, launches
+
+    os.environ.pop("DSS_TPU_INFLIGHT", None)  # the default: one batch in flight
+    stage_runs = [
+        ("1 extract_features", lambda: S.extract_features(
+            str(tmp / "list.txt"), jpegs, "dino_vits16", 4, out["features"], device="cuda"),
+         {"flash_attention_packed": (blocks - 1) * 6}),  # 3 b4 batches per image size
+        ("2 extract_eigs", lambda: S.extract_eigs(
+            jpegs, out["features"], out["eigs"], K=K, batch_size=4, device="cuda"),
+         {"chebyshev_filter": None}),
+        ("3 extract_multi_region_segmentations", lambda: S.extract_multi_region_segmentations(
+            out["features"], out["eigs"], out["multi"], device="cuda"), {}),
+        ("4 extract_single_region_segmentations",
+         lambda: S.extract_single_region_segmentations(out["features"], out["eigs"],
+                                                       out["single"]), {}),
+        ("5 extract_bboxes", lambda: S.extract_bboxes(out["features"], out["multi"], boxes), {}),
+        ("6 extract_bbox_features", lambda: S.extract_bbox_features(
+            jpegs, boxes, "dino_vits16", feats6, device="cuda"), stage6_want),
+        ("7 extract_bbox_clusters", lambda: S.extract_bbox_clusters(
+            feats6, clusters, device="cuda"), {}),
+        ("8 extract_semantic_segmentations", lambda: S.extract_semantic_segmentations(
+            out["multi"], clusters, out["semantic"]), {}),
+    ]
+    stage6_launches = 0
+    for name, run, want in stage_runs:
+        if name.startswith("7"):
+            n_boxes = sum(len(bd["bboxes"]) for bd in torch.load(boxes, weights_only=False))
+            log(f"[11] {n_boxes} boxes for stage 7's 20 clusters")
+            if n_boxes < 20:
+                raise AssertionError(f"{n_boxes} boxes: fewer than stage 7's 20 clusters")
+        _, launches = drive(name, run, want)
+        if name.startswith("6"):
+            stage6_launches = launches["flash_attention_packed"]
+            log(f"[11] stage 6 batches per bucket side: {stage6_batches(Path(boxes))}")
+    sem_out = drive("semantic_eval", lambda: _cli_output([
+        "semantic_eval", f"data.root={voc}", f"segments_dir={out['semantic']}",
+        "visualize=0", "device=cuda"]), {})[0]
+    obj_out = drive("object_segmentation", lambda: _cli_output([
+        "object_segmentation", f"predictions.root={out['single']}",
+        f"datasets.ECSSD.images_dir={jpegs}", f"datasets.ECSSD.labels_dir={voc / 'saliency'}",
+        "device=cuda"]), {})[0]
+    os.environ["DSS_TPU_INFLIGHT"] = "0"
+    try:
+        drive("3 with no batch in flight", lambda: S.extract_multi_region_segmentations(
+            out["features"], out["eigs"], out["multi0"], device="cuda"), {})
+        drive("6 with no batch in flight", lambda: S.extract_bbox_features(
+            jpegs, boxes, "dino_vits16", feats6_0, device="cuda"), stage6_want)
+    finally:
+        del os.environ["DSS_TPU_INFLIGHT"]
+    log(f"[11] kernel shapes of the phase: {sorted(map(str, seen))}")
+    if not seen <= held:
+        raise AssertionError(f"shapes phases 2-3 do not hold: {seen - held}")
+
+    # outputs and their schema
+    miou = float(re.search(r"mIoU: ([-\w.]+)", sem_out).group(1))
+    acc, iou = (float(x) for x in re.search(r"acc: ([-\w.]+)\s+iou: ([-\w.]+)",
+                                            obj_out).groups())
+    if not all(np.isfinite(x) for x in (miou, acc, iou)):
+        raise AssertionError(f"non-finite scores: mIoU {miou}, acc {acc}, IoU {iou}")
+    pngs = {k: sorted(Path(out[k]).iterdir()) for k in ("multi", "single", "semantic")}
+    if any(len(v) != len(ids) for v in pngs.values()):
+        raise AssertionError(f"segmap counts {({k: len(v) for k, v in pngs.items()})}")
+    from PIL import Image
+    for f in pngs["single"]:
+        if not set(np.unique(np.array(Image.open(f))).tolist()) <= {0, 255}:
+            raise AssertionError(f"{f.name}: single-region values other than 0/255")
+    box_keys = {"bboxes", "bboxes_original_resolution", "segment_indices", "id", "format"}
+    fl, cl = (torch.load(f, weights_only=False) for f in (feats6, clusters))
+    for f, c in zip(fl, cl):
+        n = len(f["bboxes"])
+        if not (set(f) == box_keys | {"features"} and set(c) == box_keys | {"clusters"}
+                and f["features"].dtype == torch.float32
+                and tuple(f["features"].shape) == (n, 384)
+                and bool(torch.isfinite(f["features"]).all())
+                and c["clusters"].dtype == torch.int32 and tuple(c["clusters"].shape) == (n,)):
+            raise AssertionError(f"{f['id']}: unexpected bbox .pth schema")
+    for a in pngs["multi"]:
+        if a.read_bytes() != (Path(out["multi0"]) / a.name).read_bytes():
+            raise AssertionError(f"stage 3 with no batch in flight: {a.name} differs")
+    if Path(feats6).read_bytes() != Path(feats6_0).read_bytes():
+        raise AssertionError("stage 6 with no batch in flight wrote other bytes")
+    log(f"[11] every output has the JAX schema; stages 3 and 6 with no batch in flight "
+        f"(DSS_TPU_INFLIGHT=0) wrote the same bytes")
+    log(f"[11] random-weight dino_vits16 (a smoke of the path, not a measurement): "
+        f"semantic mIoU {miou}, object segmentation acc {acc} IoU {iou}")
+
+    # stage 6's device time: torch.profiler over one more run; its model
+    # build alone on the host clock
+    from deep_spectral_tpu_torch.models.convert import load_model
+    from deep_spectral_tpu_torch.probe_main import _kernel_times, _print_groups
+    t0 = time.perf_counter()
+    load_model("dino_vits16", precision="bf16", device="cuda")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        S.extract_bbox_features(jpegs, boxes, "dino_vits16", str(tmp / "p6" / "f.pth"),
+                                device="cuda")
+        torch.cuda.synchronize()
+    kern = _kernel_times(prof, 1)
+    total = sum(t for t, _ in kern.values())
+    flash = sum(t for name, (t, _) in kern.items() if "flash_fwd_packed" in name)
+    wall6 = walls["6 extract_bbox_features"] * 1e3
+    log(f"[11] stage 6 under torch.profiler: kernels {total:.3f} ms in all, kernel 1 "
+        f"{flash:.3f} ms ({stage6_launches} launches); unprofiled wall {wall6:.1f} ms, so "
+        f"the device idles {1 - total / wall6:.1%} of it; the model build (seeded random "
+        f"init on the host, then the copy) {build * 1e3:.1f} ms of it")
+    _print_groups(kern, total, 1)
+    log(f"[11] wall times (s): " + ", ".join(f"{k}: {v:.3f}" for k, v in walls.items()))
+    return {"flash_attention_packed": stage6_launches}
+
+
 def _max_err(got, ref, valid):
     return (got.float() - ref.float())[valid].abs().max().item()
 
@@ -1263,13 +1580,18 @@ def main() -> int:
     phase_stage2_routes(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_localization(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_launches = phase_segments(Path(tmp))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
         {"name": "flash_attention_packed", "route": "cuda",
          "source": "deep_spectral_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "deep_spectral_tpu/models/flash_attention.py:193",
-         "launches": launches["flash"], **flash},
+         "launches": launches["flash"],
+         "launches_by_path": {"main": launches["flash"],
+                              "stage6": seg_launches["flash_attention_packed"]},
+         **flash},
         {"name": "chebyshev_filter", "route": "cuda",
          "source": "deep_spectral_tpu_torch/csrc/cheb_filter.cu",
          "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",

@@ -6,6 +6,11 @@ the same index arithmetic (torch `align_corners=False` half-pixel sources,
 clamped edges), in true f32: the DeepLab logits upsample (the matmul form in
 training, the gather form in evaluation).
 
+`resize_nearest` is the JAX package's function of that name: cv2
+INTER_NEAREST source indices floor(dst * in / out), the product in f32 as
+the JAX package computes it; the object-segmentation evaluation upsamples
+patch-level masks with it.
+
 `resize_bicubic` is PyTorch's own `F.interpolate(mode="bicubic",
 align_corners=False)`: the convention (cubic kernel a = -0.75, half-pixel
 centres) that the JAX package's `ops.resize.resize_bicubic` reimplements to
@@ -94,3 +99,15 @@ def resize_bicubic(x: torch.Tensor, out_hw: tuple[int, int], *,
     y = F.interpolate(x.reshape(-1, 1, H, W), size=tuple(out_hw), mode="bicubic",
                       align_corners=False)
     return y.reshape(*lead, *out_hw)
+
+
+def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of the last two dims with cv2 INTER_NEAREST
+    semantics, src = floor(dst * in / out) in f32
+    (reference: extract/extract.py:679-680). x: (..., H, W), any dtype."""
+    for axis, size in ((x.ndim - 2, out_hw[0]), (x.ndim - 1, out_hw[1])):
+        n_in = x.shape[axis]
+        src = torch.floor(torch.arange(size, dtype=torch.float32, device=x.device)
+                          * torch.tensor(n_in / size, dtype=torch.float32))
+        x = x.index_select(axis, src.long().clamp(0, n_in - 1))
+    return x

@@ -5,12 +5,16 @@
         --model_name dino_vits16 --batch_size 24
     python -m deep_spectral_tpu_torch.pipeline extract_eigs \
         --images_root ... --features_dir ... --output_dir ... --K 5
+    python -m deep_spectral_tpu_torch.pipeline extract_multi_region_segmentations \
+        --features_dir ... --eigs_dir ... --output_dir ...
+    ... extract_single_region_segmentations, extract_bboxes,
+    extract_bbox_features, extract_bbox_clusters, extract_semantic_segmentations
 
 Flags have the same names as `deep_spectral_tpu.pipeline.cli` (and the
-reference's, extract/extract.py:837-850), plus `--device` (default cuda).
-Implemented with argparse by introspecting each stage function's signature.
-Only stages 1-2 are ported so far; every stage-2 flag of the JAX CLI runs but
-`--cheb_filter_impl` other than auto.
+reference's, extract/extract.py:837-850), plus `--device` (default cuda) for
+the stages that use the card (1-3, 6, 7). Implemented with argparse by
+introspecting each stage function's signature. Stages 1-8 are ported; every
+stage-2 flag of the JAX CLI runs but `--cheb_filter_impl` other than auto.
 """
 from __future__ import annotations
 
@@ -23,6 +27,12 @@ from . import extract as stages
 STAGES = [
     "extract_features",
     "extract_eigs",
+    "extract_multi_region_segmentations",
+    "extract_single_region_segmentations",
+    "extract_bboxes",
+    "extract_bbox_features",
+    "extract_bbox_clusters",
+    "extract_semantic_segmentations",
 ]
 
 

@@ -1,28 +1,52 @@
-"""Stages 1 and 2 of the deep-spectral pipeline on PyTorch.
+"""Stages 1-8 of the deep-spectral pipeline on PyTorch.
 
-The port of `deep_spectral_tpu.pipeline.extract.extract_features` and
-`extract_eigs`: same flags (plus `device`), same on-disk layout (per-image
-`<id>.pth` dicts with the reference's schema), same shape-bucketed batching.
-Stages are resumable: an image whose output file exists is skipped.
+The port of `deep_spectral_tpu.pipeline.extract`'s stages 1-8: same
+function names and flags (plus `device` for the stages that use the card),
+same on-disk layout (per-image `<id>.pth` dicts and `.png` segmaps with the
+reference's schema, and the bbox stages' `.pth` lists), same shape-bucketed
+batching. Per-image stages are resumable: an image whose output file exists
+is skipped.
 
-Both stages keep one batch in flight, as the JAX stages do: a batch's
-results are copied to pinned host memory without blocking, and fetched (and
-written) only after the next batch has been sent to the device.
-`DSS_TPU_INFLIGHT` sets the depth (0 fetches every batch at once), read as
-the JAX package reads it.
+  1. `extract_features`: ViT patch keys (kernel 1 in every attending block);
+  2. `extract_eigs`: Laplacian eigenvectors (kernel 2 in the Chebyshev solve);
+  3. `extract_multi_region_segmentations`: k-means over eigenvectors, one
+     batched k-means per batch on the device, then the background swap;
+  4. `extract_single_region_segmentations`: the 0/255 Fiedler mask (host);
+  5. `extract_bboxes`: per-segment boxes after erode/dilate (host numpy);
+  6. `extract_bbox_features`: the ViT's CLS of every box crop, crops in
+     square power-of-two buckets (kernel 1 in every block);
+  7. `extract_bbox_clusters`: dataset-wide k-means (optionally after PCA)
+     of the L2-normalized box features, on the device;
+  8. `extract_semantic_segmentations`: segments mapped to their box's
+     cluster (host).
+
+Stages 1-3 and 6 keep one batch in flight, as the JAX stages 1-2 do: a
+batch's results are copied to pinned host memory without blocking, and
+fetched (and written) only after the next batch has been sent to the
+device. `DSS_TPU_INFLIGHT` sets the depth (0 fetches every batch at once),
+read as the JAX package reads it. Images go to the device as uint8 and are
+ImageNet-normalized there (stages 1 and 6).
 
 Every stage-2 flag of the JAX stage runs: the color-fused graph
 (`image_color_lambda > 0`, `which_color_matrix` 'knn' or 'rw'), every
 `which_matrix`, feature upsampling (`image_downsample_factor`) and every
 solver. `cheb_filter_impl` other than 'auto' raises NotImplementedError: the
 port has one filter (the CUDA kernel on the GPU, its plain twin on the CPU).
+
+k-means draws its seeding from a `torch.Generator`, not `jax.random`: stage
+3 seeds each image's generator with `seed + index` (its position among the
+paired input files), as JAX keys each image with `PRNGKey(seed + index)`,
+so an image's segmap does not depend on its batch; stage 7 seeds one
+generator with `seed`. Partitions match the JAX stages' where k-means has
+one clear optimum; the draws themselves differ.
 """
 from __future__ import annotations
 
 import os
 import sys
-from collections import deque
+from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -34,12 +58,15 @@ from ..models.vit import extract_patch_keys, get_model_config
 from ..ops.affinity import knn_affinity, rw_affinity
 from ..ops.eigen import (resolve_eig_chunk, spectral_decompose_batched,
                          validate_cheb_window_init)
+from ..ops.kmeans import kmeans, pca
+from ..ops.morphology import erode_or_dilate_mask, infer_background_swap, mask_bbox
 from ..ops.resize import resize_bilinear
 from ..utils import bucketing
 from ..utils.device import resolve_device
 from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_resized,
                               load_image_rgb, read_image_list)
-from ..utils.serialization import load_pth, load_pth_meta, save_pth
+from ..utils.serialization import (load_pth, load_pth_meta, load_segmap_png, save_pth,
+                                   save_segmap_png)
 from ..utils.sizes import get_image_sizes
 
 
@@ -53,8 +80,47 @@ def make_output_dir(output_dir, check_if_empty: bool = True) -> None:
             sys.exit()
 
 
+def _resolve_image_file(images_root, image_id: str) -> Path:
+    """The image file of an id without extension (the bbox dicts carry only
+    the id, extract/extract.py:529-532): any extension, as the JAX stage
+    accepts."""
+    root = Path(images_root)
+    for ext in (".jpg", ".jpeg", ".png", ".JPEG", ".JPG", ".PNG", ".bmp", ".webp"):
+        p = root / f"{image_id}{ext}"
+        if p.is_file():
+            return p
+    matches = sorted(root.glob(f"{image_id}.*"))
+    if matches:
+        return matches[0]
+    raise FileNotFoundError(f"no image named '{image_id}.*' under {root}")
+
+
+def get_paired_input_files(path1, path2) -> list:
+    """[(index, (file1, file2)), ...] of two sorted directories (or file
+    lists) of equal length."""
+    def files(p):
+        p = Path(p)
+        if p.is_dir():
+            return sorted(p.iterdir())
+        if p.is_file():
+            return p.read_text().splitlines()
+        raise ValueError(str(p))
+    f1, f2 = files(path1), files(path2)
+    if len(f1) != len(f2):
+        raise ValueError(f"{len(f1)} vs {len(f2)} paired files")
+    return list(enumerate(zip(f1, f2)))
+
+
+def _progress(it, desc):
+    try:
+        from tqdm import tqdm
+        return tqdm(it, desc=desc)
+    except ImportError:
+        return it
+
+
 def _inflight_depth(default: int = 1) -> int:
-    """How many dispatched but unfetched batches stages 1-2 keep: the JAX
+    """How many dispatched but unfetched batches stages 1-3 and 6 keep: the JAX
     package's `DSS_TPU_INFLIGHT` (0 fetches each batch at once)."""
     return max(0, int(os.environ.get("DSS_TPU_INFLIGHT", default)))
 
@@ -88,6 +154,31 @@ class _Fetch:
         if self._event is not None:
             self._event.synchronize()
         return [h.numpy() for h in self._host]
+
+
+class _InFlight:
+    """Dispatched but unfetched batches, oldest first: `push` queues a
+    batch's `_Fetch` with the host work to do on its arrays, and runs the
+    oldest batch's work while more than `_inflight_depth()` batches wait;
+    `drain` runs the rest. A batch's download so overlaps the next batch's
+    upload and compute."""
+
+    def __init__(self):
+        self._queue: deque = deque()
+        self._depth = _inflight_depth()
+
+    def push(self, fetch: _Fetch, on_result) -> None:
+        self._queue.append((fetch, on_result))
+        while len(self._queue) > self._depth:
+            self._pop()
+
+    def _pop(self) -> None:
+        fetch, on_result = self._queue.popleft()
+        on_result(*fetch.result())
+
+    def drain(self) -> None:
+        while self._queue:
+            self._pop()
 
 
 class _AsyncWriter:
@@ -164,12 +255,9 @@ def extract_features(
 
     # One batch in flight: its features are fetched after the next batch
     # has been sent, so the download overlaps the next upload and forward.
-    inflight: deque = deque()
-    depth = _inflight_depth()
+    inflight = _InFlight()
 
-    def flush_one():
-        fetch, bucket, extents, metas = inflight.popleft()
-        k = fetch.result()[0]  # fp16
+    def save(bucket, extents, metas, k):  # k: fp16
         for i, (idx, rel, shape) in enumerate(metas):
             hp, wp = extents[i, 0] // P, extents[i, 1] // P
             ki = k[i].reshape(bucket.h, bucket.w, -1)[:hp, :wp].reshape(1, hp * wp, -1)
@@ -190,15 +278,12 @@ def extract_features(
         images = _to_device(padded, dev).float() * scale - shift
         k = extract_patch_keys(model, images, which_block=which_block,
                                token_mask=_to_device(masks, dev))
-        inflight.append((_Fetch(k.to(torch.float16)), bucket, extents, metas))
-        while len(inflight) > depth:
-            flush_one()
+        inflight.push(_Fetch(k.to(torch.float16)), partial(save, bucket, extents, metas))
 
     bucketing.run_bucketed_prefetched(
         items, size_of, prepare, consume, batch_size=batch_size,
         granularity=bucket_granularity)
-    while inflight:
-        flush_one()
+    inflight.drain()
     writer.close()
     print(f"Saved {done[0]} features to {output_dir}")
 
@@ -302,8 +387,7 @@ def extract_eigs(
 
     # One solve in flight: a batch's results are fetched after the next
     # batch has been sent.
-    inflight: deque = deque()
-    depth = _inflight_depth()
+    inflight = _InFlight()
 
     def consume(bucket: bucketing.Bucket, batch_items, prepared):
         feats_np, native, imgs, masks_np, extents, metas = prepared
@@ -324,13 +408,9 @@ def extract_eigs(
         evals, evecs = spectral_decompose_batched(
             feats, masks, color_W, solver=solver, cheb_window_init=cheb_window_init,
             eig_chunk=chunk, **solve_kw)
-        inflight.append((_Fetch(evals, evecs), metas, bucket))
-        while len(inflight) > depth:
-            flush_one()
+        inflight.push(_Fetch(evals, evecs), partial(save, metas, bucket))
 
-    def flush_one():
-        fetch, metas, bucket = inflight.popleft()
-        evals, evecs = fetch.result()
+    def save(metas, bucket, evals, evecs):
         for i, (image_id, out_file, h_lr, w_lr) in enumerate(metas):
             vec = evecs[i].reshape(K, bucket.h, bucket.w)[:, :h_lr, :w_lr]
             out = {
@@ -350,7 +430,312 @@ def extract_eigs(
     bucketing.run_bucketed_prefetched(
         pending, coarse_grid, prepare, consume,
         batch_size=batch_size, granularity=1)
-    while inflight:
-        flush_one()
+    inflight.drain()
     writer.close()
     print(f"Saved eigs to {output_dir}")
+
+
+# ------------------------------------------- stages 3/4: region segmentations
+
+def _load_feature_eig_pair(feature_path, eigs_path) -> dict:
+    d = load_pth(feature_path)
+    d.update(load_pth(eigs_path))
+    return d
+
+
+def extract_multi_region_segmentations(
+    features_dir: str,
+    eigs_dir: str,
+    output_dir: str,
+    adaptive: bool = False,
+    non_adaptive_num_segments: int = 4,
+    infer_bg_index: bool = True,
+    kmeans_baseline: bool = False,
+    num_eigenvectors: int = 1_000_000,
+    multiprocessing: int = 0,  # accepted for CLI parity; batching replaces it
+    seed: int = 0,
+    batch_size: int = 16,
+    bucket_granularity: int = 4,
+    device: str = "cuda",
+):
+    """k-means over eigenvectors -> multi-region segmaps
+    (reference: extract/extract.py:283-377), batched: images grouped by
+    n_clusters and grid bucket, each batch clustered by one batched k-means
+    (10 restarts per image) on the device, then the background swap there."""
+    del multiprocessing
+    dev = resolve_device(device, "extract_multi_region_segmentations")
+    make_output_dir(output_dir)
+    inputs = get_paired_input_files(features_dir, eigs_dir)
+
+    # Host pass: per-image n_clusters (the adaptive eigengap,
+    # extract/extract.py:311-315) and segmap grid, grouped by n_clusters.
+    groups = defaultdict(list)
+    for index, (feature_path, eigs_path) in inputs:
+        d = _load_feature_eig_pair(feature_path, eigs_path)
+        out_file = Path(output_dir) / f"{d['id']}.png"
+        if out_file.is_file():
+            continue
+        s = get_image_sizes(d)
+        if adaptive:
+            gaps = np.diff(np.asarray(d["eigenvalues"]))
+            order = np.argsort(gaps)[::-1]
+            n_clusters = int(order[order != 0][0]) + 1
+        else:
+            n_clusters = non_adaptive_num_segments
+        if kmeans_baseline:
+            X = np.asarray(d["k"], np.float32).reshape(-1, d["k"].shape[-1])
+        else:
+            X = np.asarray(d["eigenvectors"], np.float32)[1: 1 + num_eigenvectors].T
+        n_pts = X.shape[0]
+        if n_pts == s.H_patch * s.W_patch:
+            grid = (s.H_patch, s.W_patch)
+        elif n_pts == s.H_patch * s.W_patch * 4:
+            grid = (s.H_patch * 2, s.W_patch * 2)
+        else:
+            raise ValueError(f"{n_pts=} vs {s}")
+        groups[n_clusters].append((index, out_file, X, grid))
+
+    writer = _AsyncWriter()
+    inflight = _InFlight()
+
+    def save(bucket, batch_items, labels):
+        for i, (_, out_file, _, (h, w)) in enumerate(batch_items):
+            segmap = labels[i].reshape(bucket.h, bucket.w)[:h, :w]
+            writer.submit(save_segmap_png, segmap.astype(np.uint8), out_file)
+
+    for n_clusters, items in groups.items():
+        def prepare(bucket: bucketing.Bucket, batch_items):
+            M = batch_items[0][2].shape[1]
+            X = np.zeros((len(batch_items), bucket.h, bucket.w, M), np.float32)
+            extents = np.zeros((len(batch_items), 2), np.int64)
+            for i, (_, _, Xi, (h, w)) in enumerate(batch_items):
+                X[i, :h, :w] = Xi.reshape(h, w, M)
+                extents[i] = (h, w)
+            masks = bucketing.grid_masks(extents, (bucket.h, bucket.w))
+            generators = [torch.Generator().manual_seed(seed + it[0]) for it in batch_items]
+            return X.reshape(len(batch_items), bucket.tokens, M), masks, extents, generators
+
+        def consume(bucket: bucketing.Bucket, batch_items, prepared, n_clusters=n_clusters):
+            X, masks, extents, generators = prepared
+            res = kmeans(_to_device(X, dev), n_clusters, generators, n_init=10,
+                         max_iter=300, mask=_to_device(masks, dev))
+            labels = res.labels.reshape(len(batch_items), bucket.h, bucket.w)
+            if infer_bg_index:
+                labels = infer_background_swap(labels, n_clusters,
+                                               extents=_to_device(extents, dev))
+            inflight.push(_Fetch(labels.to(torch.int32)), partial(save, bucket, batch_items))
+
+        bucketing.run_bucketed_prefetched(
+            items, lambda it: it[3], prepare, consume,
+            batch_size=batch_size, granularity=bucket_granularity)
+    inflight.drain()
+    writer.close()
+    print(f"Saved multi-region segmentations to {output_dir}")
+
+
+def extract_single_region_segmentations(
+    features_dir: str,
+    eigs_dir: str,
+    output_dir: str,
+    threshold: float = 0.0,
+    multiprocessing: int = 0,
+):
+    """Binary mask = Fiedler vector > threshold
+    (reference: extract/extract.py:380-426), saved as 0/255 like the
+    reference's bool -> PIL path, so that binarizing at 0.5 downstream works."""
+    del multiprocessing
+    make_output_dir(output_dir)
+    inputs = get_paired_input_files(features_dir, eigs_dir)
+    for _, (feature_path, eigs_path) in _progress(inputs, "single_region"):
+        d = _load_feature_eig_pair(feature_path, eigs_path)
+        out_file = Path(output_dir) / f"{d['id']}.png"
+        if out_file.is_file():
+            continue
+        s = get_image_sizes(d)
+        vec = np.asarray(d["eigenvectors"])[1]
+        segmap = (vec > threshold).reshape(s.H_patch, s.W_patch)
+        save_segmap_png(segmap.astype(np.uint8) * 255, out_file)
+    print(f"Saved single-region segmentations to {output_dir}")
+
+
+# ------------------------------------------------------------ stage 5: bboxes
+
+def extract_bboxes(
+    features_dir: str,
+    segmentations_dir: str,
+    output_file: str,
+    num_erode: int = 2,
+    num_dilate: int = 3,
+    skip_bg_index: bool = True,
+    downsample_factor: Optional[int] = None,
+):
+    """Eroded/dilated per-segment bounding boxes
+    (reference: extract/extract.py:429-497), on the host: patch grids are
+    tiny, so a device round trip per segmap would cost more than the work.
+    Each image's segments are eroded, dilated (a step skipped for a segment
+    it would empty, extract/extract_utils.py:115-121) and boxed together, as
+    one batch of CPU tensors through `ops.morphology`. One `.pth` list of
+    per-image dicts."""
+    make_output_dir(str(Path(output_file).parent), check_if_empty=False)
+    inputs = get_paired_input_files(features_dir, segmentations_dir)
+    all_outputs = []
+    for _, (feature_path, seg_path) in _progress(inputs, "bboxes"):
+        d = load_pth(feature_path)
+        segmap = load_segmap_png(seg_path)
+        s = get_image_sizes(d, downsample_factor)
+        outputs = {"bboxes": [], "bboxes_original_resolution": [],
+                   "segment_indices": [], "id": d["id"],
+                   "format": "(xmin, ymin, xmax, ymax)"}
+        seg_ids = [i for i in sorted(np.unique(segmap).tolist())
+                   if not (skip_bg_index and i <= 0)]
+        masks = torch.from_numpy(segmap[None] == np.asarray(seg_ids).reshape(-1, 1, 1))
+        masks = erode_or_dilate_mask(masks, num_erode, erode=True)
+        masks = erode_or_dilate_mask(masks, num_dilate, erode=False)
+        for seg_idx, box in zip(seg_ids, mask_bbox(masks).tolist()):
+            xmin, ymin, xmax, ymax = box
+            outputs["segment_indices"].append(seg_idx)
+            outputs["bboxes"].append([xmin, ymin, xmax, ymax])
+            outputs["bboxes_original_resolution"].append(
+                [xmin * s.P, ymin * s.P, xmax * s.P, ymax * s.P])
+        all_outputs.append(outputs)
+    save_pth(all_outputs, output_file)
+    print(f"Saved bboxes to {output_file}")
+
+
+# ----------------------------------------------------- stage 6: bbox features
+
+def extract_bbox_features(
+    images_root: str,
+    bbox_file: str,
+    model_name: str,
+    output_file: str,
+    ckpt_dir: Optional[str] = None,
+    batch_size: int = 16,
+    precision: str = "bf16",
+    device: str = "cuda",
+):
+    """CLS embedding of each bbox crop (reference: extract/extract.py:500-544),
+    batched across all crops: each crop is cut to whole patches (at least
+    one), crops go into square power-of-two buckets (largest first) in
+    batches of `batch_size` (a short batch padded with empty images, as the
+    JAX stage pads), as uint8 to the device, normalized there, and the ViT
+    runs with the crops' token masks. Saved as the bbox list with
+    `features` (n_boxes, embed_dim) f32 added to each image's dict."""
+    dev = resolve_device(device, "extract_bbox_features")
+    bbox_list = load_pth(bbox_file)
+    model_name = model_name.lower()
+    cfg = get_model_config(model_name)
+    model = load_model(model_name, ckpt_dir, precision=precision, device=dev)
+    P = cfg.patch_size
+    scale = torch.from_numpy(IMAGENET_SCALE).to(dev)
+    shift = torch.from_numpy(IMAGENET_SHIFT).to(dev)
+
+    crops = []  # (image index, box index, uint8 crop)
+    for i, bd in enumerate(_progress(bbox_list, "bbox crops")):
+        rgb = load_image_rgb(_resolve_image_file(images_root, bd["id"]))
+        for j, (xmin, ymin, xmax, ymax) in enumerate(bd["bboxes_original_resolution"]):
+            crop = rgb[ymin:ymax, xmin:xmax]
+            hp, wp = max(crop.shape[0] // P, 1), max(crop.shape[1] // P, 1)
+            crops.append((i, j, crop[: hp * P, : wp * P]))
+
+    # Square pow2 buckets: crop shapes vary wildly; a few padded shapes
+    # instead of one per crop.
+    crop_groups = defaultdict(list)
+    for c in crops:
+        hp, wp = max(c[2].shape[0] // P, 1), max(c[2].shape[1] // P, 1)
+        crop_groups[bucketing.square_pow2_bucket(hp, wp)].append(c)
+
+    feats: dict = {}
+    inflight = _InFlight()
+
+    def keep(batch_items, cls):
+        for b, (i, j, _) in enumerate(batch_items):
+            feats[(i, j)] = cls[b]
+
+    for bucket in sorted(crop_groups, key=lambda b: -b.tokens):
+        group = crop_groups[bucket]
+        for chunk in bucketing.batches(range(len(group)), batch_size):
+            batch_items = [group[i] for i in chunk]
+            padded, extents = bucketing.pad_batch_images(
+                [c[2] for c in batch_items], (bucket.h * P, bucket.w * P), batch_size)
+            masks = bucketing.token_masks(extents, bucket, P)
+            images = _to_device(padded, dev).float() * scale - shift
+            with torch.no_grad():
+                cls = model(images, n_intermediates=1,
+                            token_mask=_to_device(masks, dev))["cls"]
+            inflight.push(_Fetch(cls.float()), partial(keep, batch_items))
+    inflight.drain()
+
+    for i, bd in enumerate(bbox_list):
+        n = len(bd["bboxes"])
+        bd["features"] = (np.stack([feats[(i, j)] for j in range(n)]) if n
+                          else np.zeros((0, cfg.embed_dim), np.float32))
+    save_pth(bbox_list, output_file)
+    print(f"Saved features to {output_file}")
+
+
+# ----------------------------------------------------- stage 7: bbox clusters
+
+def extract_bbox_clusters(
+    bbox_features_file: str,
+    output_file: str,
+    num_clusters: int = 20,
+    seed: int = 0,
+    pca_dim: Optional[int] = 0,
+    device: str = "cuda",
+):
+    """Dataset-wide clustering of the L2-normalized bbox features
+    (reference: extract/extract.py:547-599): optional PCA, then exact
+    full-batch k-means (10 restarts, 300 steps; the JAX package's
+    replacement for MiniBatchKMeans) on the device."""
+    dev = resolve_device(device, "extract_bbox_clusters")
+    bbox_list = load_pth(bbox_features_file)
+    all_features = np.concatenate([bd["features"] for bd in bbox_list], axis=0)
+    all_features = all_features / np.linalg.norm(all_features, axis=-1, keepdims=True)
+
+    X = torch.from_numpy(np.asarray(all_features, np.float32)).to(dev)
+    if pca_dim:
+        X = pca(X, pca_dim)
+    res = kmeans(X, num_clusters, torch.Generator().manual_seed(seed),
+                 n_init=10, max_iter=300)
+    clusters = res.labels.cpu().numpy().astype(np.int32)
+
+    idx_vals, counts = np.unique(clusters, return_counts=True)
+    print(f"Cluster indices: {idx_vals.tolist()}")
+    print(f"Cluster counts: {counts.tolist()}")
+
+    idx = 0
+    for bd in bbox_list:
+        n = len(bd["bboxes"])
+        del bd["features"]
+        bd["clusters"] = clusters[idx: idx + n]
+        idx += n
+    save_pth(bbox_list, output_file)
+    print(f"Saved clusters to {output_file}")
+
+
+# ------------------------------------------- stage 8: semantic segmentations
+
+def extract_semantic_segmentations(
+    segmentations_dir: str,
+    bbox_clusters_file: str,
+    output_dir: str,
+):
+    """Each segment mapped to its bbox's dataset-wide cluster id, background
+    kept 0; 0/255 segmaps read as 0/1 (reference: extract/extract.py:602-647)."""
+    bbox_list = load_pth(bbox_clusters_file)
+    make_output_dir(output_dir)
+    for bd in _progress(bbox_list, "semantic segmaps"):
+        segmap = load_segmap_png(Path(segmentations_dir) / f"{bd['id']}.png")
+        if set(np.unique(segmap).tolist()).issubset({0, 255}):
+            segmap = segmap.copy()
+            segmap[segmap == 255] = 1
+        semantic_map = dict(zip(bd["segment_indices"], np.asarray(bd["clusters"]).tolist()))
+        if 0 in semantic_map:
+            raise ValueError(f"{bd['id']}: segment 0 has a box: {semantic_map}")
+        semantic_map[0] = 0  # background stays zero
+        lut = np.zeros(max(semantic_map) + 1, np.uint8)
+        for k, v in semantic_map.items():
+            lut[k] = v
+        save_segmap_png(lut[segmap], Path(output_dir) / f"{bd['id']}.png")
+    print(f"Saved semantic segmentations to {output_dir}")

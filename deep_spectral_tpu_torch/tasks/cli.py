@@ -4,17 +4,20 @@
       --eigenseg --precomputed_eigs_dir E --dataset VOC12 --dataset_root R
       (argparse flags of the JAX CLI, object-localization/main.py:26-131,
       plus --device)
+  python -m deep_spectral_tpu_torch.tasks.cli object_segmentation \
+      predictions.root=... datasets.ECSSD.images_dir=... datasets.ECSSD.labels_dir=...
+  python -m deep_spectral_tpu_torch.tasks.cli semantic_eval [cfg overrides]
   python -m deep_spectral_tpu_torch.tasks.cli semantic_train [cfg overrides]
 
-`semantic_train` takes YAML + key=value overrides, mirroring the JAX
-package's `deep_spectral_tpu.tasks.cli semantic_train` (and the reference's
-hydra command); the default config is `configs/semantic_train.yaml`. The
-port's own options choose the device, `device=cuda|cpu` for semantic_train
-and `--device cuda|cpu` for localization (default: cuda, which raises
+The YAML tasks take `--config` plus key=value overrides, mirroring the JAX
+package's `deep_spectral_tpu.tasks.cli` (and the reference's hydra
+commands); their default configs are the copies in `configs/`. The port's
+own option chooses the device, `device=cuda|cpu` for the YAML tasks and
+`--device cuda|cpu` for localization (default: cuda, which raises
 RuntimeError when there is no card). Localization's on-the-fly ViT runs in
-f32, as the JAX CLI's does. The JAX CLI's other
-tasks (object_segmentation, semantic_eval, semantic_generate) are not ported
-yet: they exit with the usage line.
+f32, as the JAX CLI's does. `semantic_eval`'s overlays (`visualize`, 40 by
+default) need matplotlib; `visualize=0` skips them. The JAX CLI's
+`semantic_generate` is not ported yet: it exits with the usage line.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import sys
 from pathlib import Path
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
-NOT_PORTED = ("object_segmentation", "semantic_eval", "semantic_generate")
+NOT_PORTED = ("semantic_generate",)
 
 
 def localization(argv) -> float:
@@ -83,6 +86,54 @@ def localization(argv) -> float:
     return score
 
 
+def object_segmentation(argv) -> dict:
+    """Accuracy and IoU of single-region masks for every dataset of the
+    config with an `images_dir`; returns {dataset: results}."""
+    from ..utils.config import load_config
+    from . import object_segmentation as OS
+    p = argparse.ArgumentParser(prog="object_segmentation")
+    p.add_argument("--config", default=str(CONFIG_DIR / "object_segmentation_eval.yaml"))
+    p.add_argument("overrides", nargs="*")
+    a = p.parse_args(argv)
+    cfg = load_config(a.config, a.overrides)
+    results = {}
+    for name, ds in cfg.datasets.items():
+        if not ds.get("images_dir"):
+            continue
+        pred_dir = Path(cfg.predictions.root) / cfg.predictions.get("run", "") / name
+        if not pred_dir.is_dir():
+            pred_dir = Path(cfg.predictions.root)
+        print(f"== {name} ==")
+        results[name] = OS.evaluate_predictions(
+            ds.images_dir, ds.labels_dir, pred_dir,
+            downsample=cfg.predictions.get("downsample"),
+            crop=bool(ds.get("crop", False)), device=cfg.get("device"))
+    return results
+
+
+def semantic_eval(argv) -> tuple:
+    """mIoU of pseudolabel segmaps under Hungarian or majority-vote
+    matching; returns (miou, match)."""
+    from ..utils.config import load_config
+    from . import semantic_segmentation as SS
+    p = argparse.ArgumentParser(prog="semantic_eval")
+    p.add_argument("--config", default=str(CONFIG_DIR / "semantic_eval.yaml"))
+    p.add_argument("overrides", nargs="*")
+    a = p.parse_args(argv)
+    cfg = load_config(a.config, a.overrides)
+    ds = SS.VOCSegmentationWithPseudolabels(
+        cfg.data.root, cfg.data.image_set, cfg.segments_dir)
+    miou, _, match = SS.evaluate_segments(
+        ds, n_clusters=cfg.n_clusters, num_classes=cfg.data.num_classes + 1,
+        device=cfg.get("device"))
+    print(f"mIoU: {miou * 100:.2f}")
+    print(f"matching: {match}")
+    if cfg.get("visualize"):
+        SS.visualize_overlays(ds, match, Path(cfg.output_dir) / "vis",
+                              max_images=int(cfg.visualize))
+    return miou, match
+
+
 def semantic_train(argv) -> float:
     """Self-train DeepLab on pseudolabels; returns the best val mIoU."""
     from ..utils.config import load_config
@@ -123,7 +174,8 @@ def semantic_train(argv) -> float:
     return best
 
 
-TASKS = {"localization": localization, "semantic_train": semantic_train}
+TASKS = {"localization": localization, "object_segmentation": object_segmentation,
+         "semantic_eval": semantic_eval, "semantic_train": semantic_train}
 
 
 def main(argv=None) -> int:

@@ -1,9 +1,12 @@
-"""DeepLab self-training on pseudolabels: the port of the training half of
-`deep_spectral_tpu.tasks.semantic_segmentation` (reference:
-semantic-segmentation/train.py).
+"""DeepLab self-training on pseudolabels and the clustering evaluation: the
+port of `deep_spectral_tpu.tasks.semantic_segmentation` but
+`generate_predictions` (reference: semantic-segmentation/train.py, eval.py).
 
 Host side, copied from the JAX package (numpy / PIL only): the VOC-layout
 dataset with pseudolabels, the augmentation stack and the image normalization.
+Evaluation of pseudolabels: `evaluate_segments` (Hungarian or majority-vote
+cluster matching, then mIoU; confusion matrices on the device) and
+`visualize_overlays` (matplotlib, imported inside it).
 Model side, in PyTorch: `TrainConfig`, `build_model`, `create_train_state`,
 `train_step` (one-hot cross-entropy over all pixels, AdamW with a linear
 decay, optional global-norm clipping, gradient accumulation, EMA and a NaN
@@ -213,6 +216,80 @@ def _gaussian_blur(img_u8: np.ndarray, ksize: int, sigma: float) -> np.ndarray:
     img = np.apply_along_axis(lambda m: np.convolve(m, k, mode="valid"), 0, img)
     img = np.apply_along_axis(lambda m: np.convolve(m, k, mode="valid"), 1, img)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+# ------------------------------------------------------- cluster-matching eval
+
+def evaluate_segments(dataset, n_clusters: int = 21,
+                      num_classes: int = VOC_NUM_CLASSES,
+                      ignore_index: int = 255, device=None):
+    """Dataset-wide evaluation of pseudolabel segmaps against GT with
+    Hungarian (when n_clusters == num_classes) or majority-vote matching
+    (reference: eval.py:87-159), over the pixels whose GT is not
+    `ignore_index`. The confusion matrices run on `device` (CUDA unless the
+    caller asks for the CPU), the assignment on the host. Returns (miou,
+    per-class Jaccard as numpy, match)."""
+    dev = resolve_device(device, "evaluate_segments")
+    preds_all, gts_all = [], []
+    for i in range(len(dataset)):
+        _, seg, target, _ = dataset[i]
+        if target is None:
+            continue
+        valid = target != ignore_index
+        preds_all.append(seg[valid])
+        gts_all.append(target[valid])
+    flat_preds = np.concatenate(preds_all)
+    flat_targets = torch.from_numpy(np.concatenate(gts_all)).to(dev)
+    preds = torch.from_numpy(flat_preds).to(dev)
+    if n_clusters == num_classes:
+        match = M.hungarian_match(preds, flat_targets, n_clusters, num_classes)
+    else:
+        match = M.majority_vote(preds, flat_targets, n_clusters, num_classes)
+    remapped = torch.from_numpy(M.apply_label_map(flat_preds, match)).to(dev)
+    jac, miou = M.per_class_jaccard(remapped, flat_targets, num_classes)
+    return float(miou), jac.cpu().numpy(), match
+
+
+def visualize_overlays(dataset, match, output_dir, max_images: int = 40):
+    """Pseudolabel / GT overlay PNGs of the first `max_images` images (the
+    reference's label2rgb visualization, eval.py:57-84)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    cmap = matplotlib.colormaps["tab20"].resampled(21)
+    lut = None
+    if match is not None:
+        lut = np.arange(max(m[0] for m in match) + 1)
+        for pred_c, gt_c in match:
+            lut[pred_c] = gt_c
+    n = min(len(dataset), max_images)
+    for i in range(n):
+        image, seg, target, stem = dataset[i]
+        if lut is not None:
+            seg = lut[np.clip(seg, 0, len(lut) - 1)]
+        ncols = 3 if target is not None else 2
+        fig, axes = plt.subplots(1, ncols, figsize=(5 * ncols, 5))
+        axes[0].imshow(image)
+        axes[0].set_title(stem)
+        overlay = cmap(seg % 21)[..., :3]
+        blend = 0.55 * image / 255.0 + 0.45 * overlay
+        blend[seg == 0] = (image / 255.0)[seg == 0]
+        axes[1].imshow(blend)
+        axes[1].set_title("pred")
+        if target is not None:
+            gt_overlay = cmap(np.clip(target, 0, 20) % 21)[..., :3]
+            gt_blend = 0.55 * image / 255.0 + 0.45 * gt_overlay
+            gt_blend[target == 0] = (image / 255.0)[target == 0]
+            axes[2].imshow(gt_blend)
+            axes[2].set_title("gt")
+        for ax in axes:
+            ax.axis("off")
+        fig.savefig(out / f"{stem}.png", bbox_inches="tight", dpi=80)
+        plt.close(fig)
+    print(f"Wrote {n} overlays to {out}")
 
 
 # ------------------------------------------------------------- train state

@@ -5,6 +5,11 @@ from typing import Optional, Union
 
 import torch
 
+# Steps of a data-dependent loop on the device (Lloyd, label propagation)
+# between the host's checks that it has stopped: a step after the stop is an
+# exact no-op, so the host syncs every POLL_EVERY steps instead of each.
+POLL_EVERY = 8
+
 
 def resolve_device(device: Optional[Union[str, torch.device]], what: str) -> torch.device:
     """`device`, or CUDA when it is None: the port's entry points run on the
