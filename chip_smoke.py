@@ -95,7 +95,30 @@ Phases, each of which must pass:
      hold, each stage's wall time printed, every output with the JAX schema,
      mIoU and IoU finite (random weights: a smoke of the path); stages 3 and
      6 again with no batch in flight must write the same bytes; stage 6 once
-     more under torch.profiler for its device time.
+     more under torch.profiler for its device time;
+ 12. the rest of the single-host system, in this process, on phase 11's tree:
+     (a) `pipeline.run_all` on the card (dino_vits16 bf16, stage 1 b4, stage
+     2 K=5 b4) through both CRF passes, its launches (kernel 1 per block and
+     batch in stages 1 and 6, kernel 2 in stage 2) at shapes phases 2-3 hold,
+     every output with the JAX schema, each stage's wall from its
+     StageTimer, stage 9 again with no batch in flight writing the same
+     bytes; (b) the CRF on the card against the CPU: stage 9's batches at the
+     default parameters (label agreement >= CRF_AGREEMENT_MIN per image),
+     `bilateral_filter` in both regimes (CRF_FILTER_REL), the grid regime
+     twice on the card with the same bytes, the verification recipe's blob
+     probe (IoU > BLOB_IOU_MIN), and the mean field's time and memory at
+     480x480; (c) stage 10 (where matplotlib is installed) and `vis_server`
+     in a thread; (d) `semantic_train` (bf16, 2 steps, crop 224 b8) on (a)'s
+     CRF segmaps and `semantic_generate` from its checkpoint through
+     `tasks.cli.main`, kernel 1 launching in the dump's eval forward; (e)
+     DeepLabResNet-50 (output stride 8): its f32 forward on the card against
+     the CPU (RESNET_REL), 3 train steps at b16, and semantic_generate's
+     per-image path; (f) one 7b and one 7c step with remat=True and without,
+     from the same state, under torch.use_deterministic_algorithms:
+     gradients and loss bit-equal, kernel 3 twice per trained block; then
+     both variants in turns, each one's ms/step and peak memory.
+`python3 chip_smoke.py 12` runs the build and phase 12 alone, with no result
+line.
 Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
 calls: the median window, with the min-max printed beside it; phase 9's
 solves, which sync the host every iteration, are 5 single calls after a
@@ -158,6 +181,19 @@ STAGE6_B, STAGE6_T = 16, (65, 257, 1025)
 SEG_IMAGES = 24  # phase 11's VOC tree: >= 20 boxes for stage 7's 20 clusters
 CORLOC_FLOOR = 80.0  # color-fused eigenseg on phase 10's blob images; the same
 #                      script logic found 8/8 blobs on the CPU at lambda 1 and 10
+# phase 12's gates and sizes
+CRF_AGREEMENT_MIN = 0.999  # CRF labels on the card vs the CPU, share of an image's pixels: a
+#                            label flips only where two marginals tie to the last bits
+CRF_FILTER_REL = 1e-4      # bilateral_filter on the card vs the CPU, relative to the largest
+#                            entry: cuBLAS and MKL round the kernel's 5-term dot differently,
+#                            and its sq_i + sq_j - 2 dot cancellation turns one ulp of it
+#                            (at |f|^2 ~ 1e3) into ~3e-5 of the kernel
+BLOB_IOU_MIN = 0.95        # the verification recipe's CRF probe
+RESNET_REL = 1e-4          # DeepLabResNet f32 logits on the card vs the CPU, relative to the
+#                            largest: true f32 on both sides, cuDNN's and oneDNN's summation
+#                            orders through 53 convolutions
+RESNET_B, GEN_B = 16, 8    # phase 12's ResNet train batch, semantic_train's batch before the
+#                            prediction dump
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
@@ -1557,7 +1593,510 @@ def phase_train_cli(tmp: Path) -> None:
     log(f"[8] best checkpoint at step {best}; the resume ran steps {best}..6")
 
 
-def main() -> int:
+# ----------------------------------------------------------------- phase 12
+
+def _pngs(d) -> list:
+    return sorted(Path(d).glob("*.png"))
+
+
+def phase_run_all(tmp: Path) -> dict:
+    """(a) `run_all` on the card over phase 11's tree; returns its launches,
+    its output dirs and the tree."""
+    import torch
+    from PIL import Image
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.pipeline import extract as S
+    from deep_spectral_tpu_torch.pipeline.run_all import run_all
+    voc = tmp / "voc"
+    ids = make_seg_voc(voc)
+    jpegs, listing = voc / "JPEGImages", tmp / "list.txt"
+    listing.write_text("\n".join(f"{i}.jpg" for i in ids))
+    blocks = get_model_config("dino_vits16").depth
+    held = ({("flash_attention_packed", 4, t, torch.bfloat16) for t in LOC_FLASH_T}
+            | {("flash_attention_packed", STAGE6_B, t, torch.bfloat16) for t in STAGE6_T}
+            | {("chebyshev_filter", 4, n, K + 3) for n in LOC_CHEB_N})
+    seen = set()
+    os.environ.pop("DSS_TPU_INFLIGHT", None)  # the default: one batch in flight
+    buf = io.StringIO()
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with kernel_shapes(seen), contextlib.redirect_stdout(buf):
+        dirs = run_all(str(listing), str(jpegs), str(tmp / "out"), K=K, batch_size=4,
+                       feature_batch_size=4, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    out = buf.getvalue()
+    table = out[out.rindex("stage "):].strip().splitlines()
+    log(f"[12a] run_all dino_vits16 bf16 on {len(ids)} images (480x480, 320x480), stage 1 "
+        f"b4, stage 2 K={K} b4: {wall:.3f} s (host clock); its StageTimer (the clock read "
+        f"after a device sync):")
+    for line in table:
+        log(f"    {line}")
+    stage6 = sum(stage6_batches(Path(dirs["bboxes"])).values())
+    want = {"flash_attention_packed": (blocks - 1) * 6 + blocks * stage6}
+    log(f"[12a] launches {launches}; kernel 1 expected {want['flash_attention_packed']} "
+        f"(11 attending blocks x 6 stage-1 batches + 12 blocks x {stage6} stage-6 batches), "
+        f"kernel 2 at least once, no other")
+    if launches["flash_attention_packed"] != want["flash_attention_packed"] or \
+            launches["chebyshev_filter"] <= 0 or \
+            any(c for n, c in launches.items()
+                if n not in ("flash_attention_packed", "chebyshev_filter")):
+        raise AssertionError(f"run_all: launches {launches}")
+    log(f"[12a] kernel shapes of run_all: {sorted(map(str, seen))}")
+    if not seen <= held:
+        raise AssertionError(f"shapes phases 2-3 do not hold: {seen - held}")
+
+    # every output with the JAX schema
+    sizes = {i: Image.open(jpegs / f"{i}.jpg").size[::-1] for i in ids}
+    for key in ("features", "eigs"):
+        if len(list(Path(dirs[key]).glob("*.pth"))) != len(ids):
+            raise AssertionError(f"{key}: not one .pth per image")
+    for i in ids:
+        (h, w), n = sizes[i], (sizes[i][0] // 16) * (sizes[i][1] // 16)
+        f = torch.load(Path(dirs["features"]) / f"{i}.pth", weights_only=False)
+        e = torch.load(Path(dirs["eigs"]) / f"{i}.pth", weights_only=False)
+        if not (f["k"].dtype == torch.float16 and tuple(f["k"].shape) == (1, n, 384)
+                and tuple(e["eigenvectors"].shape) == (K, n)):
+            raise AssertionError(f"{i}: unexpected feature or eig .pth")
+    for key in ("multi", "single", "semantic", "crf", "crf_single"):
+        files = _pngs(dirs[key])
+        if [f.stem for f in files] != ids:
+            raise AssertionError(f"{key}: {len(files)} PNGs for {len(ids)} images")
+    for key, top in (("crf", CLASSES), ("crf_single", 2)):
+        for f in _pngs(dirs[key]):
+            a = np.array(Image.open(f))
+            if a.dtype != np.uint8 or a.shape != sizes[f.stem] or a.max() >= top:
+                raise AssertionError(f"{key}/{f.name}: CRF PNG {a.dtype} {a.shape}, "
+                                     f"max {a.max()}")
+    for key in ("bboxes", "bbox_features", "bbox_clusters"):
+        if len(torch.load(dirs[key], weights_only=False)) != len(ids):
+            raise AssertionError(f"{key}: not one entry per image")
+    log(f"[12a] every output has the JAX schema: {len(ids)} feature and eig .pth files, "
+        f"segmaps, boxes, CRF PNGs at image size with labels below {CLASSES} (semantic) "
+        f"and in {{0, 1}} (single region)")
+
+    # stage 9 again with no batch in flight: the same bytes
+    os.environ["DSS_TPU_INFLIGHT"] = "0"
+    try:
+        _zero_launches()
+        for key, src, classes in (("crf", "semantic", CLASSES), ("crf_single", "single", 2)):
+            S.extract_crf_segmentations(str(listing), str(jpegs), dirs[src],
+                                        str(tmp / f"{key}_inflight0"), num_classes=classes,
+                                        device="cuda")
+            differ = [f.name for f in _pngs(dirs[key])
+                      if f.read_bytes() != (tmp / f"{key}_inflight0" / f.name).read_bytes()]
+            if differ:
+                raise AssertionError(f"stage 9 ({key}) with no batch in flight: {differ} differ")
+    finally:
+        del os.environ["DSS_TPU_INFLIGHT"]
+    if any(_launches().values()):
+        raise AssertionError(f"stage 9 launched a kernel: {_launches()}")
+    log(f"[12a] stage 9 with no batch in flight (DSS_TPU_INFLIGHT=0) wrote the same bytes "
+        f"({2 * len(ids)} PNGs)")
+    return {"launches": launches, "dirs": dirs, "voc": voc, "ids": ids, "list": listing}
+
+
+def _crf_batch(voc: Path, seg_dir: str, ids: list):
+    """Stage 9's inputs for `ids` (one size): uint8 images and upsampled
+    segmaps edge-replicated into their 64-pixel bucket, and the sizes."""
+    from deep_spectral_tpu_torch.pipeline.extract import CRF_GRAN, _upsample_segmap
+    from deep_spectral_tpu_torch.utils.image_io import load_image_rgb
+    from deep_spectral_tpu_torch.utils.serialization import load_segmap_png
+    imgs, segs = [], []
+    for i in ids:
+        img = load_image_rgb(voc / "JPEGImages" / f"{i}.jpg")
+        H, W = img.shape[:2]
+        seg = _upsample_segmap(load_segmap_png(Path(seg_dir) / f"{i}.png"), H, W, 16)
+        BH, BW = -(-H // CRF_GRAN) * CRF_GRAN, -(-W // CRF_GRAN) * CRF_GRAN
+        imgs.append(np.pad(img, ((0, BH - H), (0, BW - W), (0, 0)), mode="edge"))
+        segs.append(np.pad(seg, ((0, BH - H), (0, BW - W)), mode="edge").astype(np.uint8))
+    return np.stack(imgs), np.stack(segs), (H, W)
+
+
+def phase_crf(run: dict) -> None:
+    """(b) the CRF on the card against the CRF on the CPU: stage 9's batches
+    of 4 at the default parameters (dense regime), then one image in the
+    grid regime (the dense bound lowered to 0), run twice on the card; the
+    verification recipe's blob probe; the mean field's time and memory."""
+    import torch
+    from deep_spectral_tpu_torch.ops import crf as CRF
+    voc, ids, dirs = run["voc"], run["ids"], run["dirs"]
+    dev = torch.device("cuda")
+    by_size = [ids[0:8:2], ids[1:8:2]]           # 480x480 and 320x480, 4 each
+    worst = 1.0
+    for group in by_size:
+        imgs, segs, (H, W) = _crf_batch(voc, dirs["semantic"], group)
+        card = CRF.dense_crf(torch.from_numpy(imgs).to(dev), torch.from_numpy(segs).to(dev),
+                             num_classes=CLASSES).cpu().numpy()
+        cpu = CRF.dense_crf(torch.from_numpy(imgs), torch.from_numpy(segs),
+                            num_classes=CLASSES).numpy()
+        agree = [float(np.mean(c[:H, :W] == p[:H, :W])) for c, p in zip(card, cpu)]
+        moved = float(np.mean(cpu[:, :H, :W] != segs[:, :H, :W]))
+        log(f"[12b] dense_crf b{len(group)} at the {imgs.shape[1]}x{imgs.shape[2]} bucket of "
+            f"{H}x{W} images, 21 classes, default parameters: labels on the card equal to "
+            f"the CPU's on {min(agree):.6f} of an image's pixels at least (min "
+            f"{CRF_AGREEMENT_MIN}); the CRF changed {moved:.4f} of the input labels")
+        worst = min(worst, *agree)
+    if worst < CRF_AGREEMENT_MIN:
+        raise AssertionError(f"CRF labels on the card agree with the CPU on {worst} only")
+
+    # bilateral_filter on the card vs the CPU, dense regime, on the first image
+    imgs, segs, (H, W) = _crf_batch(voc, dirs["semantic"], by_size[0][:1])
+    probs = torch.softmax(torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (*segs.shape[1:], CLASSES)).astype(np.float32)), dim=-1)
+    img0 = torch.from_numpy(imgs[0]).float()
+
+    def filter_rel(a, b):
+        return max(((x.cpu().double() - y.double()).abs().max()
+                    / y.double().abs().max()).item() for x, y in zip(a, b))
+    rel_dense = filter_rel(CRF.bilateral_filter(probs.to(dev), img0.to(dev), 80.0, 13.0),
+                           CRF.bilateral_filter(probs, img0, 80.0, 13.0))
+    # the grid regime on the same image: twice on the card, once on the CPU
+    saved = CRF._DENSE_MAX_POINTS
+    CRF._DENSE_MAX_POINTS = 0
+    try:
+        grid_card = [CRF.bilateral_filter(probs.to(dev), img0.to(dev), 80.0, 13.0)
+                     for _ in range(2)]
+        rel_grid = filter_rel(grid_card[0], CRF.bilateral_filter(probs, img0, 80.0, 13.0))
+        args = (torch.from_numpy(imgs).to(dev), torch.from_numpy(segs).to(dev))
+        labels_card = [CRF.dense_crf(*args, num_classes=CLASSES) for _ in range(2)]
+        labels_cpu = CRF.dense_crf(torch.from_numpy(imgs), torch.from_numpy(segs),
+                                   num_classes=CLASSES).numpy()
+        grid_ms = calls_ms(lambda: CRF.dense_crf(*args, num_classes=CLASSES))
+    finally:
+        CRF._DENSE_MAX_POINTS = saved
+    same = all(torch.equal(a, b) for a, b in zip(*grid_card)) and \
+        torch.equal(*labels_card)
+    grid_agree = float(np.mean(labels_card[0].cpu().numpy()[0, :H, :W] == labels_cpu[0, :H, :W]))
+    log(f"[12b] bilateral_filter on the card vs the CPU ({H}x{W} image in its "
+        f"{imgs.shape[1]}-pixel bucket, 21 channels, alpha 80): dense regime max rel diff "
+        f"{rel_dense:.3e}, grid regime {rel_grid:.3e} (tol {CRF_FILTER_REL}); grid regime "
+        f"twice on the card: the same bytes {same}; grid-regime dense_crf labels equal to "
+        f"the CPU's on {grid_agree:.6f} of the pixels; its mean field {grid_ms} "
+        f"({CALLS_TIMING})")
+    if max(rel_dense, rel_grid) > CRF_FILTER_REL or not same or grid_agree < CRF_AGREEMENT_MIN:
+        raise AssertionError("the CRF's bilateral filter disagrees, or the grid regime is "
+                             "not deterministic on the card")
+
+    # the verification recipe's probe: a 16x-coarse blob mask snaps to the blob
+    rng = np.random.default_rng(13)
+    img = (rng.random((IMG, IMG, 3)) * 100).astype(np.uint8)
+    blob = np.zeros((IMG, IMG), bool)
+    blob[37:233, 83:331] = True
+    img[blob] = [210, 70, 60]
+    seg = np.repeat(np.repeat(blob[8::16, 8::16], 16, 0), 16, 1).astype(np.uint8)
+    out = CRF.dense_crf(torch.from_numpy(img).to(dev), torch.from_numpy(seg).to(dev),
+                        num_classes=2).cpu().numpy() == 1
+    iou_before = (seg.astype(bool) & blob).sum() / (seg.astype(bool) | blob).sum()
+    iou = float((out & blob).sum() / (out | blob).sum())
+    log(f"[12b] blob probe on the card ({IMG}x{IMG}, 16x-coarse mask): IoU {iou:.4f} "
+        f"(min {BLOB_IOU_MIN}; {iou_before:.4f} before the CRF)")
+    if iou <= BLOB_IOU_MIN:
+        raise AssertionError(f"blob probe IoU {iou}")
+
+    # stage 9's mean field: a batch of 4 480x480 images in their 512 bucket
+    imgs, segs, (H, W) = _crf_batch(voc, dirs["semantic"], by_size[0])
+    args = (torch.from_numpy(imgs).to(dev), torch.from_numpy(segs).to(dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    CRF.dense_crf(*args, num_classes=CLASSES)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    t4 = cuda_ms(lambda: CRF.dense_crf(*args, num_classes=CLASSES), iters=5, windows=3,
+                 warmup=1)
+    t1 = cuda_ms(lambda: CRF.dense_crf(args[0][:1], args[1][:1], num_classes=CLASSES),
+                 iters=5, windows=3, warmup=1)
+    log(f"[12b] stage 9's mean field (21 classes, 5 iterations, {H}x{W} images in their "
+        f"{imgs.shape[1]}x{imgs.shape[2]} bucket): b4 {t4} = {t4.ms / 4:.4f} ms per image; "
+        f"b1 {t1}; CUDA events, median [min-max] of 3 windows of 5 calls; the b4 call "
+        f"holds {peak / 2**20:.1f} MiB on the card above its inputs")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        CRF.dense_crf(*args, num_classes=CLASSES)
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in ops) / 1e3
+    log(f"[12b] one b4 mean field under torch.profiler: {total:.3f} ms of device time; by "
+        f"op (self device ms, calls): " + ", ".join(
+            f"{e.key} {e.self_device_time_total / 1e3:.3f} ({e.count})" for e in ops[:8]))
+
+
+def phase_vis(run: dict, tmp: Path) -> None:
+    """(c) stage 10 over (a)'s outputs, and `vis_server` in a thread."""
+    import importlib.util
+    import threading
+    import urllib.request
+    from PIL import Image
+    from deep_spectral_tpu_torch.pipeline import extract as S
+    from deep_spectral_tpu_torch.pipeline.vis_server import make_vis_server
+    dirs, ids = run["dirs"], run["ids"]
+    jpegs = str(run["voc"] / "JPEGImages")
+    if importlib.util.find_spec("matplotlib") is None:
+        log("[12c] stage 10 (vis_segmentations) not run: it draws with matplotlib, which "
+            "this host does not have")
+    else:
+        t0 = time.perf_counter()
+        S.vis_segmentations(str(run["list"]), jpegs, dirs["crf"], bbox_file=dirs["bboxes"],
+                            output_dir=str(tmp / "vis"), max_images=4)
+        names = sorted(f.name for f in (tmp / "vis").iterdir())
+        log(f"[12c] stage 10: {names} in {time.perf_counter() - t0:.3f} s")
+        if names != sorted([f"{i}.png" for i in ids[:4]] + ["index.html"]):
+            raise AssertionError(f"stage 10 wrote {names}")
+    srv = make_vis_server(str(run["list"]), jpegs, dirs["crf"], dirs["bboxes"], dirs["eigs"],
+                          port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        got = {}
+        for path in ("/api/index", f"/seg/{ids[1]}", f"/eig/{ids[1]}/1"):
+            with urllib.request.urlopen(url + path, timeout=30) as r:
+                got[path] = (r.status, r.headers.get("Content-Type"), r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    items = json.loads(got["/api/index"][2])["items"]
+    seg = np.asarray(Image.open(io.BytesIO(got[f"/seg/{ids[1]}"][2])))
+    eig = Image.open(io.BytesIO(got[f"/eig/{ids[1]}/1"][2]))
+    log(f"[12c] vis_server on port {srv.server_address[1]}: index of {len(items)} items, "
+        f"segmap overlay {seg.shape} RGBA, eigenvector heatmap {eig.size} (W, H); stopped "
+        f"(thread alive: {thread.is_alive()})")
+    if len(items) != len(ids) or seg.shape != (320, 480, 4) or eig.size != (30, 20) or \
+            thread.is_alive() or not all(v[0] == 200 for v in got.values()):
+        raise AssertionError("vis_server: unexpected responses")
+
+
+def phase_generate(run: dict, tmp: Path) -> dict:
+    """(d) semantic_train (bf16 dino_vits16, 2 steps at crop 224 b8) on (a)'s
+    CRF segmaps, then semantic_generate from its checkpoint, each through
+    `tasks.cli.main`; the dump's eval forward must launch kernel 1."""
+    import torch
+    from PIL import Image
+    voc, ids, dirs = run["voc"], run["ids"], run["dirs"]
+    cfg = [f"data.root={voc}", f"segments_dir={dirs['crf']}", "precision=bf16",
+           f"data.loader.batch_size={GEN_B}", "device=cuda"]
+    t0 = time.perf_counter()
+    _cli_output(["semantic_train", *cfg, "max_train_steps=2", "eval_every=2",
+                 f"checkpoint.dir={tmp / 'ck'}"])
+    log(f"[12d] semantic_train bf16 dino_vits16 crop {CROP} b{GEN_B}, 2 steps and an eval: "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    seen = set()
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with kernel_shapes(seen):
+        _cli_output(["semantic_generate", "--checkpoint", str(tmp / "ck" / "best.pt"),
+                     "--output_dir", str(tmp / "gen"), *cfg])
+    torch.cuda.synchronize()
+    launches = _launches()
+    val = ids[::3]
+    log(f"[12d] semantic_generate: {time.perf_counter() - t0:.3f} s (host clock), launches "
+        f"{launches}, kernel shapes {sorted(map(str, seen))}")
+    # one bucket (480x480 holds every val image), one batch of 8: 12 blocks
+    if launches["flash_attention_packed"] != 12 or \
+            any(c for n, c in launches.items() if n != "flash_attention_packed"):
+        raise AssertionError(f"semantic_generate: launches {launches}")
+    preds = _pngs(tmp / "gen" / "pred")
+    if [f.stem for f in preds] != val or len(_pngs(tmp / "gen" / "gt")) != len(val):
+        raise AssertionError(f"semantic_generate wrote {[f.name for f in preds]}")
+    for f in preds:
+        a = np.array(Image.open(f))
+        h, w = Image.open(voc / "JPEGImages" / f"{f.stem}.jpg").size[::-1]
+        if a.shape != ((h // 16) * 16, (w // 16) * 16) or a.max() >= CLASSES:
+            raise AssertionError(f"{f.name}: prediction {a.shape}, max {a.max()}")
+    log(f"[12d] one prediction PNG per val image ({len(val)}), at the image's size cropped "
+        f"to a multiple of 16, labels below {CLASSES}")
+    return launches
+
+
+def phase_resnet(run: dict, tmp: Path) -> None:
+    """(e) DeepLabResNet (ResNet-50, output stride 8) at crop 224, random
+    weights: the f32 forward on the card against the CPU, 3 train steps at
+    b16, then semantic_generate's per-image path from a checkpoint."""
+    import torch
+    from deep_spectral_tpu_torch.models.deeplab import DeepLabResNet
+    from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
+    from PIL import Image
+    dev = torch.device("cuda")
+    cfg = SS.TrainConfig(backbone="resnet50", num_classes=CLASSES, crop_size=CROP,
+                         batch_size=RESNET_B, unfrozen_backbone_layers=1, seed=0)
+    state = SS.create_train_state(cfg, SS.build_model(cfg), device=dev)
+    x_np, y_np = blob_batch(RESNET_B, np.random.default_rng(15))
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    cpu_model = DeepLabResNet(CLASSES).eval()
+    cpu_model.load_state_dict(state.model.state_dict())
+    state.model.eval()
+    with torch.no_grad():
+        got = state.model(x[:2]).cpu().double()
+        want = cpu_model(torch.from_numpy(x_np[:2])).double()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[12e] DeepLabResNet-50 OS8 f32 forward b2 crop {CROP} (random weights, eval): card "
+        f"vs CPU max rel diff {rel:.3e} (tol {RESNET_REL}), max |logit| "
+        f"{want.abs().max().item():.3e}")
+    if not rel <= RESNET_REL:
+        raise AssertionError(f"DeepLabResNet on the card disagrees with the CPU: {rel}")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    SS.train_step(state, x, y, gen)                    # warm-up (cuDNN, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [SS.train_step(state, x, y, gen)["loss"] for _ in range(3)]
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / 3
+    losses = [float(v) for v in losses]
+    log(f"[12e] DeepLabResNet train b{RESNET_B} crop {CROP}, layer4 + head trained: {ms:.3f} "
+        f"ms/step (CUDA events, mean of 3 steps after 1 warm-up); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("DeepLabResNet loss is not finite")
+    SS.save_checkpoint(str(tmp / "rck"), state, 4)
+    del state
+    _zero_launches()
+    t0 = time.perf_counter()
+    _cli_output(["semantic_generate", "--checkpoint", str(tmp / "rck" / "step_4.pt"),
+                 "--output_dir", str(tmp / "rgen"), "backbone=resnet50",
+                 f"data.root={run['voc']}", f"segments_dir={run['dirs']['crf']}", "device=cuda"])
+    preds = _pngs(tmp / "rgen" / "pred")
+    shapes = {np.array(Image.open(f)).shape for f in preds}
+    log(f"[12e] semantic_generate (ResNet, per-image path): {len(preds)} predictions of "
+        f"shapes {sorted(shapes)} in {time.perf_counter() - t0:.3f} s (host clock); "
+        f"launches {_launches()}")
+    if [f.stem for f in preds] != run["ids"][::3] or shapes != {(480, 480), (320, 480)} or \
+            any(_launches().values()):
+        raise AssertionError("ResNet semantic_generate: unexpected output or launches")
+
+
+def _grad_diff(a: dict, b: dict) -> tuple:
+    """(bit-equal count, max relative difference, the names that differ)."""
+    import torch
+    differ = [n for n in a if not torch.equal(a[n], b[n])]
+    rel = max([((b[n] - a[n]).abs().max() / a[n].abs().max().clamp(min=1e-30)).item()
+               for n in differ] or [0.0])
+    return len(a) - len(differ), rel, differ
+
+
+def phase_remat(dev) -> dict:
+    """(f) one 7b step (and one 7c step) with remat=True and one without,
+    from the same weights, batch and dropout generator, under
+    `torch.use_deterministic_algorithms`: the trained parameters' gradients
+    must be bit-equal, and the remat'd step must launch kernel 3 twice per
+    trained block. Then both states train in turns (plain, remat, remat,
+    plain; 3 steps a window, the default mode), each window's ms/step and
+    peak memory above the states printed. Recorded, not gated: in the
+    default mode two plain 7b steps already differ, as does the remat'd one.
+    Returns the remat'd 7b step's launches."""
+    import torch
+    from deep_spectral_tpu_torch.models.deeplab import DeepLabViT
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
+    x_np, y_np = blob_batch(TRAIN_B, np.random.default_rng(17))
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+
+    def first_step(unfrozen, remat, deterministic):
+        """A fresh state's first step: (state, gradients, loss, launches)."""
+        cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
+                             batch_size=TRAIN_B, unfrozen_backbone_layers=unfrozen,
+                             precision="bf16", seed=0, remat=remat)
+        model = DeepLabViT(get_model_config("dino_vits16"), CLASSES,
+                           compute_dtype=torch.bfloat16, attention_impl="flash", remat=remat)
+        state = SS.create_train_state(cfg, model, device=dev)
+        _zero_launches()
+        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        try:
+            loss = SS.train_step(state, x, y, torch.Generator(device=dev).manual_seed(18))["loss"]
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        grads = {n: p.grad.detach().clone() for n, p in state.opt.params.items()}
+        return state, grads, loss.clone(), _launches()
+
+    import warnings
+    remat_launches = None
+    for unfrozen, name, trained in ((1, "7b", 1), (-1, "7c", 12)):
+        runs, states = {}, {}
+        for remat in (False, True):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # cuBLAS's determinism notice
+                state, grads, loss, launches = first_step(unfrozen, remat, True)
+            runs[remat], states[remat] = (grads, loss, launches), state
+            if launches["flash_attention_lse"] != trained * (2 if remat else 1) or \
+                    launches["flash_bwd_dkv"] != trained or launches["flash_bwd_dq"] != trained:
+                raise AssertionError(f"{name} remat={remat}: launches {launches}")
+            if remat and unfrozen == 1:
+                remat_launches = launches
+        equal, rel, differ = _grad_diff(runs[False][0], runs[True][0])
+        same_loss = torch.equal(runs[False][1], runs[True][1])
+        log(f"[12f] {name} under torch.use_deterministic_algorithms: {equal} of "
+            f"{len(runs[False][0])} trained gradients bit-equal with and without remat "
+            f"(max rel diff {rel:.3e}; differ: {differ[:4]}); loss bit-equal {same_loss}; "
+            f"kernel 3 {trained} -> {2 * trained} launches (remat'd step: {runs[True][2]})")
+        if differ or not same_loss:
+            raise AssertionError(f"{name}: remat changed the step (max rel diff {rel})")
+        del runs
+        # time both in turns (plain, remat, remat, plain), 3 steps a window
+        # after a warm-up step each (cuDNN picks its default-mode algorithms);
+        # each window's peak memory above what was allocated at its start
+        times, peaks = {False: [], True: []}, {False: [], True: []}
+        gen = torch.Generator(device=dev).manual_seed(19)
+        for remat in (False, True):
+            SS.train_step(states[remat], x, y, gen)
+        for remat in (False, True, True, False):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                SS.train_step(states[remat], x, y, gen)
+            end.record()
+            end.synchronize()
+            times[remat].append(start.elapsed_time(end) / 3)
+            peaks[remat].append((torch.cuda.max_memory_allocated() - base) / 2**30)
+        for remat in (False, True):
+            log(f"[12f] {name} b{TRAIN_B} bf16 flash remat={remat}: "
+                f"{' / '.join(f'{t:.3f}' for t in times[remat])} ms/step (CUDA events, "
+                f"mean of 3 steps in each of its windows, in turns plain, remat, remat, "
+                f"plain); peak memory above the states "
+                f"{' / '.join(f'{p:.3f}' for p in peaks[remat])} GiB")
+        del states
+    # recorded: the default mode, where cuDNN may pick nondeterministic
+    # backward algorithms for the head's convolutions (`probe_train
+    # determinism` finds the head's conv weight gradients and the attention
+    # output's gradient differing between two runs)
+    steps = [first_step(1, remat, False) for remat in (False, False, True)]
+    same = _grad_diff(steps[0][1], steps[1][1])
+    rem = _grad_diff(steps[0][1], steps[2][1])
+    log(f"[12f] 7b in the default mode (recorded): two plain steps {same[0]} of "
+        f"{len(steps[0][1])} gradients bit-equal (max rel diff {same[1]:.3e}; differ: "
+        f"{same[2][:4]}); plain vs remat {rem[0]} bit-equal (max rel diff {rem[1]:.3e})")
+    return remat_launches
+
+
+def phase_12(tmp: Path, dev) -> dict:
+    t0 = time.perf_counter()
+    run = phase_run_all(tmp)
+    phase_crf(run)
+    phase_vis(run, tmp)
+    gen = phase_generate(run, tmp)
+    phase_resnet(run, tmp)
+    remat = phase_remat(dev)
+    log(f"[12] phase 12: {time.perf_counter() - t0:.1f} s (host clock)")
+    return {"run_all": run["launches"], "generate": gen, "remat": remat}
+
+
+def main(only: list) -> int:
+    """Every phase, then the kernels line, the card line and the result line;
+    with phase numbers in `only`, the build and those of phases 2-12 alone,
+    and no result line (for trying a phase on the card)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1568,6 +2107,12 @@ def main() -> int:
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     phase_build()
+    if only:
+        if "12" in only:
+            with tempfile.TemporaryDirectory() as tmp:
+                phase_12(Path(tmp), dev)
+        log(f"partial run (phases 1 and {only}): no result line")
+        return 0
     flash = phase_flash(dev)
     cheb = phase_cheb(dev)
     launches = phase_main_path(dev)
@@ -1582,6 +2127,8 @@ def main() -> int:
         phase_localization(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         seg_launches = phase_segments(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        p12 = phase_12(Path(tmp), dev)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     kernels = [
@@ -1590,15 +2137,22 @@ def main() -> int:
          "replaces": "deep_spectral_tpu/models/flash_attention.py:193",
          "launches": launches["flash"],
          "launches_by_path": {"main": launches["flash"],
-                              "stage6": seg_launches["flash_attention_packed"]},
+                              "stage6": seg_launches["flash_attention_packed"],
+                              "run_all": p12["run_all"]["flash_attention_packed"],
+                              "generate": p12["generate"]["flash_attention_packed"]},
          **flash},
         {"name": "chebyshev_filter", "route": "cuda",
          "source": "deep_spectral_tpu_torch/csrc/cheb_filter.cu",
          "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",
-         "launches": launches["cheb"], **cheb},
+         "launches": launches["cheb"],
+         "launches_by_path": {"main": launches["cheb"],
+                              "run_all": p12["run_all"]["chebyshev_filter"]},
+         **cheb},
     ] + [{"name": name, "route": "cuda", "source": f"deep_spectral_tpu_torch/csrc/{source}",
           "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
-          "launches": train_launches[name], **train_kernels[name]}
+          "launches": train_launches[name],
+          "launches_by_path": {"train": train_launches[name], "remat": p12["remat"][name]},
+          **train_kernels[name]}
          for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
                                     ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
                                     ("flash_bwd_dq", "flash_bwd_dq.cu", 156))]
@@ -1617,4 +2171,4 @@ if __name__ == "__main__":
         print(f"chip_smoke: the port is not next to this script ({exc})",
               file=sys.stderr)
         sys.exit(1)
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,9 @@ checkpoint the weights are a seeded random init from a `torch.Generator`
 (different numbers from the JAX package's flax init of the same seed).
 `flax_to_torch_state_dict` carries the JAX package's ViT params over, and
 `flax_deeplab_to_torch_state_dict` a whole `DeepLabViT` (params and
-batch_stats), so both packages can run identical weights.
+batch_stats), `flax_resnet_to_torch_state_dict` and
+`flax_vgg16_to_torch_state_dict` the JAX package's ResNet-50 and VGG-16
+trunks, so both packages can run identical weights.
 """
 from __future__ import annotations
 
@@ -89,8 +91,28 @@ def flax_deeplab_to_torch_state_dict(params: dict, batch_stats: dict,
     with conv kernels HWIO -> OIHW."""
     p = params.get("params", params)
     st = batch_stats.get("batch_stats", batch_stats)
-    ph, sh = p["head"], st["head"]
     sd = {f"backbone.{k}": v for k, v in flax_to_torch_state_dict(p["backbone"], vit_cfg).items()}
+    sd.update(_flax_head(p["head"], st["head"], head))
+    return sd
+
+
+def flax_deeplab_resnet_to_torch_state_dict(params: dict, batch_stats: dict,
+                                            head: str = "deeplabv3plus") -> dict:
+    """Map the JAX package's `DeepLabResNet` variables to the port's
+    `DeepLabResNet` state dict: the backbone as
+    `flax_resnet_to_torch_state_dict`, the head as in
+    `flax_deeplab_to_torch_state_dict`."""
+    p = params.get("params", params)
+    st = batch_stats.get("batch_stats", batch_stats)
+    sd = {f"backbone.{k}": v
+          for k, v in flax_resnet_to_torch_state_dict(p["backbone"], st["backbone"]).items()}
+    sd.update(_flax_head(p["head"], st["head"], head))
+    return sd
+
+
+def _flax_head(ph: dict, sh: dict, head: str) -> dict:
+    """A flax DeepLab head's params and batch_stats under the port's names."""
+    sd = {}
     aspp, aspp_st = ph["ASPP_0"], sh["ASPP_0"]
     for i in range(4):
         sd.update(_conv_bn(aspp[f"ConvBNReLU_{i}"], aspp_st[f"ConvBNReLU_{i}"],
@@ -103,6 +125,55 @@ def flax_deeplab_to_torch_state_dict(params: dict, batch_stats: dict,
     sd.update(_conv_bn(ph[fuse], sh[fuse], "head.fuse."))
     sd["head.classifier.weight"] = _hwio_to_oihw(ph["Conv_0"]["kernel"])
     sd["head.classifier.bias"] = _t(ph["Conv_0"]["bias"])
+    return sd
+
+
+def _flax_bn(p: dict, stats: dict, prefix: str) -> dict:
+    """A flax BatchNorm's scale/bias and mean/var under torchvision's names."""
+    return {prefix + "weight": _t(p["scale"]), prefix + "bias": _t(p["bias"]),
+            prefix + "running_mean": _t(stats["mean"]),
+            prefix + "running_var": _t(stats["var"])}
+
+
+def flax_resnet_to_torch_state_dict(params: dict, batch_stats: dict) -> dict:
+    """Map the JAX package's `ResNet50` variables (params and batch_stats,
+    with or without their outer collection keys) to the port's `ResNet50`
+    state dict, whose names are torchvision's:
+      conv1 / bn1                        -> conv1 / bn1
+      layer{L}_{B}/conv{i}, bn{i}        -> layer{L}.{B}.conv{i}, bn{i}
+      layer{L}_{B}/down_conv, down_bn    -> layer{L}.{B}.downsample.0, .1
+    with conv kernels HWIO -> OIHW. Inverts
+    `deep_spectral_tpu.models.resnet.convert_torchvision_resnet50`."""
+    p = params.get("params", params)
+    st = batch_stats.get("batch_stats", batch_stats)
+    sd = {"conv1.weight": _hwio_to_oihw(p["conv1"]["kernel"]),
+          **_flax_bn(p["bn1"], st["bn1"], "bn1.")}
+    for li, n_blocks in enumerate((3, 4, 6, 3), start=1):
+        for bi in range(n_blocks):
+            src, dst = f"layer{li}_{bi}", f"layer{li}.{bi}."
+            bp, bs = p[src], st[src]
+            for ci in (1, 2, 3):
+                sd[f"{dst}conv{ci}.weight"] = _hwio_to_oihw(bp[f"conv{ci}"]["kernel"])
+                sd.update(_flax_bn(bp[f"bn{ci}"], bs[f"bn{ci}"], f"{dst}bn{ci}."))
+            if "down_conv" in bp:
+                sd[f"{dst}downsample.0.weight"] = _hwio_to_oihw(bp["down_conv"]["kernel"])
+                sd.update(_flax_bn(bp["down_bn"], bs["down_bn"], f"{dst}downsample.1."))
+    return sd
+
+
+def flax_vgg16_to_torch_state_dict(params: dict) -> dict:
+    """Map the JAX package's `VGG16Features` params (conv{stage}_{i}) to the
+    port's, laid out as torchvision's vgg16 `features.<index>`."""
+    from .resnet import _VGG16_STAGES
+    p = params.get("params", params)
+    sd, index = {}, 0
+    for si, (_, n_convs) in enumerate(_VGG16_STAGES, start=1):
+        for ci in range(1, n_convs + 1):
+            conv = p[f"conv{si}_{ci}"]
+            sd[f"features.{index}.weight"] = _hwio_to_oihw(conv["kernel"])
+            sd[f"features.{index}.bias"] = _t(conv["bias"])
+            index += 2                     # the conv and its ReLU
+        index += 1                         # the stage's max-pool
     return sd
 
 

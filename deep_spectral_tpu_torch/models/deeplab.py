@@ -1,6 +1,6 @@
-"""DeepLabV3/V3+ heads over the DINO ViT backbone: the port of
-`deep_spectral_tpu.models.deeplab` (the reference's self-training model,
-semantic-segmentation/model/model.py).
+"""DeepLabV3/V3+ heads over the DINO ViT backbone (`DeepLabViT`) or a dilated
+ResNet-50 (`DeepLabResNet`): the port of `deep_spectral_tpu.models.deeplab`
+(the reference's self-training model, semantic-segmentation/model/model.py).
 
 The public layout is the JAX package's: images (B, H, W, 3) in, logits
 (B, H, W, num_classes) out; inside, the head runs NCHW convolutions.
@@ -42,6 +42,24 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
     return torch.where(keep, x / keep_prob, 0.0)
 
 
+def flax_batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    mean_buf: torch.Tensor, var_buf: torch.Tensor, training: bool,
+                    momentum: float = 0.9, eps: float = 1e-5) -> torch.Tensor:
+    """flax `nn.BatchNorm` over NCHW channels: in training, the batch's mean
+    and biased variance, and the running buffers updated in place with
+    `momentum`; in evaluation, the buffers."""
+    if training:
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            mean_buf.copy_(momentum * mean_buf + (1 - momentum) * mean)
+            var_buf.copy_(momentum * var_buf + (1 - momentum) * var)
+    else:
+        mean, var = mean_buf, var_buf
+    mul = torch.rsqrt(var + eps) * scale
+    return (x - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+
+
 class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over NCHW channels.
     Parameters `scale`, `bias`; buffers `mean`, `var` (flax's batch_stats)."""
@@ -55,17 +73,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return flax_batch_norm(x, self.scale, self.bias, self.mean, self.var,
+                               self.training, self.momentum, self.eps)
 
 
 class ConvBNReLU(nn.Module):
@@ -117,12 +126,15 @@ class ASPP(nn.Module):
 
 
 class DeepLabHeadV3Plus(nn.Module):
-    """(reference: semantic-segmentation/model/model.py:80-113)."""
+    """(reference: semantic-segmentation/model/model.py:80-113).
+    `low_features`: the low-level map's channels, when they differ from the
+    final map's `in_features` (ResNet: 256 and 2048)."""
 
     def __init__(self, in_features: int, num_classes: int,
-                 aspp_rates: Sequence[int] = (12, 24, 36)):
+                 aspp_rates: Sequence[int] = (12, 24, 36),
+                 low_features: Optional[int] = None):
         super().__init__()
-        self.low = ConvBNReLU(in_features, 48, kernel=1)
+        self.low = ConvBNReLU(low_features or in_features, 48, kernel=1)
         self.aspp = ASPP(in_features, 256, aspp_rates)
         self.fuse = ConvBNReLU(48 + 256, 256, kernel=3)
         self.classifier = nn.Conv2d(256, num_classes, 1)
@@ -139,8 +151,10 @@ class DeepLabHead(nn.Module):
     """Plain DeepLabV3 head (ASPP -> 3x3 -> classifier)."""
 
     def __init__(self, in_features: int, num_classes: int,
-                 aspp_rates: Sequence[int] = (12, 24, 36)):
+                 aspp_rates: Sequence[int] = (12, 24, 36),
+                 low_features: Optional[int] = None):
         super().__init__()
+        del low_features  # no low-level branch
         self.aspp = ASPP(in_features, 256, aspp_rates)
         self.fuse = ConvBNReLU(256, 256, kernel=3)
         self.classifier = nn.Conv2d(256, num_classes, 1)
@@ -157,12 +171,12 @@ class DeepLabViT(nn.Module):
     def __init__(self, vit_cfg: ViTConfig, num_classes: int,
                  head: str = "deeplabv3plus",
                  compute_dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "einsum"):
+                 attention_impl: str = "einsum", remat: bool = False):
         super().__init__()
         if head not in HEADS:
             raise ValueError(f"head must be one of {HEADS}; got {head!r}")
         self.vit_cfg, self.num_classes, self.head_name = vit_cfg, num_classes, head
-        self.backbone = VisionTransformer(vit_cfg, compute_dtype, attention_impl)
+        self.backbone = VisionTransformer(vit_cfg, compute_dtype, attention_impl, remat)
         head_cls = DeepLabHeadV3Plus if head == "deeplabv3plus" else DeepLabHead
         self.head = head_cls(vit_cfg.embed_dim, num_classes)
 
@@ -200,15 +214,53 @@ class DeepLabViT(nn.Module):
         return resize_bilinear(logits, (H, W))
 
 
-def backbone_param_labels(model: DeepLabViT, unfrozen_backbone_layers: int
+class DeepLabResNet(nn.Module):
+    """ResNet-50 backbone (dilated, output stride 8 or 16) + DeepLab head: the
+    reference's `get_deeplab_resnet` (semantic-segmentation/model/model.py:
+    8-39), layer1 -> low level, layer4 -> out. Images (B, H, W, 3) in,
+    logits (B, H, W, num_classes) out, like `DeepLabViT`; the whole forward
+    runs in true f32, as the JAX model's f32 convolutions do."""
+
+    def __init__(self, num_classes: int, head: str = "deeplabv3plus",
+                 output_stride: int = 8):
+        super().__init__()
+        from .resnet import ResNet50
+        if head not in HEADS:
+            raise ValueError(f"head must be one of {HEADS}; got {head!r}")
+        if output_stride == 8:
+            rswd, rates = (False, True, True), (12, 24, 36)
+        elif output_stride == 16:
+            rswd, rates = (False, False, True), (6, 12, 18)
+        else:
+            raise ValueError(f"output_stride must be 8 or 16; got {output_stride}")
+        self.num_classes, self.head_name = num_classes, head
+        self.backbone = ResNet50(replace_stride_with_dilation=rswd)
+        head_cls = DeepLabHeadV3Plus if head == "deeplabv3plus" else DeepLabHead
+        self.head = head_cls(2048, num_classes, rates, low_features=256)
+
+    def forward(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        del token_mask  # a conv backbone needs no token mask
+        H, W = x.shape[1:3]
+        with exact_f32():
+            feats = self.backbone(x.permute(0, 3, 1, 2))
+            logits = self.head(feats["layer1"], feats["layer4"], None,
+                               generator).permute(0, 2, 3, 1)
+        if self.training:
+            return resize_bilinear_mm(logits, (H, W))
+        return resize_bilinear(logits, (H, W))
+
+
+def backbone_param_labels(model: nn.Module, unfrozen_backbone_layers: int
                           ) -> dict[str, str]:
     """Label each parameter 'train' or 'freeze' and set `requires_grad` to
-    match: the head always trains; backbone blocks train only in the last
-    `unfrozen_backbone_layers` (-1 trains the whole backbone, 0 freezes it);
-    the patch embed, CLS token, pos_embed and final norm train only at -1
-    (reference: semantic-segmentation/train.py:48-52). Returns name -> label;
-    the optimizer takes the 'train' parameters."""
-    depth = model.vit_cfg.depth
+    match: the head always trains; backbone blocks (ViT) or stages (ResNet's
+    layer1-4) train only in the last `unfrozen_backbone_layers` (-1 trains
+    the whole backbone, 0 freezes it); the other backbone parameters (the
+    ViT's patch embed, CLS token, pos_embed and final norm; the ResNet stem)
+    train only at -1 (reference: semantic-segmentation/train.py:48-52).
+    Returns name -> label; the optimizer takes the 'train' parameters."""
+    depth = model.vit_cfg.depth if hasattr(model, "vit_cfg") else 4
     labels = {}
     for name, p in model.named_parameters():
         parts = name.split(".")
@@ -216,6 +268,8 @@ def backbone_param_labels(model: DeepLabViT, unfrozen_backbone_layers: int
             label = "train"
         elif parts[1] == "blocks":
             label = "train" if depth - int(parts[2]) <= unfrozen_backbone_layers else "freeze"
+        elif parts[1].startswith("layer"):
+            label = "train" if 4 - int(parts[1][5:]) < unfrozen_backbone_layers else "freeze"
         else:
             label = "freeze"
         labels[name] = label

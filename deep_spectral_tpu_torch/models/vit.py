@@ -20,6 +20,12 @@ function when q/k/v need a gradient, else the packed forward for bf16 and
 the residual-saving forward's f32 build for f32; 'auto' is 'flash' on CUDA
 and 'einsum' on the CPU. The kernels mask the ragged sequence edge
 themselves, so nothing is padded.
+
+`remat=True` runs each block under `torch.utils.checkpoint` (non-reentrant)
+whenever autograd records, as the JAX model wraps its blocks in `nn.remat`:
+a block keeps only its input for the backward, which runs the block's
+forward again (kernel 3 included, on the 'flash' route) to rebuild what it
+needs. No block draws random numbers, so the recomputation is exact.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bicubic
 from ..utils.precision import exact_f32
@@ -167,14 +174,16 @@ class VisionTransformer(nn.Module):
     ({'q','k','v'}: head-merged (B, 1+N, D) of block `qkv_block`),
     'intermediates' (the last `n_intermediates` blocks' outputs, normed) and,
     with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block.
-    `attention_impl`: 'auto', 'einsum' or 'flash' (see the module docstring)."""
+    `attention_impl`: 'auto', 'einsum' or 'flash'; `remat`: recompute each
+    block in the backward (see the module docstring)."""
 
     def __init__(self, cfg: ViTConfig, compute_dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
+        self.remat = remat
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, D)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
@@ -227,9 +236,14 @@ class VisionTransformer(nn.Module):
             tokens, token_mask = self.embed(x, token_mask, pos_embed_override)
             qkv_block = qkv_block % cfg.depth
             qkv_out, attn_out, intermediates = None, None, []
+            remat = self.remat and torch.is_grad_enabled()
             for i, blk in enumerate(self.blocks):
                 want_this = want_attn and i == cfg.depth - 1
-                tokens, qkv, attn = blk(tokens, token_mask, want_this, dtype)
+                if remat:
+                    tokens, qkv, attn = checkpoint(blk, tokens, token_mask, want_this, dtype,
+                                                   use_reentrant=False)
+                else:
+                    tokens, qkv, attn = blk(tokens, token_mask, want_this, dtype)
                 if i == qkv_block:
                     B, T = qkv.shape[:2]
                     qkv_out = {name: qkv[:, :, j].reshape(B, T, -1)

@@ -7,14 +7,18 @@
         --images_root ... --features_dir ... --output_dir ... --K 5
     python -m deep_spectral_tpu_torch.pipeline extract_multi_region_segmentations \
         --features_dir ... --eigs_dir ... --output_dir ...
-    ... extract_single_region_segmentations, extract_bboxes,
-    extract_bbox_features, extract_bbox_clusters, extract_semantic_segmentations
+    ... extract_multi_region_segmentations, extract_bboxes,
+    extract_bbox_features, extract_bbox_clusters,
+    extract_semantic_segmentations, extract_crf_segmentations,
+    extract_single_region_segmentations, vis_segmentations, vis_server
 
-Flags have the same names as `deep_spectral_tpu.pipeline.cli` (and the
-reference's, extract/extract.py:837-850), plus `--device` (default cuda) for
-the stages that use the card (1-3, 6, 7). Implemented with argparse by
-introspecting each stage function's signature. Stages 1-8 are ported; every
-stage-2 flag of the JAX CLI runs but `--cheb_filter_impl` other than auto.
+The stages of `deep_spectral_tpu.pipeline.cli`, in its order, with its flag
+names (and the reference's, extract/extract.py:837-850), plus `--device`
+(default cuda) for the stages that use the card (1-3, 6, 7, 9). Implemented
+with argparse by introspecting each stage function's signature. Every flag
+of the JAX CLI runs but stage 2's `--cheb_filter_impl` other than auto.
+`python -m deep_spectral_tpu_torch.pipeline.run_all` runs stages 1-9 in one
+command.
 """
 from __future__ import annotations
 
@@ -28,11 +32,14 @@ STAGES = [
     "extract_features",
     "extract_eigs",
     "extract_multi_region_segmentations",
-    "extract_single_region_segmentations",
     "extract_bboxes",
     "extract_bbox_features",
     "extract_bbox_clusters",
     "extract_semantic_segmentations",
+    "extract_crf_segmentations",
+    "extract_single_region_segmentations",
+    "vis_segmentations",
+    "vis_server",
 ]
 
 

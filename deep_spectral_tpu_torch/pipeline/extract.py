@@ -1,6 +1,6 @@
-"""Stages 1-8 of the deep-spectral pipeline on PyTorch.
+"""The ten stages of the deep-spectral pipeline on PyTorch.
 
-The port of `deep_spectral_tpu.pipeline.extract`'s stages 1-8: same
+The port of `deep_spectral_tpu.pipeline.extract`: same
 function names and flags (plus `device` for the stages that use the card),
 same on-disk layout (per-image `<id>.pth` dicts and `.png` segmaps with the
 reference's schema, and the bbox stages' `.pth` lists), same shape-bucketed
@@ -18,14 +18,19 @@ is skipped.
   7. `extract_bbox_clusters`: dataset-wide k-means (optionally after PCA)
      of the L2-normalized box features, on the device;
   8. `extract_semantic_segmentations`: segments mapped to their box's
-     cluster (host).
+     cluster (host);
+  9. `extract_crf_segmentations`: dense-CRF mean field (`ops/crf.py`) of
+     the upsampled segmaps at full image resolution, images of one 64-pixel
+     bucket batched on the device;
+ 10. `vis_segmentations`: a static PNG/HTML gallery (matplotlib), and
+     `vis_server`, the interactive viewer (`pipeline/vis_server.py`).
 
-Stages 1-3 and 6 keep one batch in flight, as the JAX stages 1-2 do: a
+Stages 1-3, 6 and 9 keep one batch in flight, as the JAX stages 1-2 do: a
 batch's results are copied to pinned host memory without blocking, and
 fetched (and written) only after the next batch has been sent to the
 device. `DSS_TPU_INFLIGHT` sets the depth (0 fetches every batch at once),
 read as the JAX package reads it. Images go to the device as uint8 and are
-ImageNet-normalized there (stages 1 and 6).
+ImageNet-normalized there (stages 1 and 6) or cast to f32 there (stage 9).
 
 Every stage-2 flag of the JAX stage runs: the color-fused graph
 (`image_color_lambda > 0`, `which_color_matrix` 'knn' or 'rw'), every
@@ -56,11 +61,12 @@ import torch
 from ..models.convert import load_model
 from ..models.vit import extract_patch_keys, get_model_config
 from ..ops.affinity import knn_affinity, rw_affinity
+from ..ops.crf import dense_crf
 from ..ops.eigen import (resolve_eig_chunk, spectral_decompose_batched,
                          validate_cheb_window_init)
 from ..ops.kmeans import kmeans, pca
 from ..ops.morphology import erode_or_dilate_mask, infer_background_swap, mask_bbox
-from ..ops.resize import resize_bilinear
+from ..ops.resize import resize_bilinear, resize_nearest
 from ..utils import bucketing
 from ..utils.device import resolve_device
 from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_resized,
@@ -68,6 +74,7 @@ from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_resized
 from ..utils.serialization import (load_pth, load_pth_meta, load_segmap_png, save_pth,
                                    save_segmap_png)
 from ..utils.sizes import get_image_sizes
+from .vis_server import vis_server  # noqa: F401  (a stage of the CLI)
 
 
 def make_output_dir(output_dir, check_if_empty: bool = True) -> None:
@@ -739,3 +746,165 @@ def extract_semantic_segmentations(
             lut[k] = v
         save_segmap_png(lut[segmap], Path(output_dir) / f"{bd['id']}.png")
     print(f"Saved semantic segmentations to {output_dir}")
+
+
+# --------------------------------------------------- stage 9: CRF refinement
+
+CRF_GRAN = 64  # stage 9's pixel bucket granularity
+
+
+def _upsample_segmap(segmap: np.ndarray, H: int, W: int, P: int) -> np.ndarray:
+    """A patch segmap nearest-upsampled (cv2's convention) onto the image's
+    patch-multiple region (H//P)*P x (W//P)*P, the border beyond it from the
+    (H, W) resize (reference: extract/extract.py:679-681); {0, 255} maps
+    read as {0, 1}."""
+    seg = torch.from_numpy(segmap.astype(np.int32))
+    H_pad, W_pad = (H // P) * P, (W // P) * P
+    full = resize_nearest(seg, (H, W)).numpy()
+    full[:H_pad, :W_pad] = resize_nearest(seg, (H_pad, W_pad)).numpy()
+    if set(np.unique(full).tolist()) == {0, 255}:
+        full[full == 255] = 1
+    return full
+
+
+def extract_crf_segmentations(
+    images_list: str,
+    images_root: str,
+    segmentations_dir: str,
+    output_dir: str,
+    num_classes: int = 21,
+    downsample_factor: int = 16,
+    multiprocessing: int = 0,  # accepted for CLI parity; batching replaces it
+    w1: float = 10.0,
+    alpha: float = 80.0,
+    beta: float = 13.0,
+    w2: float = 3.0,
+    gamma: float = 3.0,
+    it: float = 5.0,
+    batch_size: int = 4,
+    gt_prob: float = 0.7,
+    device: str = "cuda",
+):
+    """Dense-CRF sharpening of patch-level segmaps at full image resolution
+    (reference: extract/extract.py:650-735), on the device: images are
+    grouped by 64-pixel size bucket, edge-replicated into it, sent as uint8
+    in batches of `batch_size`, refined by one batched mean field, and
+    cropped back. `gt_prob` softens the hard-label unaries
+    (unary_from_labels, see ops/crf.py). Images pair with segmaps by
+    position (the list's order against the sorted segmentations dir)."""
+    del multiprocessing
+    dev = resolve_device(device, "extract_crf_segmentations")
+    make_output_dir(output_dir)
+    params = (w1, alpha, beta, w2, gamma, it)
+    writer = _AsyncWriter()
+
+    from PIL import Image
+    pending = []
+    for _, (image_file, segmap_path) in get_paired_input_files(images_list,
+                                                                segmentations_dir):
+        out_file = Path(output_dir) / f"{Path(image_file).stem}.png"
+        if out_file.is_file():
+            continue
+        # the listed file name, any extension (the reference re-derives
+        # `{id}.jpg`, extract/extract.py:668)
+        with Image.open(str(Path(images_root) / image_file)) as im:
+            Wd, Hd = im.size
+        pending.append((image_file, segmap_path, out_file, (Hd, Wd)))
+
+    def prepare(bucket: bucketing.Bucket, batch_items):
+        """Host side: decode, upsample the segmap, pad both into the bucket
+        by edge replication (border neighbourhoods stay natural), uint8."""
+        BH, BW = bucket.h * CRF_GRAN, bucket.w * CRF_GRAN
+        imgs = np.zeros((len(batch_items), BH, BW, 3), np.uint8)
+        segs = np.zeros((len(batch_items), BH, BW), np.uint8)
+        metas = []
+        for i, (image_file, segmap_path, out_file, (H, W)) in enumerate(batch_items):
+            image = load_image_rgb(Path(images_root) / image_file)
+            seg = _upsample_segmap(load_segmap_png(segmap_path), H, W, downsample_factor)
+            if seg.min() < 0 or seg.max() > 255:
+                raise ValueError(f"{segmap_path}: labels outside 0..255")
+            imgs[i] = np.pad(image, ((0, BH - H), (0, BW - W), (0, 0)), mode="edge")
+            segs[i] = np.pad(seg, ((0, BH - H), (0, BW - W)), mode="edge")
+            metas.append((out_file, H, W))
+        return imgs, segs, metas
+
+    def save(metas, labels):
+        for (out_file, H, W), lab in zip(metas, labels):
+            writer.submit(save_segmap_png, lab[:H, :W], out_file)
+
+    # One batch in flight: a batch's labels are fetched after the next batch
+    # has been sent.
+    inflight = _InFlight()
+
+    def consume(bucket: bucketing.Bucket, batch_items, prepared):
+        imgs, segs, metas = prepared
+        labels = dense_crf(_to_device(imgs, dev), _to_device(segs, dev),
+                           num_classes=num_classes, params=params, gt_prob=gt_prob)
+        inflight.push(_Fetch(labels.to(torch.uint8)), partial(save, metas))
+
+    bucketing.run_bucketed_prefetched(
+        pending, lambda it: (-(-it[3][0] // CRF_GRAN), -(-it[3][1] // CRF_GRAN)),
+        prepare, consume, batch_size=batch_size, granularity=1)
+    inflight.drain()
+    writer.close()
+    print(f"Saved CRF segmentations to {output_dir}")
+
+
+# ------------------------------------------------- stage 10: visualization
+
+
+def vis_segmentations(
+    images_list: str,
+    images_root: str,
+    segmentations_dir: str,
+    bbox_file: Optional[str] = None,
+    output_dir: str = "./vis",
+    max_images: int = 40,
+):
+    """Static HTML/PNG gallery of image / segmap overlays (the reference's
+    streamlit app, extract/extract.py:738-834, rendered to files), drawn
+    with matplotlib's Agg backend as the JAX stage draws it. Host only."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    # boxes keyed by image id, never by position (bboxes.pth follows the
+    # sorted segmentations dir, the list any order)
+    bboxes_by_id = {bd["id"]: bd for bd in load_pth(bbox_file)} if bbox_file else None
+    colors = matplotlib.colormaps["tab20"].resampled(21)
+
+    rows = []
+    names = Path(images_list).read_text().splitlines()
+    for name in names[:max_images]:
+        image_id = Path(name).stem
+        image = load_image_rgb(Path(images_root) / name)
+        segmap = load_segmap_png(Path(segmentations_dir) / f"{image_id}.png")
+        if set(np.unique(segmap).tolist()) == {0, 255}:
+            segmap = (segmap == 255).astype(np.uint8)
+        seg_full = resize_nearest(torch.from_numpy(segmap.astype(np.int32)),
+                                  image.shape[:2]).numpy()
+        ncols = 3 if bboxes_by_id is not None else 2
+        fig, axes = plt.subplots(1, ncols, figsize=(5 * ncols, 5))
+        axes[0].imshow(image)
+        axes[0].set_title(image_id)
+        overlay = colors(seg_full % 21)[..., :3]
+        blend = 0.55 * image / 255.0 + 0.45 * overlay
+        blend[seg_full == 0] = (image / 255.0)[seg_full == 0]
+        axes[1].imshow(blend)
+        axes[1].set_title("segments")
+        if bboxes_by_id is not None:
+            axes[2].imshow(image)
+            bd = bboxes_by_id.get(image_id, {"bboxes_original_resolution": []})
+            for (xmin, ymin, xmax, ymax) in bd["bboxes_original_resolution"]:
+                axes[2].add_patch(plt.Rectangle((xmin, ymin), xmax - xmin, ymax - ymin,
+                                                fill=False, edgecolor="red", linewidth=2))
+            axes[2].set_title("boxes")
+        for ax in axes:
+            ax.axis("off")
+        fig.savefig(out / f"{image_id}.png", bbox_inches="tight", dpi=80)
+        plt.close(fig)
+        rows.append(f'<div><h3>{image_id}</h3><img src="{image_id}.png"/></div>')
+    (out / "index.html").write_text("<html><body>" + "\n".join(rows) + "</body></html>")
+    print(f"Wrote visualization gallery to {out / 'index.html'}")

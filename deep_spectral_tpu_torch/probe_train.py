@@ -1,6 +1,7 @@
 """Probes of chip_smoke.py's phase-7 train step on one GPU.
 
     python -m deep_spectral_tpu_torch.probe_train [sensitivity] [profile] [steps]
+        [determinism]
 
 (no argument: sensitivity, then profile). Run from the repository root: it
 reuses chip_smoke.py's synthetic batch (`blob_batch`) and its routing of
@@ -23,6 +24,13 @@ packed kernel (K1), its twin (P1), kernel 3's bf16 build (K3) or kernel 3's
 twin (P3); it prints how many attention outputs each pair differs in, and
 the worst trained-tensor gradient differences relative to max |reference|,
 against a second run of the kernels (the step's own run-to-run spread).
+
+`determinism`: where two runs of the same b144 bf16 step (one unfrozen
+block, two fresh states of one seed) part, in the default mode and under
+`torch.use_deterministic_algorithms`: which of the trained block's
+attention-backward inputs (q, k, v, o, lse, do) and output (the fused
+dq/dk/dv) and which trained gradients differ; then kernels 4-5 run 20 times
+on one captured input, and how many distinct outputs they give.
 """
 from __future__ import annotations
 
@@ -171,8 +179,47 @@ def sensitivity(dev) -> None:
               flush=True)
 
 
+def determinism(dev) -> None:
+    from .models import flash_attention as fa
+    from .tasks.semantic_segmentation import train_step
+    x, y = _batch(dev)
+    real = fa.flash_backward
+    for deterministic in (False, True):
+        runs = []
+        for _ in range(2):
+            rec = {}
+
+            def capture(q, k, v, kv_mask, o, lse, do, rec=rec):
+                out = real(q, k, v, kv_mask, o, lse, do)
+                rec.update({"q": q.clone(), "k": k.clone(), "v": v.clone(), "o": o.clone(),
+                            "lse": lse.clone(), "do": do.clone(), "dqkv": out.clone()})
+                return out
+            state = _state(dev, "bf16", "flash")
+            fa.flash_backward = capture
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            try:
+                train_step(state, x, y, torch.Generator(device=dev).manual_seed(11))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+                fa.flash_backward = real
+            rec.update({f"grad {n}": p.grad.detach().clone()
+                        for n, p in state.opt.params.items()})
+            runs.append(rec)
+            del state
+        differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+        print(f"deterministic algorithms {deterministic}: of {len(runs[0])} tensors, these "
+              f"differ between two runs of the step: {differ}", flush=True)
+    r = runs[0]
+    outs = {real(r["q"], r["k"], r["v"], None, r["o"], r["lse"], r["do"]).float().cpu()
+            .numpy().tobytes() for _ in range(20)}
+    print(f"kernels 4-5 on one captured input, 20 runs: {len(outs)} distinct output(s)",
+          flush=True)
+
+
 if __name__ == "__main__":
     import sys
-    probes = {"sensitivity": sensitivity, "profile": profile, "steps": steps}
+    probes = {"sensitivity": sensitivity, "profile": profile, "steps": steps,
+              "determinism": determinism}
     for name in sys.argv[1:] or ["sensitivity", "profile"]:
         probes[name](torch.device("cuda", 0))

@@ -8,6 +8,8 @@
       predictions.root=... datasets.ECSSD.images_dir=... datasets.ECSSD.labels_dir=...
   python -m deep_spectral_tpu_torch.tasks.cli semantic_eval [cfg overrides]
   python -m deep_spectral_tpu_torch.tasks.cli semantic_train [cfg overrides]
+  python -m deep_spectral_tpu_torch.tasks.cli semantic_generate \
+      --checkpoint CK --output_dir OUT [--max_images N] [cfg overrides]
 
 The YAML tasks take `--config` plus key=value overrides, mirroring the JAX
 package's `deep_spectral_tpu.tasks.cli` (and the reference's hydra
@@ -16,8 +18,10 @@ own option chooses the device, `device=cuda|cpu` for the YAML tasks and
 `--device cuda|cpu` for localization (default: cuda, which raises
 RuntimeError when there is no card). Localization's on-the-fly ViT runs in
 f32, as the JAX CLI's does. `semantic_eval`'s overlays (`visualize`, 40 by
-default) need matplotlib; `visualize=0` skips them. The JAX CLI's
-`semantic_generate` is not ported yet: it exits with the usage line.
+default) need matplotlib; `visualize=0` skips them. `semantic_generate`
+restores one of `semantic_train`'s `.pt` checkpoints (a file, or a directory:
+its newest step_*.pt, else best.pt) under the same config and writes the
+model's predictions on the val split.
 """
 from __future__ import annotations
 
@@ -27,7 +31,6 @@ import sys
 from pathlib import Path
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
-NOT_PORTED = ("semantic_generate",)
 
 
 def localization(argv) -> float:
@@ -134,6 +137,25 @@ def semantic_eval(argv) -> tuple:
     return miou, match
 
 
+def _train_config(cfg):
+    """The `TrainConfig` of a semantic_train config."""
+    from . import semantic_segmentation as SS
+    return SS.TrainConfig(
+        backbone=cfg.backbone, num_classes=cfg.data.num_classes + 1,
+        lr=cfg.lr, weight_decay=cfg.optimizer.weight_decay,
+        max_train_steps=cfg.max_train_steps,
+        warmup_steps=cfg.scheduler.warmup_steps,
+        unfrozen_backbone_layers=cfg.unfrozen_backbone_layers,
+        gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+        clip_grad_norm=cfg.optimizer.clip_grad_norm,
+        use_ema=cfg.ema.use_ema, ema_decay=cfg.ema.decay,
+        crop_size=cfg.data.transform.crop_size,
+        resize_size=cfg.data.transform.resize_size,
+        batch_size=cfg.data.loader.batch_size, seed=cfg.seed,
+        precision=cfg.get("precision", "fp32"),
+        num_workers=int(cfg.data.loader.get("num_workers", 4)))
+
+
 def semantic_train(argv) -> float:
     """Self-train DeepLab on pseudolabels; returns the best val mIoU."""
     from ..utils.config import load_config
@@ -153,38 +175,48 @@ def semantic_train(argv) -> float:
         cfg.data.root, cfg.data.train_image_set, cfg.segments_dir, label_map=matching)
     val_ds = SS.VOCSegmentationWithPseudolabels(
         cfg.data.root, cfg.data.val_image_set, cfg.segments_dir, label_map=matching)
-    tcfg = SS.TrainConfig(
-        backbone=cfg.backbone, num_classes=cfg.data.num_classes + 1,
-        lr=cfg.lr, weight_decay=cfg.optimizer.weight_decay,
-        max_train_steps=cfg.max_train_steps,
-        warmup_steps=cfg.scheduler.warmup_steps,
-        unfrozen_backbone_layers=cfg.unfrozen_backbone_layers,
-        gradient_accumulation_steps=cfg.gradient_accumulation_steps,
-        clip_grad_norm=cfg.optimizer.clip_grad_norm,
-        use_ema=cfg.ema.use_ema, ema_decay=cfg.ema.decay,
-        crop_size=cfg.data.transform.crop_size,
-        resize_size=cfg.data.transform.resize_size,
-        batch_size=cfg.data.loader.batch_size, seed=cfg.seed,
-        precision=cfg.get("precision", "fp32"),
-        num_workers=int(cfg.data.loader.get("num_workers", 4)))
-    _, best = SS.train(tcfg, train_ds, val_ds, ckpt_dir=cfg.checkpoint.dir,
+    _, best = SS.train(_train_config(cfg), train_ds, val_ds, ckpt_dir=cfg.checkpoint.dir,
                        eval_every=cfg.eval_every,
                        resume=cfg.checkpoint.get("resume"), device=cfg.get("device"))
     print(f"best mIoU: {best:.4f}")
     return best
 
 
+def semantic_generate(argv) -> str:
+    """Dump a trained model's predictions (and GT) on the val split as PNGs:
+    the reference's `job_type=generate` (train.py:351-388). Restores a
+    checkpoint of `semantic_train` built from the same config, then runs the
+    bucketed (ViT) or per-image (ResNet) prediction; returns output_dir."""
+    from ..utils.config import load_config
+    from . import semantic_segmentation as SS
+    p = argparse.ArgumentParser(prog="semantic_generate")
+    p.add_argument("--config", default=str(CONFIG_DIR / "semantic_train.yaml"))
+    p.add_argument("--checkpoint", required=True,
+                   help="a .pt checkpoint of semantic_train, or its checkpoint dir")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--max_images", type=int, default=None)
+    p.add_argument("overrides", nargs="*")
+    a = p.parse_args(argv)
+    cfg = load_config(a.config, a.overrides)
+    ds = SS.VOCSegmentationWithPseudolabels(
+        cfg.data.root, cfg.data.val_image_set, cfg.segments_dir)
+    tcfg = _train_config(cfg)
+    state = SS.create_train_state(tcfg, SS.build_model(tcfg), device=cfg.get("device"))
+    state = SS.restore_checkpoint(a.checkpoint, state)
+    SS.generate_predictions(state, ds, a.output_dir, max_images=a.max_images,
+                            patch_size=SS._backbone_patch_size(tcfg))
+    return a.output_dir
+
+
 TASKS = {"localization": localization, "object_segmentation": object_segmentation,
-         "semantic_eval": semantic_eval, "semantic_train": semantic_train}
+         "semantic_eval": semantic_eval, "semantic_train": semantic_train,
+         "semantic_generate": semantic_generate}
 
 
 def main(argv=None) -> int:
     """Run the task named by argv[0]; 0 when it ran, 2 with the usage line."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in TASKS:
-        if argv and argv[0] in NOT_PORTED:
-            print(f"{argv[0]} is not ported to deep_spectral_tpu_torch yet",
-                  file=sys.stderr)
         print(f"usage: python -m deep_spectral_tpu_torch.tasks.cli "
               f"<{'/'.join(TASKS)}> [flags or key=value ...]", file=sys.stderr)
         return 2

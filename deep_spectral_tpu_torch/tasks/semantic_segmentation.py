@@ -1,17 +1,20 @@
-"""DeepLab self-training on pseudolabels and the clustering evaluation: the
-port of `deep_spectral_tpu.tasks.semantic_segmentation` but
-`generate_predictions` (reference: semantic-segmentation/train.py, eval.py).
+"""DeepLab self-training on pseudolabels, its prediction dump and the
+clustering evaluation: the port of `deep_spectral_tpu.tasks.semantic_segmentation`
+(reference: semantic-segmentation/train.py, eval.py).
 
 Host side, copied from the JAX package (numpy / PIL only): the VOC-layout
 dataset with pseudolabels, the augmentation stack and the image normalization.
 Evaluation of pseudolabels: `evaluate_segments` (Hungarian or majority-vote
 cluster matching, then mIoU; confusion matrices on the device) and
 `visualize_overlays` (matplotlib, imported inside it).
-Model side, in PyTorch: `TrainConfig`, `build_model`, `create_train_state`,
-`train_step` (one-hot cross-entropy over all pixels, AdamW with a linear
-decay, optional global-norm clipping, gradient accumulation, EMA and a NaN
-guard that reverts the whole state on the device), `eval_step`, the
-bucket-padded evaluation that `train` runs for ViT backbones, checkpoints
+Model side, in PyTorch: `TrainConfig`, `build_model` (DeepLabViT over a DINO
+ViT, with `remat` as activation checkpointing of its blocks, or
+DeepLabResNet over a dilated ResNet-50), `create_train_state`, `train_step`
+(one-hot cross-entropy over all pixels, AdamW with a linear decay, optional
+global-norm clipping, gradient accumulation, EMA and a NaN guard that
+reverts the whole state on the device), `eval_step`, the bucket-padded
+evaluation that `train` runs for ViT backbones (ResNets take the per-image
+path), `generate_predictions` (the reference's `generate` job), checkpoints
 (`torch.save` of the same tree as the JAX package's orbax checkpoint) and
 `train` with its producer threads.
 
@@ -34,14 +37,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..models.deeplab import DeepLabViT, backbone_param_labels
-from ..models.vit import ViTConfig, get_model_config, interpolate_pos_embed
+from ..models.deeplab import DeepLabResNet, DeepLabViT, backbone_param_labels
+from ..models.vit import ViTConfig, VisionTransformer, get_model_config, interpolate_pos_embed
 from ..ops import metrics as M
 from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.image_io import IMAGENET_MEAN, IMAGENET_STD, load_image_rgb
 from ..utils.precision import exact_f32
-from ..utils.serialization import load_segmap_png
+from ..utils.serialization import load_segmap_png, save_segmap_png
 
 VOC_NUM_CLASSES = 21  # 20 + background (reference: model/__init__.py:11-13)
 
@@ -314,40 +317,57 @@ class TrainConfig:
     # Host-side augmentation threads (the reference's DataLoader workers).
     num_workers: int = 4
     seed: int = 1
-    remat: bool = False  # not ported yet: must stay False
+    remat: bool = False  # recompute the ViT blocks in the backward (big batches)
     # 'fp32' or 'bf16': bf16 backbone compute with fp32 params, norms, head
     # and loss (the reference's fp16 Accelerator, train.py:29).
     precision: str = "fp32"
 
 
-def _vit_config(cfg: TrainConfig) -> ViTConfig:
-    if isinstance(cfg.backbone, str):
-        if "resnet" in cfg.backbone:
-            raise NotImplementedError("ResNet backbones are not ported yet")
-        return get_model_config(cfg.backbone)
-    return cfg.backbone
+def _is_resnet(cfg: TrainConfig) -> bool:
+    return isinstance(cfg.backbone, str) and "resnet" in cfg.backbone
 
 
-def build_model(cfg: TrainConfig) -> DeepLabViT:
-    """The DeepLabV3+ model of `cfg`, with the JAX model's default einsum
-    attention."""
+def _backbone_patch_size(cfg: TrainConfig) -> int:
+    """Patch size of the configured ViT backbone; 16 for a ResNet, whose
+    per-image eval crops to multiples of 16 (the reference's default
+    downsample), as the JAX package does."""
+    if _is_resnet(cfg):
+        return 16
+    return cfg.backbone.patch_size if isinstance(cfg.backbone, ViTConfig) \
+        else get_model_config(cfg.backbone).patch_size
+
+
+def build_model(cfg: TrainConfig):
+    """The DeepLabV3+ model of `cfg`: DeepLabResNet (output stride 8, f32)
+    for a 'resnet' backbone name, else DeepLabViT with `precision`'s compute
+    dtype, `remat`, and 'auto' attention: the hand-written kernels on CUDA
+    (kernels 3-5 where a block trains, the packed forward or kernel 3's f32
+    build where it does not), the JAX model's einsum on the CPU."""
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be 'fp32' or 'bf16', got {cfg.precision!r}")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
+    if _is_resnet(cfg):
+        return DeepLabResNet(cfg.num_classes)
+    vit_cfg = cfg.backbone if isinstance(cfg.backbone, ViTConfig) \
+        else get_model_config(cfg.backbone)
     dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-    return DeepLabViT(_vit_config(cfg), cfg.num_classes, compute_dtype=dtype)
+    return DeepLabViT(vit_cfg, cfg.num_classes, compute_dtype=dtype, attention_impl="auto",
+                      remat=cfg.remat)
 
 
 @torch.no_grad()
-def init_deeplab_(model: DeepLabViT, seed: int) -> DeepLabViT:
-    """Seeded random weights: the backbone as `convert.random_init_`, head
-    convs ~ N(0, 1/fan_in) (flax's lecun-normal scale) with zero biases, and
-    BatchNorm at identity with zero mean and unit variance."""
+def init_deeplab_(model, seed: int):
+    """Seeded random weights: a ViT backbone as `convert.random_init_`; a
+    ResNet backbone's and the head's convs ~ N(0, 1/fan_in) (flax's
+    lecun-normal scale) with zero biases; BatchNorm at identity with zero
+    mean and unit variance."""
     from ..models.convert import random_init_
-    random_init_(model.backbone, seed)
     g = torch.Generator().manual_seed(seed + 1)
-    for module in model.head.modules():
+    if isinstance(model.backbone, VisionTransformer):
+        random_init_(model.backbone, seed)
+        modules = model.head.modules()
+    else:
+        modules = model.modules()
+    for module in modules:
         if isinstance(module, torch.nn.Conv2d):
             fan_in = module.weight[0].numel()
             module.weight.copy_(torch.randn(module.weight.shape, generator=g) / fan_in ** 0.5)
@@ -594,8 +614,32 @@ def _pos_for_bucket(pos_embed: torch.Tensor, vh: int, vw: int, hp: int, wp: int,
     return cache[key]
 
 
+def supports_bucketed_eval(state: TrainState) -> bool:
+    """Bucketed (shape-padded) evaluation needs per-image interpolated ViT
+    position embeddings; ResNet backbones take the per-image path."""
+    return isinstance(state.model.backbone, VisionTransformer)
+
+
 def _patch_size(state: TrainState, patch_size: Optional[int]) -> int:
-    return patch_size if patch_size is not None else state.model.vit_cfg.patch_size
+    """`patch_size`, else the ViT backbone's; 16 for a ResNet (its per-image
+    eval crops to multiples of 16)."""
+    if patch_size is not None:
+        return patch_size
+    vit_cfg = getattr(state.model, "vit_cfg", None)
+    return vit_cfg.patch_size if vit_cfg is not None else 16
+
+
+def _device(state: TrainState) -> torch.device:
+    return next(state.model.parameters()).device
+
+
+def _per_image_prediction(state: TrainState, image: np.ndarray, P: int) -> np.ndarray:
+    """The eval-mode prediction of one image cropped to a multiple of P (the
+    reference's batch-size-1 evaluation)."""
+    H, W = image.shape[:2]
+    x = normalize_image(image[: (H // P) * P, : (W // P) * P])[None]
+    return eval_step(state, torch.from_numpy(np.ascontiguousarray(x)).to(_device(state)))[0] \
+        .cpu().numpy()
 
 
 def bucketed_predictions(state: TrainState, dataset, indices,
@@ -662,15 +706,17 @@ def bucketed_predictions(state: TrainState, dataset, indices,
 
 def evaluate_model(state: TrainState, dataset, num_classes: int = VOC_NUM_CLASSES,
                    ignore_index: int = 255, max_images: Optional[int] = None,
-                   bucketed: bool = True, batch_size: int = 8,
+                   bucketed: Optional[bool] = None, batch_size: int = 8,
                    patch_size: Optional[int] = None):
     """Flat-pixel mIoU of model predictions vs GT, assuming the matching was
     already applied as the dataset label_map (reference: train.py:278-348,
     batch-size-1 semantics). bucketed=True batches the images through <= 2
-    padded shape buckets (pixel-exact vs the per-image path, bucketed=False).
-    Returns (miou, per-class Jaccard as numpy)."""
+    padded shape buckets (pixel-exact vs the per-image path, bucketed=False);
+    None (the default) buckets ViT backbones and not ResNets. Returns (miou,
+    per-class Jaccard as numpy)."""
     P = _patch_size(state, patch_size)
-    dev = state.model.backbone.pos_embed.device
+    if bucketed is None:
+        bucketed = supports_bucketed_eval(state)
     n = len(dataset) if max_images is None else min(len(dataset), max_images)
     preds_all, gts_all = [], []
 
@@ -696,15 +742,46 @@ def evaluate_model(state: TrainState, dataset, num_classes: int = VOC_NUM_CLASSE
             image, _, target, _ = dataset[i]
             if target is None:
                 continue
-            x = normalize_image(image)[None]
-            H, W = x.shape[1:3]
-            Hp, Wp = (H // P) * P, (W // P) * P  # crop to a patch multiple
-            x = torch.from_numpy(np.ascontiguousarray(x[:, :Hp, :Wp])).to(dev)
-            accumulate(eval_step(state, x)[0].cpu().numpy(), target)
+            accumulate(_per_image_prediction(state, image, P), target)
     jac, miou = M.per_class_jaccard(torch.from_numpy(np.concatenate(preds_all)),
                                     torch.from_numpy(np.concatenate(gts_all)),
                                     num_classes)
     return float(miou), jac.numpy()
+
+
+def generate_predictions(state: TrainState, dataset, output_dir,
+                         max_images: Optional[int] = None,
+                         bucketed: Optional[bool] = None, batch_size: int = 8,
+                         patch_size: Optional[int] = None) -> None:
+    """Dump model predictions (and GT where the dataset has it) as PNGs under
+    <output_dir>/pred and /gt: the reference's `generate` job
+    (train.py:351-388). bucketed=None buckets ViT backbones through padded
+    shape buckets (pixel-exact, see `bucketed_predictions`) and runs ResNets
+    one image at a time, each cropped to a multiple of the patch size."""
+    out = Path(output_dir)
+    (out / "pred").mkdir(parents=True, exist_ok=True)
+    (out / "gt").mkdir(parents=True, exist_ok=True)
+    n = len(dataset) if max_images is None else min(len(dataset), max_images)
+    if bucketed is None:
+        bucketed = supports_bucketed_eval(state)
+    P = _patch_size(state, patch_size)
+
+    def save(pred, item):
+        _, _, target, stem = item
+        save_segmap_png(pred.astype(np.uint8), out / "pred" / f"{stem}.png")
+        if target is not None:
+            save_segmap_png(np.asarray(target, np.uint8), out / "gt" / f"{stem}.png")
+
+    if bucketed:
+        for _, pred, item in bucketed_predictions(state, dataset, list(range(n)),
+                                                  patch_size=P, batch_size=batch_size,
+                                                  yield_items=True):
+            save(pred, item)
+    else:
+        for i in range(n):
+            item = dataset[i]
+            save(_per_image_prediction(state, item[0], P), item)
+    print(f"Wrote {n} predictions to {out}")
 
 
 # ----------------------------------------------------------- checkpointing
@@ -839,7 +916,8 @@ def train(cfg: TrainConfig, dataset_train, dataset_val=None,
             if writer is not None and step % max(log_every, 1) == 0:
                 writer.log(step, loss=float(logs["loss"]), acc=float(logs["acc"]))
             if dataset_val is not None and eval_every and (step + 1) % eval_every == 0:
-                miou, _ = evaluate_model(state, dataset_val, cfg.num_classes)
+                miou, _ = evaluate_model(state, dataset_val, cfg.num_classes,
+                                         patch_size=_backbone_patch_size(cfg))
                 print(f"step {step}: val mIoU={miou:.4f}")
                 if writer is not None:
                     writer.log(step, val_miou=miou)

@@ -197,7 +197,7 @@ def test_stages_resume_and_cli(run, tmp_path, capsys):
     n = (200 // 16) ** 2  # the 200x200 image on a 16-pixel grid
     assert load_pth(tmp_path / "v2" / "img_3.pth")["eigenvectors"].shape == (3, n)
     with pytest.raises(SystemExit):
-        t_cli.main(["extract_crf_segmentations"])  # not ported: not a stage of this CLI
+        t_cli.main(["extract_crf_segmentations"])  # its required flags are missing
 
 
 def test_port_imports_no_jax():
@@ -209,7 +209,10 @@ def test_port_imports_no_jax():
             "deep_spectral_tpu_torch.tasks.localization, "
             "deep_spectral_tpu_torch.tasks.localization_vis, "
             "deep_spectral_tpu_torch.ops.kmeans, deep_spectral_tpu_torch.ops.morphology, "
-            "deep_spectral_tpu_torch.ops.resize, deep_spectral_tpu_torch.tasks.object_segmentation; "
+            "deep_spectral_tpu_torch.ops.resize, deep_spectral_tpu_torch.tasks.object_segmentation, "
+            "deep_spectral_tpu_torch.ops.crf, deep_spectral_tpu_torch.pipeline.run_all, "
+            "deep_spectral_tpu_torch.pipeline.vis_server, deep_spectral_tpu_torch.utils.profiling, "
+            "deep_spectral_tpu_torch.models.resnet; "
             "assert 'jax' not in sys.modules and 'deep_spectral_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parents[1])

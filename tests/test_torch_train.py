@@ -328,8 +328,103 @@ def test_semantic_train_cli(voc, tmp_path, capsys):
                                    f"checkpoint.dir={tmp_path / 'ckpt2'}"]) == 0
     out = capsys.readouterr().out
     assert f"at step {best_step}" in out and f"{6 - best_step} steps" in out
-    assert t_cli.main(["semantic_generate"]) == 2  # not ported: the usage line
+    with pytest.raises(SystemExit):  # --checkpoint and --output_dir are required
+        t_cli.main(["semantic_generate"])
     assert t_cli.main([]) == 2
+
+
+def test_generate_predictions_match_jax(voc, tmp_path):
+    """`generate_predictions` writes the JAX function's PNGs byte for byte
+    (the same weights; bucketed), and the per-image path the same bytes."""
+    jstate, tstate = _states()
+    ds = TSS.VOCSegmentationWithPseudolabels(str(voc), "all", str(voc / "pseudo"))
+    jds = JSS.VOCSegmentationWithPseudolabels(str(voc), "all", str(voc / "pseudo"))
+    JSS.generate_predictions(jstate, jds, tmp_path / "j", patch_size=8, batch_size=4)
+    TSS.generate_predictions(tstate, ds, tmp_path / "t", batch_size=4)
+    TSS.generate_predictions(tstate, ds, tmp_path / "p", bucketed=False)
+    for sub in ("pred", "gt"):
+        names = sorted(f.name for f in (tmp_path / "j" / sub).iterdir())
+        assert len(names) == len(ds) and names == sorted(
+            f.name for f in (tmp_path / "t" / sub).iterdir())
+        for name in names:
+            want = (tmp_path / "j" / sub / name).read_bytes()
+            assert (tmp_path / "t" / sub / name).read_bytes() == want, (sub, name)
+            assert (tmp_path / "p" / sub / name).read_bytes() == want, (sub, name)
+
+
+def test_semantic_generate_cli(voc, tmp_path, capsys):
+    """semantic_train writes a checkpoint; semantic_generate restores it under
+    the same config and writes one prediction per val image, at the image's
+    size cropped to a multiple of the patch size, equal to the trained
+    state's own predictions."""
+    cfg = ["backbone=test_vit_tiny", "data.num_classes=2", "data.loader.batch_size=2",
+           "data.loader.num_workers=1", "data.transform.crop_size=32",
+           "data.transform.resize_size=40", "device=cpu", f"data.root={voc}",
+           f"segments_dir={voc / 'pseudo'}"]
+    assert t_cli.main(["semantic_train", *cfg, "max_train_steps=2", "eval_every=2",
+                       f"checkpoint.dir={tmp_path / 'ck'}"]) == 0
+    ck = tmp_path / "ck" / "best.pt"
+    t_cli.main(["semantic_generate", "--checkpoint", str(ck), "--output_dir",
+                str(tmp_path / "gen"), *cfg])
+    assert "Wrote 2 predictions" in capsys.readouterr().out
+    _, tcfg = _cfgs(num_classes=3)
+    state = TSS.restore_checkpoint(str(ck), TSS.create_train_state(
+        tcfg, TSS.build_model(tcfg), device="cpu"))
+    val = TSS.VOCSegmentationWithPseudolabels(str(voc), "val", str(voc / "pseudo"))
+    for i in range(len(val)):
+        image, _, target, stem = val[i]
+        pred = np.asarray(Image.open(tmp_path / "gen" / "pred" / f"{stem}.png"))
+        H, W = (image.shape[0] // 8) * 8, (image.shape[1] // 8) * 8
+        assert pred.shape == (H, W)
+        want = TSS.eval_step(state, torch.from_numpy(TSS.normalize_image(image[:H, :W]))[None])
+        np.testing.assert_array_equal(pred, want[0].numpy())
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(tmp_path / "gen" / "gt" / f"{stem}.png")), target)
+
+
+def test_semantic_generate_needs_the_card_by_default(voc, tmp_path, monkeypatch):
+    """semantic_generate runs on CUDA unless device=cpu is given: with no card
+    it raises before restoring anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_cli.main(["semantic_generate", "--checkpoint", str(tmp_path / "none.pt"),
+                    "--output_dir", str(tmp_path / "gen"), "backbone=test_vit_tiny",
+                    f"data.root={voc}", f"segments_dir={voc / 'pseudo'}"])
+    assert not (tmp_path / "gen").exists()
+
+
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+def test_remat_gradients_equal_plain(impl, monkeypatch):
+    """TrainConfig.remat recomputes each ViT block in the backward: one step
+    from the same weights, batch and dropout generator gives the same
+    gradients, bit for bit, as the plain step. On the 'flash' route the
+    remat'd step runs kernel 3's function twice per trained block (the
+    forward, then the recompute), and on the CPU its plain twin: the launch
+    counters stay as they were."""
+    import deep_spectral_tpu_torch.models.flash_attention as fa
+    calls = []
+    real = fa.flash_attention_lse
+    monkeypatch.setattr(fa, "flash_attention_lse",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x, y = (torch.from_numpy(v) for v in _batch())
+    grads, n_calls = {}, {}
+    for remat in (False, True):
+        _, tcfg = _cfgs(remat=remat, unfrozen_backbone_layers=2)
+        model = t_deeplab.DeepLabViT(T_TINY, 3, attention_impl=impl, remat=remat)
+        assert TSS.build_model(tcfg).backbone.remat == remat
+        state = TSS.create_train_state(tcfg, model, device="cpu")
+        before = (real.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+        calls.clear()
+        TSS.train_step(state, x, y, torch.Generator().manual_seed(3))
+        n_calls[remat] = len(calls)
+        assert (real.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == before
+        grads[remat] = {n: p.grad.clone() for n, p in state.opt.params.items()}
+    assert grads[True].keys() == grads[False].keys()
+    assert any(n.startswith("backbone.blocks.0.") for n in grads[True])
+    for name, g in grads[False].items():
+        assert torch.equal(grads[True][name], g), name
+    if impl == "flash":
+        assert (n_calls[False], n_calls[True]) == (2, 4)  # 2 trained blocks
 
 
 @pytest.fixture(scope="module", autouse=True)
