@@ -14,7 +14,8 @@ Phases, each of which must pass:
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, at
      phase 9's dino_vits8 512x512 shape (b4, T=4097), at the train path's
-     frozen-block shape (b144, T=197) and b4 T=197, and at phase 10's stage-1
+     frozen-block shape (b144, T=197) and b4 T=197, at phase 13's PP
+     microbatch (b2, T=901), and at phase 10's stage-1
      buckets (b4, T=1025 and 769), with a ragged mask and one all-masked
      batch row, with the kernel's grid and shared memory, its bound and
      `F.scaled_dot_product_attention` on the same views as its library
@@ -117,8 +118,40 @@ Phases, each of which must pass:
      from the same state, under torch.use_deterministic_algorithms:
      gradients and loss bit-equal, kernel 3 twice per trained block; then
      both variants in turns, each one's ms/step and peak memory.
-`python3 chip_smoke.py 12` runs the build and phase 12 alone, with no result
-line.
+ 13. the parallel paths (`deep_spectral_tpu_torch.parallel`) at world 1 in one
+     NCCL group (the host has one card; NCCL takes one rank per card; an
+     all_reduce, all_gather and broadcast on the card first), each output
+     held against the single-card path on the same input by max |diff|
+     (F32_TOL in fp32, FLASH_TOL scaled by the magnitude in bf16): (a)
+     SP-ViT, dino_vits8 at 736x736 (T=8465) b1 with flash ring hops,
+     `sp_vit_forward` then `sp_patch_features` (kernel 3 at T=8465, 12 + 11
+     launches), in bf16 and fp32 (kernel 3's f32 build), x_norm, cls, block
+     0's q/k/v and the keys; (b) the ring's multi-hop merge in this process:
+     block 0's bf16 q/k/v in HOPS shards of HOP_T tokens (the 4th ending in
+     3 padding rows, the 5th all padding), each query shard against every
+     K/V shard in its ring order through kernel 3 (25 launches at b1
+     T=2117), merged by `merge_hops`, held against kernel 1 on the whole
+     sequence and the same merge over the twin; (c) PP at S=1, dino_vits16
+     480x480 b8 bf16 in 4 microbatches (kernel 1 at b2 T=901, 48 launches);
+     (d) DP and TP patch features (kernel 1) and the DP spectral decompose
+     (kernel 2, bit-equal) at phase 4's b24 shape, and the row-sharded
+     LOBPCG at N=4096 against dense eigh; (e) one data-parallel 7b step
+     (kernels 3-5) against the plain step from the same state under
+     deterministic algorithms (GRAD_REL_TOL). Kernel 3 at each ring-hop
+     shape (T=8465 bf16 and f32, b1 T=2117) is held against its twin (o
+     and lse) and timed, with its bound and SDPA, for the kernels line.
+`python3 chip_smoke.py 12` (or 13) runs the build and that phase alone, with
+no result line. `python3 chip_smoke.py 13 --world N` runs phase 13 at world
+N, one process a card (a host with N cards): (a) with the ranks' rows
+gathered, (b) as `ring_attention` over N ranks at T=8465 (random q/k/v,
+the K/V shards rotating by P2P) against kernel 1, (c) over N stages, (d)
+DP over N ranks and TP x DP on an (N / 2, 2) mesh, (e) b144 over N ranks
+(loss within 1e-3, every rank's state the same bits), bf16 outputs by the
+least per-token cosine (PAR_COS_MIN), each path timed on the slowest rank
+beside the single-card path, and (f) `train()`'s steps per second over a
+tree of 500x375 JPEGs, data-parallel (`loop_rate`). `python3 chip_smoke.py
+loop` runs (f) alone: at world 1 with no mesh (which a `train()` without
+the `mesh` argument runs too), or with `--world N` at world N.
 Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
 calls: the median window, with the min-max printed beside it; phase 9's
 solves, which sync the host every iteration, are 5 single calls after a
@@ -196,6 +229,17 @@ RESNET_B, GEN_B = 16, 8    # phase 12's ResNet train batch, semantic_train's bat
 #                            prediction dump
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# phase 13's shapes and gates: SP at dino_vits8 736x736 (T = 1 + 92^2 = 8465); the
+# multi-hop merge over HOPS shards of HOP_T tokens (4 x 2117 - 3 = 8465: the 4th
+# shard ends in 3 padding rows, the 5th is padding); PP at b8 in 4 microbatches;
+# the row-sharded LOBPCG on a 64 x 64 grid (N=4096)
+SP_IMG, HOPS, HOP_T = 736, 5, 2117
+PP_B, PP_M, ROW_GRID = 8, 4, 64
+PAR_COS_MIN = 0.9999  # world > 1: bf16 paths whose GEMMs run at other shapes than the
+#                       single-card path's and whose all-reduces and hop merges add in another
+#                       order: least per-token cosine (0.999910 TP x DP, 0.999914 SP measured
+#                       at world 4 on four H100s; world 1 is held by max |diff| instead)
+LOOP_IMAGES, LOOP_WARM, LOOP_STEPS = 96, 3, 12  # `loop_rate`'s tree and runs
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
                        (4, 901, "float32", True), (2, 3601, "float32", True)]
@@ -366,7 +410,8 @@ def phase_flash(dev) -> dict:
     import torch.nn.functional as F
     g = torch.Generator().manual_seed(1)
     worst, main = 0.0, None
-    for (b, T, ragged) in [(B, 901, False), (B, 901, True), (4, 3601, True),
+    for (b, T, ragged) in [(B, 901, False), (B, 901, True), (PP_B // PP_M, 901, False),
+                           (4, 3601, True),
                            (LOBPCG_B, 4097, False), (TRAIN_B, 197, False), (4, 197, True),
                            *((4, t, True) for t in LOC_FLASH_T)]:
         qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
@@ -2093,11 +2138,638 @@ def phase_12(tmp: Path, dev) -> dict:
     return {"run_all": run["launches"], "generate": gen, "remat": remat}
 
 
-def main(only: list) -> int:
-    """Every phase, then the kernels line, the card line and the result line;
-    with phase numbers in `only`, the build and those of phases 2-12 alone,
-    and no result line (for trying a phase on the card)."""
+# ----------------------------------------------------------------- phase 13
+
+def _cos_min(a, b) -> float:
+    """The least cosine between matching rows (last dim) of a and b."""
     import torch
+    a, b = a.double().flatten(0, -2), b.double().flatten(0, -2)
+    norms = torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1)
+    return ((a * b).sum(-1) / norms.clamp(min=1e-30)).min().item()
+
+
+def _held(what: str, err: float, tol: float) -> None:
+    log(f"[13] {what}: max |diff| {err:.3e} (tol {tol:.3e})")
+    if not np.isfinite(err) or err > tol:
+        raise AssertionError(f"{what}: {err} above {tol}")
+
+
+def _agree(what: str, got, ref, world: int, f32: bool = False) -> None:
+    """A parallel path's output against the single-card path's on the same
+    input (`f32`: computed in fp32, else in bf16). At world 1 by max |diff|:
+    F32_TOL in fp32, FLASH_TOL in bf16 scaled by the magnitude (FLASH_TOL
+    is bf16's bound for |x| < 2, and its ulp doubles with each octave
+    above). At world > 1 the GEMMs run at other shapes, and the all-reduces
+    and the hop merges add in another order: fp32 by max |diff| within
+    F32_TOL of max |ref|, bf16 by the least per-token cosine (PAR_COS_MIN)."""
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    if f32:
+        _held(what, err, F32_TOL * (1.0 if world == 1 else max(1.0, scale)))
+    elif world == 1:
+        _held(what, err, FLASH_TOL * max(1.0, scale / 2))
+    else:
+        cos = _cos_min(got, ref)
+        log(f"[13] {what}: least per-token cosine {cos:.6f} (min {PAR_COS_MIN}), max |diff| "
+            f"{err:.3e}")
+        if not cos >= PAR_COS_MIN:
+            raise AssertionError(f"{what}: cosine {cos} below {PAR_COS_MIN}")
+
+
+def _want_launches(what: str, got: dict, want: dict) -> None:
+    if any(got[n] != c for n, c in want.items()):
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def _slowest_ms(fn, calls: int = 5) -> float:
+    """The median over `calls` calls (after a warm-up call) of the slowest
+    rank's CUDA-event time of one call, every call started after a
+    barrier."""
+    import torch
+    import torch.distributed as dist
+    fn()
+    times = []
+    for _ in range(calls):
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        t = torch.tensor([start.elapsed_time(end)], device="cuda")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        times.append(t.item())
+    return float(np.median(times))
+
+
+def _gather_tokens(group, x):
+    """Every rank's token rows (dim 1; the ranks may hold different counts)
+    concatenated in rank order, on every rank."""
+    import torch
+    import torch.nn.functional as F
+    from deep_spectral_tpu_torch.parallel.mesh import gather_rows
+    counts = gather_rows(group, torch.tensor([x.shape[1]], device=x.device)).tolist()
+    rows = max(counts)
+    padded = gather_rows(group, F.pad(x, (0, 0, 0, rows - x.shape[1])).contiguous(), dim=1)
+    return torch.cat([b[:, :c] for b, c in zip(padded.split(rows, dim=1), counts)], dim=1)
+
+
+def _hop_timing(what: str, q, k, v, mask, iters: int = 20) -> dict:
+    """Kernel 3 (`flash_attention_lse`) at one ring hop's shape, held
+    against its twin on the same inputs (o: FLASH_TOL in bf16 scaled by
+    |o|, F32_TOL in f32; the f32 lse within F32_TOL of max(1, |lse|)), and
+    its time, its twin's, SDPA's (unmasked) and its bound, logged and
+    returned."""
+    import torch
+    import torch.nn.functional as F
+    from deep_spectral_tpu_torch.models.flash_attention import (
+        flash_attention_lse, flash_attention_lse_plain)
+    o, lse = flash_attention_lse(q, k, v, mask)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_lse_plain(q, k, v, mask)
+    f32 = q.dtype == torch.float32
+    o_tol = F32_TOL if f32 else FLASH_TOL * max(1.0, o_ref.float().abs().max().item() / 2)
+    lse_tol = F32_TOL * max(1.0, lse_ref.abs().max().item())
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    del o, lse, o_ref, lse_ref
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask), iters=iters),
+             cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask), iters=2, warmup=1),
+             cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=iters))
+    bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2, stats=1)
+    b, T = q.shape[:2]
+    valid = T if mask is None else int(mask.sum())
+    dtype = str(q.dtype)[6:]
+    log(f"[13] kernel 3 at the ring hop {what} (b{b} T={T} H=6 hd=64 {dtype}, {valid} valid "
+        f"keys): vs its twin o {err_o:.3e} (tol {o_tol:.3e}), lse {err_lse:.3e} (tol "
+        f"{lse_tol:.3e}); kernel {times[0]}, twin {times[1]} (5 windows of 2 calls), SDPA "
+        f"(unmasked) {times[2]} ({TIMING} but the twin's); bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
+    if not (err_o <= o_tol and err_lse <= lse_tol):
+        raise AssertionError(f"13: kernel 3 at {what} disagrees with its twin: o {err_o}, "
+                             f"lse {err_lse}")
+    return {"shape": what, "b": b, "T": T, "dtype": dtype, "valid_keys": valid,
+            "max_abs_err": err_o, "lse_err": err_lse, "ms": times[0].ms,
+            "plain_ms": times[1].ms, "library_ms": times[2].ms, **bd}
+
+
+def _parallel_sp(dev, mesh, x, world) -> tuple[dict, list, tuple]:
+    """(a) SP-ViT through kernel 3's ring hops, the ranks' rows gathered,
+    against the single-card forward on the same input (kernel 1 in bf16,
+    kernel 3's f32 build in fp32); returns the launches by path, the
+    T=8465 hop timings (world 1) and block 0's bf16 q/k/v (world 1)."""
+    import torch
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.vit import (
+        VisionTransformer, extract_patch_keys, get_model_config)
+    from deep_spectral_tpu_torch.parallel.mesh import MODEL_AXIS
+    from deep_spectral_tpu_torch.parallel.sp_vit import sp_patch_features, sp_vit_forward
+    cfg = get_model_config("dino_vits8")
+    group = mesh.get_group(MODEL_AXIS)
+    sd = random_init_(VisionTransformer(cfg), seed=0).state_dict()
+    launches, timings, qkv0 = {}, [], None
+    for dtype, path in ((torch.bfloat16, "sp"), (torch.float32, "sp_f32")):
+        f32 = dtype == torch.float32
+        model = VisionTransformer(cfg, dtype, "flash")
+        model.load_state_dict(sd)
+        model.to(dev).eval()
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        out = sp_vit_forward(mesh, model, x, qkv_block=0, attn_impl="flash")
+        keys = sp_patch_features(mesh, model, x, attn_impl="flash")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = _launches()
+        x_norm, keys = _gather_tokens(group, out["x_norm"]), _gather_tokens(group, keys)
+        qkv = {n: _gather_tokens(group, out["qkv"][n]) for n in "qkv"}
+        T = x_norm.shape[1]
+        log(f"[13a] SP-ViT dino_vits8 {SP_IMG}x{SP_IMG} (T={T}) b1 {str(dtype)[6:]} flash hops "
+            f"at world {world}: sp_vit_forward + sp_patch_features {wall:.3f} s (host clock "
+            f"after a sync, first calls); launches {launches[path]}")
+        _want_launches(f"13a SP {path}", launches[path], {
+            "flash_attention_lse": (2 * cfg.depth - 1) * world, "flash_attention_packed": 0})
+        with torch.no_grad():
+            ref = model(x, qkv_block=0)
+            ref_keys = extract_patch_keys(model, x)
+        for name, got, want_t in [("x_norm", x_norm, ref["x_norm"]), ("cls", out["cls"], ref["cls"]),
+                                  *((n, qkv[n], ref["qkv"][n]) for n in "qkv"),
+                                  ("keys", keys, ref_keys)]:
+            _agree(f"13a SP {str(dtype)[6:]} {name} vs the single-card forward", got, want_t,
+                   world, f32)
+        if world == 1:
+            q, k, v = (qkv[n].to(dtype).reshape(1, T, cfg.num_heads, -1) for n in "qkv")
+            timings.append(_hop_timing(f"SP world 1 (one hop, T={T})", q, k, v, None,
+                                       iters=5 if f32 else 20))
+            if not f32:
+                qkv0 = (q, k, v)
+        else:
+            ms = _slowest_ms(lambda: sp_vit_forward(mesh, model, x, attn_impl="flash"))
+            one = cuda_ms(lambda: model(x), iters=1, warmup=1).ms
+            log(f"[13a] sp_vit_forward {str(dtype)[6:]} at world {world}: {ms:.3f} ms "
+                f"(slowest rank, median of 5 calls) vs the single-card forward {one:.3f} ms")
+        del model, out, keys, ref, ref_keys, x_norm, qkv
+    return launches, timings, qkv0
+
+
+def _parallel_hops(dev, qkv0) -> tuple[dict, dict]:
+    """(b) the ring's multi-hop merge in one process: block 0's q/k/v split
+    into HOPS shards of HOP_T tokens (the last of the sequence's shards
+    ending in padding rows, the last shard all padding); each query shard
+    attends to the K/V shards in its ring order through kernel 3, merged by
+    `merge_hops`; against kernel 1 on the whole sequence and the same merge
+    over the twin."""
+    import torch
+    import torch.nn.functional as F
+    from deep_spectral_tpu_torch.models.flash_attention import (
+        MASK_VALUE, flash_attention_lse, flash_attention_lse_plain, flash_attention_packed)
+    from deep_spectral_tpu_torch.parallel.ring_attention import merge_hops
+    q, k, v = qkv0
+    T = q.shape[1]
+    pad = HOPS * HOP_T - T
+    shards = [[x[:, i * HOP_T:(i + 1) * HOP_T] for i in range(HOPS)]
+              for x in (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))]
+    mask = (torch.arange(HOPS * HOP_T, device=dev) < T)[None]
+    m_s = [mask[:, i * HOP_T:(i + 1) * HOP_T] for i in range(HOPS)]
+    if int(m_s[-2].sum()) != HOP_T - 3 or int(m_s[-1].sum()) != 0:
+        raise AssertionError("phase 13b's shards are not the ones described")
+
+    def ring(lse_fn):
+        outs, pad_lse = [], []
+        for r in range(HOPS):
+            o_run = lse_run = None
+            for j in range(HOPS):
+                s = (r - j) % HOPS
+                o_i, lse_i = lse_fn(shards[0][r], shards[1][s], shards[2][s], m_s[s])
+                if s == HOPS - 1:
+                    pad_lse.append(lse_i)
+                if j == 0:
+                    o_run, lse_run = o_i.float(), lse_i
+                else:
+                    o_run, lse_run = merge_hops(o_run, lse_run, o_i, lse_i)
+            outs.append(o_run.to(q.dtype))
+        return torch.cat(outs, dim=1)[:, :T], pad_lse
+
+    _zero_launches()
+    got, pad_lse = ring(flash_attention_lse)
+    torch.cuda.synchronize()
+    launches = _launches()
+    twin, _ = ring(flash_attention_lse_plain)
+    whole = flash_attention_packed(q, k, v)
+    o_max = whole.float().abs().max().item()
+    tol = FLASH_TOL * max(1.0, o_max / 2)
+    log(f"[13b] {HOPS} shards of {HOP_T} tokens (the 4th ends in {HOPS * HOP_T - T - HOP_T} "
+        f"padding rows, the 5th is padding), {HOPS * HOPS} kernel-3 hops merged in ring "
+        f"order: launches {launches}; max |o| {o_max:.3f}")
+    _want_launches("13b", launches, {"flash_attention_lse": HOPS * HOPS})
+    pad_max = max(x.max().item() for x in pad_lse)
+    log(f"[13b] the all-padding shard's hops: lse at most {pad_max:.4e} (MASK_VALUE "
+        f"{MASK_VALUE:.4e}), so its merge weight underflows to 0")
+    if not pad_max < 0.5 * MASK_VALUE:
+        raise AssertionError(f"13b: a padding hop's lse {pad_max} is not near MASK_VALUE")
+    _held("13b merged kernel-3 hops vs kernel 1 on the whole sequence",
+          (got.float() - whole.float()).abs().max().item(), tol)
+    _held("13b merged kernel-3 hops vs the same merge over the twin",
+          (got.float() - twin.float()).abs().max().item(), tol)
+    timing = _hop_timing(f"13b (q shard 0, K/V shard {HOPS - 2})", shards[0][0],
+                         shards[1][HOPS - 2], shards[2][HOPS - 2], m_s[HOPS - 2])
+    return launches, timing
+
+
+def _parallel_ring(dev, mesh, world) -> dict:
+    """(b) at world > 1: `ring_attention` (its default impl, flash hops on
+    the card) over random bf16 q/k/v at T=8465 padded to a multiple of the
+    world, the K/V shards rotating by P2P, against kernel 1 on the whole
+    sequence."""
+    import torch
+    import torch.nn.functional as F
+    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
+    from deep_spectral_tpu_torch.parallel.mesh import MODEL_AXIS, local_rows
+    from deep_spectral_tpu_torch.parallel.ring_attention import ring_attention
+    group = mesh.get_group(MODEL_AXIS)
+    T = 1 + (SP_IMG // 8) ** 2
+    pad = -T % world
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((1, T, 6, 64), generator=g).to(dev, torch.bfloat16) for _ in range(3))
+    mask = (torch.arange(T + pad, device=dev) < T)[None]
+    ql, kl, vl = (local_rows(group, F.pad(t, (0, 0, 0, 0, 0, pad)), dim=1) for t in (q, k, v))
+    ml = local_rows(group, mask, dim=1)
+    _zero_launches()
+    o = ring_attention(mesh, ql, kl, vl, ml)
+    torch.cuda.synchronize()
+    launches = _launches()
+    _want_launches("13b ring", launches, {"flash_attention_lse": world})
+    o = _gather_tokens(group, o)[:, :T]
+    whole = flash_attention_packed(q, k, v)
+    _held(f"13b ring attention T={T} at world {world} vs kernel 1 on the whole sequence",
+          (o.float() - whole.float()).abs().max().item(),
+          FLASH_TOL * max(1.0, whole.float().abs().max().item() / 2))
+    ms = _slowest_ms(lambda: ring_attention(mesh, ql, kl, vl, ml))
+    one = cuda_ms(lambda: flash_attention_packed(q, k, v)).ms
+    log(f"[13b] ring attention T={T} at world {world} (shards of {ql.shape[1]}): launches "
+        f"{launches}; {ms:.4f} ms (slowest rank, median of 5 calls) vs kernel 1 alone "
+        f"{one:.4f} ms")
+    return launches
+
+
+def _parallel_pp(dev, mesh, sd16, cfg16, world) -> dict:
+    """(c) PP over `world` stages: dino_vits16 480x480 b8 bf16 in 4
+    microbatches of 2 (kernel 1 at b2 T=901), each rank holding its blocks
+    only, against the single-card forward of b8."""
+    import torch
+    from deep_spectral_tpu_torch.models.vit import VisionTransformer
+    from deep_spectral_tpu_torch.parallel.pp_vit import build_stage, pp_vit_forward
+    stage = build_stage(cfg16, sd16, mesh, compute_dtype=torch.bfloat16, attention_impl="flash",
+                        device=dev)
+    x = torch.from_numpy(np.random.default_rng(31).standard_normal(
+        (PP_B, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    _zero_launches()
+    out = pp_vit_forward(mesh, stage, x, n_microbatches=PP_M)
+    torch.cuda.synchronize()
+    launches = _launches()
+    full = VisionTransformer(cfg16, torch.bfloat16, "flash")
+    full.load_state_dict(sd16)
+    full.to(dev).eval()
+    params, n_full = (sum(p.numel() for p in m.parameters()) for m in (stage, full))
+    log(f"[13c] PP dino_vits16 {IMG}x{IMG} b{PP_B} bf16 flash, {world} stage(s) of "
+        f"{cfg16.depth // world} blocks, {PP_M} microbatches: launches {launches} (kernel 1 at "
+        f"b{PP_B // PP_M} T={out['x_norm'].shape[1]}); {params} of {n_full} parameters on a "
+        f"rank")
+    _want_launches("13c PP", launches, {"flash_attention_packed": cfg16.depth // world * PP_M})
+    if world > 1 and not params < n_full:
+        raise AssertionError("13c: a PP rank holds every block")
+    with torch.no_grad():
+        ref = full(x)
+    _agree(f"13c PP x_norm vs the single-card b{PP_B} forward", out["x_norm"], ref["x_norm"],
+           world)
+    if world > 1:
+        ms = _slowest_ms(lambda: pp_vit_forward(mesh, stage, x, n_microbatches=PP_M))
+        one = cuda_ms(lambda: full(x), iters=1, warmup=1).ms
+        log(f"[13c] PP at world {world}: {ms:.3f} ms (slowest rank, median of 5 calls) vs the "
+            f"single-card forward {one:.3f} ms")
+    return launches
+
+
+def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
+    """(d) DP patch features on a data mesh of `world`, TP x DP patch
+    features on a (world / tp, tp) mesh (tp 2 at an even world, else 1),
+    and DP eigs, at phase 4's b24 shape, the rows gathered, against the
+    single-device functions; the row-sharded LOBPCG at N=4096 against dense
+    eigh, every rank's eigenpairs the same bits."""
+    import torch
+    from deep_spectral_tpu_torch.models.vit import VisionTransformer, extract_patch_keys
+    from deep_spectral_tpu_torch.ops.affinity import feature_affinity
+    from deep_spectral_tpu_torch.ops.eigen import spectral_decompose_batched
+    from deep_spectral_tpu_torch.parallel.lobpcg import lobpcg_laplacian_eigs
+    from deep_spectral_tpu_torch.parallel.mesh import (
+        DATA_AXIS, MODEL_AXIS, gather_rows, local_rows, make_mesh)
+    from deep_spectral_tpu_torch.parallel.sharded import (
+        row_sharded_laplacian_eigs, sharded_patch_features, sharded_spectral_decompose,
+        tp_sharded_patch_features)
+    tp = 2 if world % 2 == 0 else 1
+    dmesh = make_mesh(axes=[(DATA_AXIS, world)])
+    mesh2 = make_mesh(axes=[(DATA_AXIS, world // tp), (MODEL_AXIS, tp)])
+    data, data2 = dmesh.get_group(DATA_AXIS), mesh2.get_group(DATA_AXIS)
+    model = VisionTransformer(cfg16, torch.bfloat16, "flash")
+    model.load_state_dict(sd16)
+    model.to(dev).eval()
+    rng = np.random.default_rng(41)
+    grid = IMG // cfg16.patch_size
+    x = torch.from_numpy(rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    mask = torch.ones((B, grid * grid), dtype=torch.bool, device=dev)
+    launches = {}
+    ref = extract_patch_keys(model, x, token_mask=mask)
+    for path, group, fn in (
+            ("dp", data, lambda: sharded_patch_features(dmesh, model, local_rows(data, x),
+                                                        local_rows(data, mask))),
+            ("tp", data2, lambda: tp_sharded_patch_features(mesh2, model, local_rows(data2, x),
+                                                            local_rows(data2, mask)))):
+        torch.cuda.synchronize()
+        _zero_launches()
+        keys = gather_rows(group, fn())
+        torch.cuda.synchronize()
+        launches[path] = _launches()
+        what = "DP" if path == "dp" else f"TP x DP ({world // tp} x {tp})"
+        log(f"[13d] {what} patch features b{B} T={1 + grid * grid} bf16 at world {world}: "
+            f"launches {launches[path]}")
+        _want_launches(f"13d {path}", launches[path],
+                       {"flash_attention_packed": cfg16.depth - 1})
+        _agree(f"13d {what} patch features vs extract_patch_keys", keys, ref, world)
+        if world > 1:
+            log(f"[13d] {what} at world {world}: {_slowest_ms(fn):.3f} ms (slowest rank, "
+                f"median of 5 calls)")
+    feats = torch.from_numpy(structured_features(B, grid, cfg16.embed_dim, rng)).to(dev) \
+        + 0.02 * ref.float()
+    torch.cuda.synchronize()
+    _zero_launches()
+    evals, vecs = sharded_spectral_decompose(dmesh, local_rows(data, feats),
+                                             local_rows(data, mask), K=K)
+    torch.cuda.synchronize()
+    eig_launches = _launches()
+    ev1, vec1 = spectral_decompose_batched(feats, mask, K=K)
+    err = (evals - ev1).abs().max().item()
+    cos = min(subspace_cos(vecs[i], vec1[i]) for i in range(B))
+    same = torch.equal(evals, ev1) and torch.equal(vecs, vec1)
+    log(f"[13d] DP spectral decompose b{B} N={grid * grid} K={K} at world {world}: launches "
+        f"{eig_launches}; vs spectral_decompose_batched bit-equal: {same}, max |eigenvalue "
+        f"diff| {err:.3e} (tol {EIG_TOL}), least subspace cosine {cos:.6f} (min "
+        f"{SUBSPACE_MIN})")
+    if eig_launches["chebyshev_filter"] <= 0 or (world == 1 and not same) or \
+            not (err <= EIG_TOL and cos >= SUBSPACE_MIN):
+        raise AssertionError(f"13d DP eigs: launches {eig_launches}, equal {same}, {err}, {cos}")
+    for n, c in eig_launches.items():
+        launches["dp"][n] += c
+    dense_gates("13d DP spectral decompose", feats, mask, evals, vecs)
+    rmesh = make_mesh(axes=[(MODEL_AXIS, world)])
+    rows = rmesh.get_group(MODEL_AXIS)
+    f1 = torch.from_numpy(structured_features(1, ROW_GRID, cfg16.embed_dim, rng)).to(dev)
+    W = feature_affinity(f1)[0]
+    W_l = local_rows(rows, W)
+    evals, vecs = row_sharded_laplacian_eigs(rmesh, W_l, K)
+    every = gather_rows(rows, torch.cat([evals, vecs.reshape(-1)])[None])
+    same = bool((every == every[0]).all())
+    t = calls_ms(lambda: row_sharded_laplacian_eigs(rmesh, W_l, K)) if world == 1 else \
+        f"{_slowest_ms(lambda: row_sharded_laplacian_eigs(rmesh, W_l, K)):.4f} ms (slowest rank)"
+    one = calls_ms(lambda: lobpcg_laplacian_eigs(W, K))
+    log(f"[13d] row-sharded LOBPCG N={ROW_GRID ** 2} K={K} at world {world}: every rank's "
+        f"eigenpairs the same bits: {same}; {t} vs the single-graph solve {one} "
+        f"({CALLS_TIMING})")
+    if not same:
+        raise AssertionError("13d: the ranks' row-sharded eigenpairs differ")
+    dense_gates("13d row-sharded LOBPCG", f1, torch.ones((1, ROW_GRID ** 2), dtype=torch.bool,
+                                                         device=dev),
+                evals[None], vecs[None], n=1)
+    return launches
+
+
+def _parallel_train(dev, world) -> dict:
+    """(e) one data-parallel 7b step, each rank on its rows of the b144
+    batch, against the plain step on the whole batch from the same state
+    (both under torch.use_deterministic_algorithms): at world 1 every
+    gradient within GRAD_REL_TOL; at world > 1 the loss within 1e-3 and
+    every rank's trained parameters the same bits (the gradients'
+    difference is recorded: bf16 rounding at b36 moves them)."""
+    import warnings
+    import torch
+    from deep_spectral_tpu_torch.models.deeplab import DeepLabViT
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, gather_rows, local_rows, make_mesh
+    from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
+    group = make_mesh(axes=[(DATA_AXIS, world)]).get_group(DATA_AXIS)
+    x_np, y_np = blob_batch(TRAIN_B, np.random.default_rng(7))
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    grads, launches, states = {}, None, {}
+    for data_parallel in (False, True):
+        cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
+                             batch_size=TRAIN_B, unfrozen_backbone_layers=1, precision="bf16",
+                             seed=0)
+        model = DeepLabViT(get_model_config("dino_vits16"), CLASSES,
+                           compute_dtype=torch.bfloat16, attention_impl="flash")
+        state = SS.create_train_state(cfg, model, device=dev)
+        xs, ys = (local_rows(group, x), local_rows(group, y)) if data_parallel else (x, y)
+        if data_parallel:
+            SS.make_data_parallel(state, group)
+        torch.cuda.synchronize()
+        _zero_launches()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # cuBLAS's determinism notice
+                loss = SS.train_step(state, xs, ys, torch.Generator(device=dev).manual_seed(21))
+                torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if data_parallel:
+            launches = _launches()
+        grads[data_parallel] = ({n: p.grad.detach().float().clone()
+                                 for n, p in state.opt.params.items()}, float(loss["loss"]))
+        states[data_parallel] = state
+    equal, rel, differ = _grad_diff(grads[False][0], grads[True][0])
+    losses = (grads[True][1], grads[False][1])
+    flat = torch.cat([p.detach().float().reshape(-1)[:4096]
+                      for p in states[True].opt.params.values()])
+    same = bool((gather_rows(group, flat[None]) == flat).all())
+    log(f"[13e] one data-parallel 7b step (b{TRAIN_B} over {world} rank(s)) vs the plain step, "
+        f"under deterministic algorithms: launches {launches}; {equal} of {len(grads[False][0])} "
+        f"gradients bit-equal, max rel diff {rel:.3e} "
+        f"({f'tol {GRAD_REL_TOL}' if world == 1 else 'recorded'}); loss {losses[0]:.6f} vs "
+        f"{losses[1]:.6f}; every rank's trained parameters the same bits: {same}")
+    _want_launches("13e", launches, {n: 1 for n in ("flash_attention_lse", "flash_bwd_dkv",
+                                                    "flash_bwd_dq")})
+    if (world == 1 and rel > GRAD_REL_TOL) or not same or \
+            not math.isclose(losses[0], losses[1], rel_tol=1e-3):
+        raise AssertionError(f"13e: max rel diff {rel}, losses {losses}, same {same}")
+    if world > 1:
+        gen = torch.Generator(device=dev).manual_seed(22)
+        xl, yl = local_rows(group, x), local_rows(group, y)
+        ms = _slowest_ms(lambda: SS.train_step(states[True], xl, yl, gen))
+        one = cuda_ms(lambda: SS.train_step(states[False], x, y, gen), iters=1, warmup=1).ms
+        log(f"[13e] data-parallel 7b step at world {world} (b{TRAIN_B // world} a rank): "
+            f"{ms:.3f} ms (slowest rank, median of 5 calls) vs the plain b{TRAIN_B} step "
+            f"{one:.3f} ms")
+    return launches
+
+
+def make_loop_voc(root: Path, n: int = LOOP_IMAGES) -> None:
+    """A VOC-layout tree of `n` 500x375 JPEGs (VOC's common size; the first
+    and every other one portrait) with full-size pseudolabels of blobs, for
+    `train()`'s producers to decode and augment."""
+    from PIL import Image
+    rng = np.random.default_rng(9)
+    for d in ("JPEGImages", "pseudo"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        h, w = (500, 375) if i % 2 == 0 else (375, 500)
+        img = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+        seg = np.zeros((h, w), np.uint8)
+        y0, x0 = int(rng.integers(0, h - 150)), int(rng.integers(0, w - 150))
+        seg[y0:y0 + 150, x0:x0 + 150] = int(rng.integers(1, CLASSES))
+        Image.fromarray(img).save(root / "JPEGImages" / f"{i:05d}.jpg", quality=90)
+        Image.fromarray(seg).save(root / "pseudo" / f"{i:05d}.png")
+
+
+def loop_rate(dev, root: Path, mesh=None) -> float:
+    """`train()`'s steps per second at the 7b configuration (b144 global, 4
+    producer threads a process) over `make_loop_voc`'s tree: two runs, of
+    LOOP_WARM and LOOP_WARM + LOOP_STEPS steps, each timed on the host
+    clock from its call to its return; the rate is LOOP_STEPS over the
+    difference. With `mesh`, data-parallel over its ranks (each decoding
+    its rows of every batch); it passes `mesh` only when given one, so it
+    also runs a `train()` that predates the argument."""
+    import contextlib
+    import torch
+    import torch.distributed as dist
+    from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
+    cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
+                         batch_size=TRAIN_B, unfrozen_backbone_layers=1, precision="bf16",
+                         seed=0)
+    ds = SS.VOCSegmentationWithPseudolabels(str(root), "train", str(root / "pseudo"))
+    walls = []
+    for steps in (LOOP_WARM, LOOP_WARM + LOOP_STEPS):
+        if mesh is not None:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            SS.train(cfg, ds, log_every=0, max_steps=steps, device=dev,
+                     **({} if mesh is None else {"mesh": mesh}))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    rate = LOOP_STEPS / (walls[1] - walls[0])
+    world = 1 if mesh is None else dist.get_world_size()
+    log(f"[13f] train() 7b (b{TRAIN_B}, {cfg.num_workers} producer threads a process, "
+        f"{len(ds)} 500x375 JPEGs) at world {world}: {walls[0]:.3f} s for "
+        f"{LOOP_WARM} steps, {walls[1]:.3f} s for {LOOP_WARM + LOOP_STEPS}: {rate:.3f} steps/s "
+        f"(host clock)")
+    return rate
+
+
+def phase_parallel(dev, world: int = 1, rank: int = 0, port: int = 0,
+                   tmp: Path | None = None) -> dict:
+    """Phase 13: the parallel paths on the card in one NCCL group of
+    `world` ranks, this process being `rank` (world 1 with no arguments:
+    NCCL takes one rank per card). At world > 1 also `train()`'s rate over
+    the VOC tree in `tmp`."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.vit import VisionTransformer, get_model_config
+    from deep_spectral_tpu_torch.parallel import distributed as pdist
+    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
+    t0 = time.perf_counter()
+    if not port:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+    pdist.initialize(f"tcp://localhost:{port}", world, rank)
+    try:
+        backend = dist.get_backend()
+        probe = torch.full((4,), 2.0, device=dev)
+        dist.all_reduce(probe)
+        gathered = [torch.empty_like(probe) for _ in range(world)]
+        dist.all_gather(gathered, probe)
+        dist.broadcast(probe, 0)
+        ran = probe.tolist() == [2.0 * world] * 4 and \
+            all(g.tolist() == [2.0 * world] * 4 for g in gathered)
+        log(f"[13] process group: backend {backend}, world {dist.get_world_size()}, device "
+            f"{probe.device}; all_reduce / all_gather / broadcast on the card: {ran}")
+        if backend != "nccl" or not ran:
+            raise AssertionError(f"phase 13's group is {backend}, collectives {ran}")
+        mesh = make_mesh(axes=[(MODEL_AXIS, world)])
+        x = torch.from_numpy(np.random.default_rng(30).standard_normal(
+            (1, SP_IMG, SP_IMG, 3)).astype(np.float32)).to(dev)
+        out, timings, qkv0 = _parallel_sp(dev, mesh, x, world)
+        if world == 1:
+            out["ring_hops"], hop_timing = _parallel_hops(dev, qkv0)
+            timings.append(hop_timing)
+        else:
+            out["ring_hops"] = _parallel_ring(dev, mesh, world)
+        cfg16 = get_model_config("dino_vits16")
+        sd16 = random_init_(VisionTransformer(cfg16), seed=0).state_dict()
+        out["pp"] = _parallel_pp(dev, mesh, sd16, cfg16, world)
+        out.update(_parallel_sharded(dev, world, sd16, cfg16))
+        out["dp_train"] = _parallel_train(dev, world)
+        if world > 1:
+            loop_rate(dev, tmp, make_mesh(axes=[(DATA_AXIS, world)]))
+    finally:
+        dist.destroy_process_group()
+    log(f"[13] phase 13 at world {world}: {time.perf_counter() - t0:.1f} s (host clock)")
+    return {"launches": out, "ring_hops": timings}
+
+
+def _parallel_rank(rank: int, world: int, port: int, tmp: str, what: str) -> None:
+    """One rank of `chip_smoke.py 13 --world N` or `loop --world N` (rank 0
+    alone prints)."""
+    import torch
+    import torch.distributed as dist
+    from deep_spectral_tpu_torch.parallel import distributed as pdist
+    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dev = torch.device("cuda", rank)
+    if what == "13":
+        phase_parallel(dev, world, rank, port, Path(tmp))
+        return
+    pdist.initialize(f"tcp://localhost:{port}", world, rank)
+    try:
+        loop_rate(dev, Path(tmp), make_mesh(axes=[(DATA_AXIS, world)]))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel(world: int, what: str) -> None:
+    """Phase 13 ('13') or `loop_rate` ('loop') at world N, one process a
+    card: the kernels built here first, the loop's VOC tree made here for
+    every rank."""
+    import socket
+    import torch
+    import torch.multiprocessing as mp
+    if world > torch.cuda.device_count():
+        raise SystemExit(f"world {world} needs {world} cards; {torch.cuda.device_count()} here")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        make_loop_voc(Path(tmp))
+        mp.spawn(_parallel_rank, args=(world, port, tmp, what), nprocs=world, join=True)
+
+
+def main(argv: list) -> int:
+    """Every phase, then the kernels line, the card line and the result line.
+    With arguments, the build and then only what they name, and no result
+    line: phase 12 and phase 13 ('12', '13'), and 'loop' (`loop_rate`);
+    with '--world N', phase 13 or the loop at world N, one process a card."""
+    import torch
+    only, world = list(argv), 1
+    if "--world" in only:
+        i = only.index("--world")
+        world = int(only[i + 1])
+        del only[i:i + 2]
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2111,7 +2783,19 @@ def main(only: list) -> int:
         if "12" in only:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_12(Path(tmp), dev)
-        log(f"partial run (phases 1 and {only}): no result line")
+        if "13" in only:
+            if world > 1:
+                run_parallel(world, "13")
+            else:
+                phase_parallel(dev)
+        if "loop" in only:
+            if world > 1:
+                run_parallel(world, "loop")
+            else:
+                with tempfile.TemporaryDirectory() as tmp:
+                    make_loop_voc(Path(tmp))
+                    loop_rate(dev, Path(tmp))
+        log(f"partial run (phases 1 and {only}, world {world}): no result line")
         return 0
     flash = phase_flash(dev)
     cheb = phase_cheb(dev)
@@ -2129,8 +2813,12 @@ def main(only: list) -> int:
         seg_launches = phase_segments(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         p12 = phase_12(Path(tmp), dev)
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    p13 = phase_parallel(dev)
+    jax_modules = [m for m in sys.modules if m.split(".")[0] in ("jax", "deep_spectral_tpu")]
+    if jax_modules:
+        raise AssertionError(f"the port imported JAX or the JAX package: {jax_modules[:5]}")
+    log("[13] no module of jax or of the JAX package was imported")
+    par = p13["launches"]
     kernels = [
         {"name": "flash_attention_packed", "route": "cuda",
          "source": "deep_spectral_tpu_torch/csrc/flash_fwd.cu",
@@ -2139,20 +2827,27 @@ def main(only: list) -> int:
          "launches_by_path": {"main": launches["flash"],
                               "stage6": seg_launches["flash_attention_packed"],
                               "run_all": p12["run_all"]["flash_attention_packed"],
-                              "generate": p12["generate"]["flash_attention_packed"]},
+                              "generate": p12["generate"]["flash_attention_packed"],
+                              **{path: par[path]["flash_attention_packed"]
+                                 for path in ("pp", "tp", "dp")}},
          **flash},
         {"name": "chebyshev_filter", "route": "cuda",
          "source": "deep_spectral_tpu_torch/csrc/cheb_filter.cu",
          "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",
          "launches": launches["cheb"],
          "launches_by_path": {"main": launches["cheb"],
-                              "run_all": p12["run_all"]["chebyshev_filter"]},
+                              "run_all": p12["run_all"]["chebyshev_filter"],
+                              "dp": par["dp"]["chebyshev_filter"]},
          **cheb},
     ] + [{"name": name, "route": "cuda", "source": f"deep_spectral_tpu_torch/csrc/{source}",
           "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
           "launches": train_launches[name],
-          "launches_by_path": {"train": train_launches[name], "remat": p12["remat"][name]},
-          **train_kernels[name]}
+          "launches_by_path": {"train": train_launches[name], "remat": p12["remat"][name],
+                               **{path: par[path][name] for path in
+                                  (("sp", "sp_f32", "ring_hops", "dp_train")
+                                   if name == "flash_attention_lse" else ("dp_train",))}},
+          **train_kernels[name],
+          **({"ring_hop_shapes": p13["ring_hops"]} if name == "flash_attention_lse" else {})}
          for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
                                     ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
                                     ("flash_bwd_dq", "flash_bwd_dq.cu", 156))]

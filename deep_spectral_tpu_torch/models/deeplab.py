@@ -17,40 +17,71 @@ Numerics follow flax:
     step's dropout rng);
   * a `spatial_mask` (bucket-padded evaluation) re-zeroes padded cells after
     every conv so padding stays exactly inert.
+
+Data-parallel training (`data_parallel_`, one process per device): each
+rank holds a block of the global batch; BatchNorm normalizes with the
+statistics of the GLOBAL batch (sums of x and x^2 all-reduced, with their
+gradient all-reduced in the backward), as the JAX model's batch-global BN
+under a sharded batch (and unlike torch's SyncBatchNorm, which is CUDA-only
+and keeps another variance), and the dropout draws the global batch's mask
+and takes the rank's block of it.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear, resize_bilinear_mm
+from ..parallel.distributed import all_sum_differentiable
 from ..utils.precision import exact_f32
 from .vit import ViTConfig, VisionTransformer
 
 HEADS = ("deeplabv3plus", "deeplabv3")
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
-            ) -> torch.Tensor:
+def _dp_size(group) -> int:
+    """The data-parallel group's size (1 without one)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            group=None) -> torch.Tensor:
     """flax `nn.Dropout(rate)` in training: keep with probability 1 - rate,
-    scale kept values by 1 / (1 - rate)."""
+    scale kept values by 1 / (1 - rate). With a data-parallel `group`, x is
+    this rank's block of the global batch: the mask is drawn for the whole
+    batch and this rank takes its block of it."""
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    n = _dp_size(group)
+    shape = (x.shape[0] * n, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if n > 1:
+        keep = keep[dist.get_rank(group) * x.shape[0]:][:x.shape[0]]
     return torch.where(keep, x / keep_prob, 0.0)
 
 
 def flax_batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     mean_buf: torch.Tensor, var_buf: torch.Tensor, training: bool,
-                    momentum: float = 0.9, eps: float = 1e-5) -> torch.Tensor:
+                    momentum: float = 0.9, eps: float = 1e-5, group=None) -> torch.Tensor:
     """flax `nn.BatchNorm` over NCHW channels: in training, the batch's mean
     and biased variance, and the running buffers updated in place with
-    `momentum`; in evaluation, the buffers."""
+    `momentum`; in evaluation, the buffers. With a data-parallel `group` of
+    more than one rank, x is this rank's block of the global batch (blocks of
+    one size) and the statistics are the global batch's."""
     if training:
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        n = _dp_size(group)
+        if n == 1:
+            mean = x.mean(dim=(0, 2, 3))
+            mean2 = (x * x).mean(dim=(0, 2, 3))
+        else:
+            sums = all_sum_differentiable(
+                torch.stack([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3))]), group)
+            count = n * (x.numel() // x.shape[1])
+            mean, mean2 = sums[0] / count, sums[1] / count
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         with torch.no_grad():
             mean_buf.copy_(momentum * mean_buf + (1 - momentum) * mean)
             var_buf.copy_(momentum * var_buf + (1 - momentum) * var)
@@ -71,10 +102,11 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.dp_group = None  # set by `data_parallel_`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return flax_batch_norm(x, self.scale, self.bias, self.mean, self.var,
-                               self.training, self.momentum, self.eps)
+                               self.training, self.momentum, self.eps, self.dp_group)
 
 
 class ConvBNReLU(nn.Module):
@@ -111,6 +143,7 @@ class ASPP(nn.Module):
         self.pool = ConvBNReLU(in_features, out_features, kernel=1)
         self.project = ConvBNReLU(out_features * (len(atrous_rates) + 2),
                                   out_features, kernel=1)
+        self.dp_group = None  # set by `data_parallel_`
 
     def forward(self, x, mask=None, generator=None):
         branches = [conv(x, mask) for conv in self.convs]
@@ -122,7 +155,7 @@ class ASPP(nn.Module):
         g = self.pool(g).expand(-1, -1, *x.shape[2:])
         branches.append(g if mask is None else g * mask)
         y = self.project(torch.cat(branches, dim=1), mask)
-        return dropout(y, 0.5, generator) if self.training else y
+        return dropout(y, 0.5, generator, self.dp_group) if self.training else y
 
 
 class DeepLabHeadV3Plus(nn.Module):
@@ -249,6 +282,16 @@ class DeepLabResNet(nn.Module):
         if self.training:
             return resize_bilinear_mm(logits, (H, W))
         return resize_bilinear(logits, (H, W))
+
+
+def data_parallel_(model: nn.Module, group) -> nn.Module:
+    """Make `model` train one rank's block of a global batch over the
+    process group `group` (None: back to one device): global-batch BatchNorm
+    statistics and the global dropout mask (see the module docstring)."""
+    for module in model.modules():
+        if hasattr(module, "dp_group"):
+            module.dp_group = group
+    return model
 
 
 def backbone_param_labels(model: nn.Module, unfrozen_backbone_layers: int

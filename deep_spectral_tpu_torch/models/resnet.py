@@ -41,10 +41,12 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.dp_group = None  # set by `deeplab.data_parallel_`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return flax_batch_norm(x, self.weight, self.bias, self.running_mean,
-                               self.running_var, self.training, self.momentum, self.eps)
+                               self.running_var, self.training, self.momentum, self.eps,
+                               self.dp_group)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)  # torchvision's counter

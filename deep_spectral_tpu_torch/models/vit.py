@@ -108,27 +108,32 @@ class Attention(nn.Module):
     def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
         B, T, D = x.shape
         qkv = self.qkv_heads(x, dtype)
-        q, k, v = qkv.unbind(2)                      # (B, T, H, hd) views
-        attn = None
-        impl = self.attention_impl
-        if impl == "auto":
-            impl = "flash" if x.is_cuda else "einsum"
-        if impl == "flash" and not want_attn:
-            if torch.is_grad_enabled() and qkv.requires_grad:
-                out = FlashAttentionFn.apply(qkv, token_mask)
-            elif qkv.dtype == torch.bfloat16:
-                out = flash_attention_packed(q, k, v, token_mask)
-            else:
-                out = flash_attention_lse(q, k, v, token_mask)[0]
-        else:
-            logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
-            logits = logits * (1.0 / math.sqrt(D // self.num_heads))
-            if token_mask is not None:
-                logits = torch.where(token_mask[:, None, None, :], logits, -1e30)
-            attn = torch.softmax(logits, dim=-1).to(dtype)
-            out = torch.einsum("bhts,bshd->bthd", attn.float(), v.float()).to(dtype)
+        out, attn = attend(qkv, token_mask, self.attention_impl, dtype, want_attn)
         out = _linear(out.reshape(B, T, D), self.proj, dtype)
         return out, qkv, attn
+
+
+def attend(qkv: torch.Tensor, token_mask: Optional[torch.Tensor], impl: str,
+           dtype: torch.dtype, want_attn: bool = False):
+    """Masked attention of the fused projection qkv (B, T, 3, H, hd) by the
+    route `impl` names (see the module docstring). Returns the output
+    (B, T, H, hd) in `dtype` and, on the einsum route, the probabilities
+    (B, H, T, T) (else None)."""
+    q, k, v = qkv.unbind(2)                      # (B, T, H, hd) views
+    if impl == "auto":
+        impl = "flash" if qkv.is_cuda else "einsum"
+    if impl == "flash" and not want_attn:
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return FlashAttentionFn.apply(qkv, token_mask), None
+        if qkv.dtype == torch.bfloat16:
+            return flash_attention_packed(q, k, v, token_mask), None
+        return flash_attention_lse(q, k, v, token_mask)[0], None
+    logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    logits = logits * (1.0 / math.sqrt(q.shape[-1]))
+    if token_mask is not None:
+        logits = torch.where(token_mask[:, None, None, :], logits, -1e30)
+    attn = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhts,bshd->bthd", attn.float(), v.float()).to(dtype), attn
 
 
 class Mlp(nn.Module):

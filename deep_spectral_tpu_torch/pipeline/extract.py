@@ -25,6 +25,10 @@ is skipped.
  10. `vis_segmentations`: a static PNG/HTML gallery (matplotlib), and
      `vis_server`, the interactive viewer (`pipeline/vis_server.py`).
 
+Stages 1, 2 and 9 shard their images across the processes of a
+`torch.distributed` group (`shard_across_processes`), as the JAX stages
+shard them across JAX processes.
+
 Stages 1-3, 6 and 9 keep one batch in flight, as the JAX stages 1-2 do: a
 batch's results are copied to pinned host memory without blocking, and
 fetched (and written) only after the next batch has been sent to the
@@ -67,6 +71,7 @@ from ..ops.eigen import (resolve_eig_chunk, spectral_decompose_batched,
 from ..ops.kmeans import kmeans, pca
 from ..ops.morphology import erode_or_dilate_mask, infer_background_swap, mask_bbox
 from ..ops.resize import resize_bilinear, resize_nearest
+from ..parallel import distributed
 from ..utils import bucketing
 from ..utils.device import resolve_device
 from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_resized,
@@ -116,6 +121,19 @@ def get_paired_input_files(path1, path2) -> list:
     if len(f1) != len(f2):
         raise ValueError(f"{len(f1)} vs {len(f2)} paired files")
     return list(enumerate(zip(f1, f2)))
+
+
+def shard_across_processes(items):
+    """Round-robin shard a per-image work list across the processes of the
+    `torch.distributed` group: rank r of n takes items[r::n], so each
+    process computes and writes a disjoint subset (the outputs are
+    independent per-image files, so no synchronization is needed; the
+    reference's accelerate multi-process extraction, extract/extract.py:
+    113-114). One process, or no group: every item."""
+    n = distributed.process_count()
+    if n == 1:
+        return items
+    return items[distributed.process_index()::n]
 
 
 def _progress(it, desc):
@@ -245,6 +263,7 @@ def extract_features(
     writer = _AsyncWriter()
     items = [x for x in enumerate(paths)
              if not (Path(output_dir) / f"{Path(rels[x[0]]).stem}.pth").is_file()]
+    items = shard_across_processes(items)
     done = [0]
 
     def prepare(bucket: bucketing.Bucket, batch_items):
@@ -361,6 +380,7 @@ def extract_eigs(
         if out_file.is_file():
             continue
         pending.append((f, image_id, out_file, lr_grid_of(get_image_sizes(d))))
+    pending = shard_across_processes(pending)
 
     writer = _AsyncWriter()
 
@@ -810,6 +830,7 @@ def extract_crf_segmentations(
         with Image.open(str(Path(images_root) / image_file)) as im:
             Wd, Hd = im.size
         pending.append((image_file, segmap_path, out_file, (Hd, Wd)))
+    pending = shard_across_processes(pending)
 
     def prepare(bucket: bucketing.Bucket, batch_items):
         """Host side: decode, upsample the segmap, pad both into the bucket

@@ -16,7 +16,10 @@ reverts the whole state on the device), `eval_step`, the bucket-padded
 evaluation that `train` runs for ViT backbones (ResNets take the per-image
 path), `generate_predictions` (the reference's `generate` job), checkpoints
 (`torch.save` of the same tree as the JAX package's orbax checkpoint) and
-`train` with its producer threads.
+`train` with its producer threads. `train(mesh=...)` trains data-parallel,
+one process per device (`parallel/`): the state replicated, each global
+batch split by rank over the mesh's first dim, gradients averaged across
+ranks, BatchNorm over the global batch (`models.deeplab.data_parallel_`).
 
 The optimizer is written out rather than taken from `torch.optim`, because
 it has to be optax's `adamw` to the last rounding step: optax adds the
@@ -27,17 +30,19 @@ with a device-side select.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
-import queue
-import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.deeplab import DeepLabResNet, DeepLabViT, backbone_param_labels
+from ..models.deeplab import (DeepLabResNet, DeepLabViT, backbone_param_labels,
+                              data_parallel_)
 from ..models.vit import ViTConfig, VisionTransformer, get_model_config, interpolate_pos_embed
 from ..ops import metrics as M
 from ..ops.resize import resize_bilinear
@@ -467,11 +472,48 @@ class AdamW:
 class TrainState:
     """The port of the JAX TrainState: the model (params and BN statistics),
     the optimizer (its state and schedule), the EMA copy of every parameter
-    (or None) and the step, a device scalar."""
+    (or None) and the step, a device scalar. `dp_group`: the process group
+    of data-parallel training (None: one device); set it with
+    `make_data_parallel`."""
     model: DeepLabViT
     opt: AdamW
     ema_params: Optional[dict]
     step: torch.Tensor
+    dp_group: Optional[object] = None
+
+
+def make_data_parallel(state: TrainState, group) -> TrainState:
+    """Train `state` data-parallel over the process group `group`: every
+    rank's parameters and BN statistics become rank 0's (the state is
+    replicated), the model normalizes over the global batch and draws the
+    global dropout mask (`data_parallel_`), and `train_step` averages the
+    gradients, the loss and the accuracy across ranks."""
+    if dist.get_world_size(group) > 1:
+        src = dist.get_global_rank(group, 0)
+        with torch.no_grad():
+            for t in [*state.model.parameters(), *state.model.buffers()]:
+                dist.broadcast(t.data, src, group=group)
+            if state.ema_params is not None:
+                for t in state.ema_params.values():
+                    dist.broadcast(t, src, group=group)
+    data_parallel_(state.model, group)
+    state.dp_group = group
+    return state
+
+
+def _average_across_ranks(tensors: list, group) -> None:
+    """Replace each tensor by its mean over the ranks of `group`, in place,
+    with one all-reduce of a flat buffer."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= n
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def create_train_state(cfg: TrainConfig, model: DeepLabViT,
@@ -516,7 +558,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     the ASPP dropout mask. On a non-finite loss the step reverts the
     parameters, the optimizer state, the BN statistics and the EMA with
     device-side selects (no host sync). The trainable parameters keep this
-    step's gradient in `.grad`. Returns {'loss', 'acc'} as device scalars."""
+    step's gradient in `.grad`. Returns {'loss', 'acc'} as device scalars.
+    Data-parallel (`state.dp_group`): images and labels are this rank's
+    block of the global batch; the gradients, the loss and the accuracy are
+    averaged across ranks before the update, so every rank takes the same
+    step and agrees on the revert."""
     model = state.model
     model.train()
     bn_before = {n: b.clone() for n, b in model.named_buffers()}
@@ -526,9 +572,12 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         logits = model(images, generator=generator)
         loss, acc = loss_and_accuracy(logits, labels)
         loss.backward()
-    ok = torch.isfinite(loss.detach())
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in state.opt.params.items()}
+    if state.dp_group is not None:
+        loss, acc = loss.detach(), acc.detach()
+        _average_across_ranks([*grads.values(), loss, acc], state.dp_group)
+    ok = torch.isfinite(loss.detach())
     state.opt.step(grads, ok)
     with torch.no_grad():
         for n, b in model.named_buffers():
@@ -844,17 +893,59 @@ def restore_checkpoint(ckpt_dir_or_path: str, state: TrainState) -> TrainState:
 
 # ----------------------------------------------------------------- train loop
 
+def _step_batch(dataset, cfg: TrainConfig, step: int, rows: range) -> tuple:
+    """Rows `rows` of the global batch of `step`, as (images, segmaps) numpy
+    stacks. Its row j is the sample at position step * batch_size + j of a
+    stream of seeded permutations of the dataset (one an epoch), augmented
+    with draws from an rng seeded by (seed, step, j): a row's content does
+    not depend on the rank, the thread or the run (resumed or not) that
+    makes it."""
+    n, ims, segs, perms = len(dataset), [], [], {}
+    for j in rows:
+        pos = step * cfg.batch_size + j
+        epoch = pos // n
+        if epoch not in perms:
+            perms[epoch] = np.random.default_rng((cfg.seed, epoch)).permutation(n)
+        image, seg, _, _ = dataset[int(perms[epoch][pos % n])]
+        im, sg = train_augment(np.random.default_rng((cfg.seed, step, j)), image, seg,
+                               cfg.resize_size, cfg.crop_size)
+        ims.append(im)
+        segs.append(sg)
+    return np.stack(ims), np.stack(segs)
+
+
 def train(cfg: TrainConfig, dataset_train, dataset_val=None,
           ckpt_dir: Optional[str] = None, eval_every: int = 1000,
           log_every: int = 50, max_steps: Optional[int] = None,
           backbone_params: Optional[dict] = None,
           metrics_path: Optional[str] = None, resume: Optional[str] = None,
-          device: str | torch.device | None = None):
+          device: str | torch.device | None = None, mesh=None):
     """Self-training loop (reference: train.py:136-254) on one device: CUDA
     unless the caller asks for the CPU (`device="cpu"`). A CUDA device with
     no card raises RuntimeError. Returns the final state and the best
-    validation mIoU."""
+    validation mIoU.
+
+    With `mesh` (a `parallel.make_mesh` DeviceMesh; one process per device,
+    every rank calling `train` alike), training is data-parallel over the
+    mesh's first dim, on the mesh's device type (this process's current
+    CUDA device, or the CPU): the state is replicated, each rank's
+    producers make only its block of every step's seeded global batch and
+    the rank trains on it (`make_data_parallel`), and rank 0 alone evaluates, writes
+    the checkpoints and the metric log, and prints, as the JAX single
+    controller does these once; the other ranks receive its mIoU."""
+    from ..parallel import distributed
     from ..utils.logging import MetricWriter
+    group, rank, n_ranks = None, 0, 1
+    if mesh is not None:
+        group = mesh.get_group(mesh.mesh_dim_names[0])
+        rank, n_ranks = dist.get_rank(group), dist.get_world_size(group)
+        if cfg.batch_size % n_ranks:
+            raise ValueError(f"batch {cfg.batch_size} not divisible by mesh dim "
+                             f"{mesh.mesh_dim_names[0]!r} ({n_ranks})")
+        if device is None:
+            device = "cpu" if mesh.device_type == "cpu" else \
+                torch.device("cuda", torch.cuda.current_device())
+    master = distributed.is_master()
     device = resolve_device(device, "train")
     state = create_train_state(cfg, build_model(cfg), backbone_params, device)
     start_step = 0
@@ -863,75 +954,66 @@ def train(cfg: TrainConfig, dataset_train, dataset_val=None,
         # (the schedule's count is part of the optimizer state).
         state = restore_checkpoint(resume, state)
         start_step = int(state.step)
-        print(f"Resumed from {resume} at step {start_step}")
+        if master:
+            print(f"Resumed from {resume} at step {start_step}")
+    if group is not None:
+        make_data_parallel(state, group)
     steps = max_steps or cfg.max_train_steps
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     best_miou = -1.0
-    writer = MetricWriter(metrics_path) if metrics_path else None
+    writer = MetricWriter(metrics_path) if metrics_path and master else None
+    per_rank = cfg.batch_size // n_ranks
 
     # Prefetching batch producers: dataset read + augmentation run in
     # cfg.num_workers threads ahead of the device (PIL decode/resize release
-    # the GIL). Each worker shuffles with its own seeded rng.
+    # the GIL), consumed in step order. A rank makes only its own rows of
+    # each global batch, which are a function of the seed and the step
+    # alone (`_step_batch`); each thread takes one slice of a step's rows,
+    # so all of them work on the step the loop waits for next, two steps
+    # are in flight, and an exit waits for one slice a thread at most.
     n_workers = max(int(cfg.num_workers), 1)
-    batch_q: queue.Queue = queue.Queue(maxsize=max(2, n_workers))
-    stop = threading.Event()
+    bounds = [rank * per_rank + per_rank * w // n_workers for w in range(n_workers + 1)]
+    slices = [range(a, b) for a, b in zip(bounds[:-1], bounds[1:]) if b > a]
+    pool = ThreadPoolExecutor(n_workers, thread_name_prefix="train-batches")
+    pending: collections.deque = collections.deque()  # a list of slice futures a step
+    next_step = start_step
 
-    def producer(wid: int):
-        rng_w = np.random.default_rng(cfg.seed + 7919 * wid)
-        order = rng_w.permutation(len(dataset_train))
-        cursor = 0
-        while not stop.is_set():
-            ims, segs = [], []
-            for _ in range(cfg.batch_size):
-                if cursor >= len(order):
-                    order = rng_w.permutation(len(dataset_train))
-                    cursor = 0
-                image, seg, _, _ = dataset_train[int(order[cursor])]
-                cursor += 1
-                im, sg = train_augment(rng_w, image, seg, cfg.resize_size,
-                                       cfg.crop_size)
-                ims.append(im)
-                segs.append(sg)
-            batch = (np.stack(ims), np.stack(segs))
-            while not stop.is_set():
-                try:
-                    batch_q.put(batch, timeout=0.25)
-                    break
-                except queue.Full:
-                    continue
-
-    threads = [threading.Thread(target=producer, args=(w,), daemon=True)
-               for w in range(n_workers)]
-    for t in threads:
-        t.start()
     try:
         for step in range(start_step, steps):
-            ims_np, segs_np = batch_q.get()
+            while len(pending) < 2 and next_step < steps:
+                pending.append([pool.submit(_step_batch, dataset_train, cfg, next_step, r)
+                                for r in slices])
+                next_step += 1
+            parts = [f.result() for f in pending.popleft()]
+            ims_np, segs_np = (np.concatenate([part[i] for part in parts]) for i in (0, 1))
             logs = train_step(state, torch.from_numpy(ims_np).to(device),
                               torch.from_numpy(segs_np).to(device), generator,
                               use_ema=cfg.use_ema, ema_decay=cfg.ema_decay)
-            if log_every and step % log_every == 0:
+            if master and log_every and step % log_every == 0:
                 print(f"step {step}: loss={float(logs['loss']):.4f} "
                       f"acc={float(logs['acc']):.4f}")
             if writer is not None and step % max(log_every, 1) == 0:
                 writer.log(step, loss=float(logs["loss"]), acc=float(logs["acc"]))
             if dataset_val is not None and eval_every and (step + 1) % eval_every == 0:
-                miou, _ = evaluate_model(state, dataset_val, cfg.num_classes,
-                                         patch_size=_backbone_patch_size(cfg))
-                print(f"step {step}: val mIoU={miou:.4f}")
-                if writer is not None:
-                    writer.log(step, val_miou=miou)
+                miou = -1.0
+                if master:
+                    miou, _ = evaluate_model(state, dataset_val, cfg.num_classes,
+                                             patch_size=_backbone_patch_size(cfg))
+                    print(f"step {step}: val mIoU={miou:.4f}")
+                    if writer is not None:
+                        writer.log(step, val_miou=miou)
+                if group is not None:  # rank 0's mIoU on every rank
+                    miou = distributed.all_sum_scalar(miou if master else 0.0)
                 if miou > best_miou:
                     best_miou = miou
-                    if ckpt_dir:
+                    if ckpt_dir and master:
                         save_checkpoint(ckpt_dir, state, step + 1, keep_best=True)
-            if ckpt_dir and (step + 1) % max(eval_every, 1000) == 0:
+            if ckpt_dir and master and (step + 1) % max(eval_every, 1000) == 0:
                 save_checkpoint(ckpt_dir, state, step + 1)
     finally:
-        stop.set()
-        for t in threads:
-            t.join(timeout=2.0)
+        pool.shutdown(wait=True, cancel_futures=True)
         if writer is not None:
             writer.close()
-    print(f"trained steps {start_step}..{steps}: {max(steps - start_step, 0)} steps")
+    if master:
+        print(f"trained steps {start_step}..{steps}: {max(steps - start_step, 0)} steps")
     return state, best_miou

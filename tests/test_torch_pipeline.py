@@ -212,7 +212,12 @@ def test_port_imports_no_jax():
             "deep_spectral_tpu_torch.ops.resize, deep_spectral_tpu_torch.tasks.object_segmentation, "
             "deep_spectral_tpu_torch.ops.crf, deep_spectral_tpu_torch.pipeline.run_all, "
             "deep_spectral_tpu_torch.pipeline.vis_server, deep_spectral_tpu_torch.utils.profiling, "
-            "deep_spectral_tpu_torch.models.resnet; "
+            "deep_spectral_tpu_torch.models.resnet, deep_spectral_tpu_torch.parallel, "
+            "deep_spectral_tpu_torch.parallel.distributed, deep_spectral_tpu_torch.parallel.mesh, "
+            "deep_spectral_tpu_torch.parallel.lobpcg, deep_spectral_tpu_torch.parallel.ring_attention, "
+            "deep_spectral_tpu_torch.parallel.sp_vit, deep_spectral_tpu_torch.parallel.pp_vit, "
+            "deep_spectral_tpu_torch.parallel.sharded, deep_spectral_tpu_torch.utils.logging, "
+            "deep_spectral_tpu_torch.data; "
             "assert 'jax' not in sys.modules and 'deep_spectral_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parents[1])

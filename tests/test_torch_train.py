@@ -119,7 +119,7 @@ def test_train_step_flash_matches_jax(monkeypatch):
     # keep=False reproduces the output.
     keep = torch.from_numpy(np.asarray(dropped) != 0).permute(0, 3, 1, 2)
     monkeypatch.setattr(t_deeplab, "dropout",
-                        lambda v, rate, gen: torch.where(keep, v / (1 - rate), 0.0))
+                        lambda v, rate, gen, group=None: torch.where(keep, v / (1 - rate), 0.0))
     new_j, logs_j = JSS.train_step(jstate, jnp.asarray(x), jnp.asarray(y), key)
     bs_ref = _to_torch(new_j.params, new_j.batch_stats)
 
