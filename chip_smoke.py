@@ -7,10 +7,12 @@ Phases, each of which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
      `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time and
      each kernel's registers and spills (`-Xptxas -v`; the wgmma kernels
-     must not spill); count the HGMMA (wgmma) instructions in the SASS
-     (`cuobjdump -sass` on the built library) of the four wgmma kernels
-     (the packed flash forward, its lse-writing build, the bf16 dKV and dQ
-     kernels), each of which must be > 0;
+     must not spill); count the tensor-core instructions in the SASS
+     (`cuobjdump -sass` on the built library) of the six wgmma kernels:
+     HGMMA in the packed flash forward, its lse-writing build, the bf16 dKV
+     and dQ kernels, and TF32 HGMMA or HMMA in the split-TF32 f32 builds of
+     kernel 3 (`flash_fwd_f32.cu`) and kernel 4 (`flash_bwd_dkv_f32.cu`),
+     each count > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, at
      phase 9's dino_vits8 512x512 shape (b4, T=4097), at the train path's
@@ -24,8 +26,9 @@ Phases, each of which must pass:
      keys; 3 padding rows with the CLS key alone), held on the valid rows
      and on every CLS row, with its bound over the valid keys and SDPA with
      the key mask; and the fp32 no-grad route (the f32 build of the
-     residual-saving forward) at b24 T=901 (ragged) and at phase 10's
-     localization forwards (b1, T=901 and 601, no mask);
+     residual-saving forward, split-TF32 wgmma) at b24 T=901 (ragged) and at
+     phase 10's localization forwards (b1, T=901 and 601, no mask), with the
+     CUDA-core FMA build it replaced timed beside it;
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
      with per-image (c, e) and at degree 3 with (2, 1), b2 N=3600, phase 9's
      b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23), and
@@ -41,15 +44,18 @@ Phases, each of which must pass:
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
-     the train shape (b144, T=197, H=6, bf16, fused-qkv views), b4 T=901 with
-     a ragged mask and an all-masked row in bf16 and f32, and b2 T=3601 f32;
+     the train shape (b144, T=197, H=6, fused-qkv views) in bf16 and f32, b4
+     T=901 with a ragged mask and an all-masked row in bf16 and f32, and b2
+     T=3601 f32; each f32 shape with the FMA builds of kernels 3-4 timed
+     beside the split-TF32 ones;
      in bf16 also the dKV and dQ kernels' hi/lo precision (`hi_lo_reading`:
      the share of dk and dv entries on valid keys, and of dq entries in
      batch rows with a valid key, not bit-equal to the twin, at most
      DKV_SHARE_MAX and DQ_SHARE_MAX); at the train shape also the dKV and dQ
-     kernels' grids and shared memory, their bounds and SDPA's forward
-     (inputs that need a gradient) and backward (dq, dk and dv together) as
-     yardsticks;
+     kernels' grids and shared memory (in f32 those of the split-TF32
+     forward and dKV), their bounds and SDPA's forward (inputs that need a
+     gradient) and backward (dq, dk and dv together) as yardsticks, in each
+     dtype;
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
      (bf16 backbone, flash attention, 21 classes) at crop 224, b144, one
      unfrozen block, lr 5e-3, on synthetic blob images: (a) one step through
@@ -61,9 +67,20 @@ Phases, each of which must pass:
      10 steps on one batch, loss finite and falling, kernels 3-5 launched every
      step and the packed kernel in the frozen blocks, with ms/step, img/s and
      peak memory; (c) the whole backbone unfrozen (every block runs kernels
-     3-5): ms/step over 3 steps after a warm-up step;
+     3-5): ms/step over 3 steps after a warm-up step; (d) the fp32 recipe
+     (`semantic_train`'s default precision, `build_model`'s 'auto'
+     attention), each route one step from the same state under
+     deterministic algorithms: kernel 3's o and lse at its 12 launches held
+     against its twin (F32_TOL), the gradients against the step with
+     kernels 4-5 twinned behind kernel 3's own o and lse (F32_GRAD_REL);
+     recorded, the gradients against the step with every f32 kernel twinned
+     beside the same reading for the CUDA-core FMA builds (the head
+     amplifies any f32 rounding change); then 10 steps' ms/step and peak
+     memory through the f32 kernels (kernel 3 12 times a step, kernels 4-5
+     once) and through einsum attention;
   8. `python -m deep_spectral_tpu_torch.tasks.cli semantic_train` (the yaml's
-     fp32 einsum defaults) on a synthetic VOC tree: 4 steps with evals at 2
+     defaults: fp32 through the f32 flash kernels, `build_model`'s 'auto'
+     attention on the card) on a synthetic VOC tree: 4 steps with evals at 2
      and 4, a checkpoint, and a resume that runs only the remaining steps;
   9. stage 2's other routes: (a) LOBPCG, a seeded random-weight dino_vits8
      at 512x512 (T=4097, N=4096), b4, bf16, then `spectral_decompose_batched`
@@ -82,7 +99,8 @@ Phases, each of which must pass:
      (the CLI's f32 ViT: kernel 3's f32 build); each run with the launch
      counts zeroed before it and checked after it (stage 1: the packed kernel
      per block and batch; stage 2: filter chains; LOST and dino_seg: the f32
-     forward per block and image), every kernel shape among those phases 2-3
+     forward per block and image, each launch the f32 build's by its own
+     count), every kernel shape among those phases 2-3
      hold, each results.txt counting every image; then stages 1-2 again with
      no batch in flight (DSS_TPU_INFLIGHT=0), which must write the same bytes;
  11. stages 1-8 and both evaluations on a synthetic VOC tree (SEG_IMAGES blob
@@ -157,9 +175,12 @@ calls: the median window, with the min-max printed beside it; phase 9's
 solves, which sync the host every iteration, are 5 single calls after a
 warm-up call.
 Then it prints one JSON line with each kernel's launches, error, times, bound
-(`bound_ms`, the larger of its bytes over 3.35 TB/s and its tensor-core or
-f32 flops over the card's peak, `bound_by` naming which) and library time
-(`library_ms`, null where no PyTorch call computes the function), the card's
+(`bound_ms`, the larger of its bytes over 3.35 TB/s and its flops over the
+card's peak: bf16 tensor cores, or for f32 three TF32 products a flop,
+`bound_by` naming which) and library time (`library_ms`, null where no
+PyTorch call computes the function); kernels 3-5's f32 builds are entries of
+their own (`*_f32`, launches by path from the wrappers' `f32_launches`, the
+replaced FMA build's time as `fma_ms`), the card's
 name and power limit, and, last, {"ok": true, "device": {...}}.
 It exits non-zero, without that last line, if CUDA is missing or any phase
 fails. It imports nothing of JAX.
@@ -192,6 +213,9 @@ SUBSPACE_MIN = 0.99
 F32_TOL = 1e-4     # f32 kernels vs twins: true f32 on both sides, summation order differs
 GRAD_REL_TOL = 2e-2  # bf16 gradients vs twins, relative to max |twin|; the lse is
 #                      f32 in both dtypes (m + log l) and is held to F32_TOL
+F32_GRAD_REL = 1e-4  # 7d's fp32 step, f32 kernels vs kernels 4-5 twinned behind kernel 3's
+#                      own o and lse, relative to max |twinned|: dq/dk/dv enter the
+#                      gradients linearly, and the kernels keep them within ~2e-5 of the twin
 DKV_SHARE_MAX = 0.03  # bf16 dk/dv entries not bit-equal to the twin (`hi_lo_reading`):
 #                       0.0024-0.0028 with p and ds as hi/lo pairs, 0.416-0.424 for the
 #                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
@@ -227,8 +251,11 @@ RESNET_REL = 1e-4          # DeepLabResNet f32 logits on the card vs the CPU, re
 #                            orders through 53 convolutions
 RESNET_B, GEN_B = 16, 8    # phase 12's ResNet train batch, semantic_train's batch before the
 #                            prediction dump
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores, f32 off them, HBM
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores; f32-accurate work, the
+# least time for which is three TF32 tensor-core products (495 TFLOP/s dense) per f32
+# product (split TF32, as the f32 flash kernels and f32 SDPA compute), so 165 TFLOP/s,
+# above the 67 TFLOP/s of exact f32 FMAs off the tensor cores; HBM
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 3.35e12
 # phase 13's shapes and gates: SP at dino_vits8 736x736 (T = 1 + 92^2 = 8465); the
 # multi-hop merge over HOPS shards of HOP_T tokens (4 x 2117 - 3 = 8465: the 4th
 # shard ends in 3 padding rows, the 5th is padding); PP at b8 in 4 microbatches;
@@ -242,7 +269,8 @@ PAR_COS_MIN = 0.9999  # world > 1: bf16 paths whose GEMMs run at other shapes th
 LOOP_IMAGES, LOOP_WARM, LOOP_STEPS = 96, 3, 12  # `loop_rate`'s tree and runs
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
-                       (4, 901, "float32", True), (2, 3601, "float32", True)]
+                       (4, 901, "float32", True), (2, 3601, "float32", True),
+                       (TRAIN_B, 197, "float32", False)]
 
 
 def log(msg: str) -> None:
@@ -329,9 +357,16 @@ def _launches() -> dict:
     return {f.__name__: f.launches for f in _counters()}
 
 
+def _f32_launches() -> dict:
+    """The f32 builds' launches (kernels 3-5 count them apart from `launches`)."""
+    return {f.__name__: f.f32_launches for f in _counters() if hasattr(f, "f32_launches")}
+
+
 def _zero_launches() -> None:
     for f in _counters():
         f.launches = 0
+        if hasattr(f, "f32_launches"):
+            f.f32_launches = 0
 
 
 def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
@@ -360,7 +395,12 @@ def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
 WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
                  "flash_fwd_packed_kernelILb1E": "flash_fwd_packed_kernel<true>",
                  "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
-                 "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel"}
+                 "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel",
+                 "flash_fwd_f32_kernel": "flash_fwd_f32_kernel",
+                 "flash_bwd_dkv_f32_kernel": "flash_bwd_dkv_f32_kernel"}
+# the split-TF32 kernels among them: their tensor-core instructions must be TF32
+# ones (HGMMA or HMMA with TF32 operands)
+TF32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel")
 
 
 def _kernel_label(line: str) -> str:
@@ -393,14 +433,20 @@ def phase_build():
     sass = subprocess.run([str(cuobjdump), "-sass", _build.last_build["path"]],
                           capture_output=True, text=True, check=True).stdout
     hgmma, func = dict.fromkeys(WGMMA_KERNELS.values(), 0), ""
+    tf32 = {name: {} for name in TF32_KERNELS}
     for line in sass.splitlines():
         if "Function :" in line:
             func = _kernel_label(line)
-        elif "HGMMA" in line and func in hgmma:
+        elif func in tf32 and (m := re.search(r"\b(HGMMA|HMMA)\.\S*TF32\S*", line)):
+            tf32[func][m.group(0)] = tf32[func].get(m.group(0), 0) + 1
             hgmma[func] += 1
-    log(f"[1] HGMMA instructions in the SASS (cuobjdump -sass): {hgmma}")
+        elif "HGMMA" in line and func in hgmma and func not in tf32:
+            hgmma[func] += 1
+    log(f"[1] tensor-core instructions in the SASS (cuobjdump -sass): {hgmma}; "
+        f"the split-TF32 kernels' by kind: {tf32}")
     if min(hgmma.values()) == 0:
-        raise AssertionError(f"a wgmma kernel has no HGMMA instruction: {hgmma}")
+        raise AssertionError(f"a wgmma kernel has no HGMMA (TF32 kernels: no TF32 HGMMA or "
+                             f"HMMA) instruction: {hgmma}")
 
 
 def phase_flash(dev) -> dict:
@@ -478,8 +524,10 @@ def phase_flash(dev) -> dict:
                        "plain_ms": times[1].ms, "library_ms": times[2].ms, **bd})
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
-    # the fp32 no-grad route (kernel 3's f32 build): a ragged b24 batch, and
-    # phase 10's localization forwards
+    from deep_spectral_tpu_torch.probe_f32 import fma_calls
+    # the fp32 no-grad route (kernel 3's f32 build, split-TF32 wgmma): a ragged
+    # b24 batch, and phase 10's localization forwards; beside it the CUDA-core
+    # FMA build it replaced
     for (b, T, masked) in [(B, 901, True), *((1, t, False) for t in LOC_LSE_T)]:
         qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev)
         q, k, v = qkv.unbind(2)
@@ -495,12 +543,14 @@ def phase_flash(dev) -> dict:
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
                  cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
-                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
+                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+                 cuda_ms(fma_calls(q, k, v, mask, None, None, None)[0]))
         bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2, stats=1)
         log(f"[2] fp32 no-grad route (kernel 3's f32 build) b{b} T={T} masked={masked}: max "
-            f"|kernel - twin| {err:.3e} (tol {F32_TOL}); kernel {times[0]}, twin {times[1]}, "
-            f"SDPA (unmasked, f32) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
+            f"|kernel - twin| {err:.3e} (tol {F32_TOL}); kernel {times[0]}, the FMA build "
+            f"{times[3]}, twin {times[1]}, SDPA (unmasked, f32) {times[2]} ({TIMING}); bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of "
+            f"the kernel, {bd['bound_ms'] / times[3].ms:.1%} of the FMA build")
     return {"max_abs_err": worst, **main, "stage6": stage6}
 
 
@@ -938,11 +988,13 @@ def kernel_shapes(seen: set):
             setattr(mod, name, fn)
 
 
-def phase_localization(tmp: Path) -> None:
+def phase_localization(tmp: Path) -> dict:
     """Stages 1-2 and the localization CLI in this process, each with the
     launch counts set to 0 just before it and read just after; the shapes
     they give the kernels must be among those phases 2-3 hold. Stages 1-2
-    run again with no batch in flight and must write the same bytes."""
+    run again with no batch in flight and must write the same bytes.
+    Returns the f32 builds' launches in the LOST and dino_seg runs (every
+    kernel-3 launch there must be the f32 build's)."""
     import torch
     from deep_spectral_tpu_torch.models.vit import get_model_config
     from deep_spectral_tpu_torch.pipeline.extract import extract_eigs, extract_features
@@ -978,7 +1030,7 @@ def phase_localization(tmp: Path) -> None:
             ("eigenseg", ["--eigenseg", "--precomputed_eigs_dir", str(tmp / "eigs")], {}),
             ("lost", ["--lost"], {"flash_attention_lse": blocks * len(ids)}),
             ("dino_seg", ["--dino_seg"], {"flash_attention_lse": blocks * len(ids)}))]
-    seen = set()
+    seen, f32_builds = set(), {}
 
     def drive(name, run, want):
         """`want`: each kernel's launches, None for at least one; others 0."""
@@ -987,10 +1039,14 @@ def phase_localization(tmp: Path) -> None:
         with kernel_shapes(seen):
             run()
         torch.cuda.synchronize()
-        launches = _launches()
-        log(f"[10] {name}: {time.perf_counter() - t0:.1f} s (host clock), launches {launches}")
+        launches, f32_builds[name] = _launches(), _f32_launches()
+        log(f"[10] {name}: {time.perf_counter() - t0:.1f} s (host clock), launches {launches}"
+            f"; of them by the f32 builds {f32_builds[name]}")
         off = {n: c for n, c in launches.items()
                if not (c > 0 if want.get(n, 0) is None else c == want.get(n, 0))}
+        if name in ("lost", "dino_seg") and \
+                f32_builds[name]["flash_attention_lse"] != launches["flash_attention_lse"]:
+            off["flash_attention_lse (f32 build)"] = f32_builds[name]["flash_attention_lse"]
         if off:
             raise AssertionError(f"{name}: launches {off}, expected {want} and no others")
 
@@ -1026,6 +1082,7 @@ def phase_localization(tmp: Path) -> None:
     if scores["eigenseg"] < CORLOC_FLOOR:
         raise AssertionError(f"color-fused eigenseg CorLoc {scores['eigenseg']} is below "
                              f"{CORLOC_FLOOR}")
+    return {name: f32_builds[name] for name in ("lost", "dino_seg")}
 
 
 
@@ -1310,16 +1367,18 @@ def hi_lo_rows(mask) -> dict:
 
 
 def phase_train_kernels(dev) -> dict:
-    """Kernels 3-5 against their twins; returns each kernel's worst error and
-    its and its twin's times at the train shape."""
+    """Kernels 3-5 against their twins; returns each build's worst error and
+    its and its twin's times at the train shape (b144 T=197), bf16 and f32
+    (the f32 builds with the CUDA-core FMA builds' times beside)."""
     import torch
     import torch.nn.functional as F
     from deep_spectral_tpu_torch.models.flash_attention import (
         _backward_plain, _row_dot, flash_attention_lse, flash_attention_lse_plain,
         flash_backward_plain, flash_bwd_dkv, flash_bwd_dq)
+    from deep_spectral_tpu_torch.probe_f32 import fma_calls
     g = torch.Generator().manual_seed(6)
-    worst = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
-    times = {}
+    worst = {dt: {"fwd": 0.0, "dkv": 0.0, "dq": 0.0} for dt in ("bf16", "f32")}
+    at_train = {}
     for (b, T, dtype, ragged) in TRAIN_KERNEL_SHAPES:
         dtype = getattr(torch, dtype)
         q, k, v, do, mask = train_kernel_inputs(b, T, dtype, ragged, g, dev)
@@ -1332,6 +1391,7 @@ def phase_train_kernels(dev) -> dict:
         refs = flash_backward_plain(q, k, v, mask, o, lse, do)
         valid = mask.any(dim=1)
         f32 = dtype == torch.float32
+        tag = "f32" if f32 else "bf16"
         errs, tols = {}, {}
         errs["o"], tols["o"] = _max_err(o, o_ref, valid), F32_TOL if f32 else FLASH_TOL
         errs["lse"], tols["lse"] = _max_err(lse, lse_ref, valid), F32_TOL
@@ -1354,24 +1414,30 @@ def phase_train_kernels(dev) -> dict:
         if bad:
             raise AssertionError(f"trainable flash kernels disagree with their twins: {bad} "
                                  f"(tolerances {tols})")
-        worst["fwd"] = max(worst["fwd"], errs["o"])
-        worst["dkv"] = max(worst["dkv"], errs["dk"], errs["dv"])
-        worst["dq"] = max(worst["dq"], errs["dq"])
+        worst[tag]["fwd"] = max(worst[tag]["fwd"], errs["o"])
+        worst[tag]["dkv"] = max(worst[tag]["dkv"], errs["dk"], errs["dv"])
+        worst[tag]["dq"] = max(worst[tag]["dq"], errs["dq"])
         t = {"fwd": cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
              "fwd_plain": cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
              "dkv": cuda_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse, di)),
              "dq": cuda_ms(lambda: flash_bwd_dq(q, k, v, mask, do, lse, di)),
              "bwd_plain": cuda_ms(lambda: _backward_plain(q, k, v, mask, lse, do, di))}
+        fma = ""
+        if f32:  # the CUDA-core builds the split-TF32 kernels replaced (dq is one)
+            fwd_fma, dkv_fma, _ = fma_calls(q, k, v, mask, do, lse, di)
+            t.update(fwd_fma=cuda_ms(fwd_fma), dkv_fma=cuda_ms(dkv_fma))
+            fma = f"; the FMA builds: fwd {t['fwd_fma']}, dkv {t['dkv_fma']} (dq is its FMA build)"
         log(f"[6] b{b} T={T} H=6 hd=64 {str(dtype)[6:]} ragged={ragged}: max |kernel - twin| "
             + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items())
             + f"; {TIMING}: fwd {t['fwd']} vs twin {t['fwd_plain']}, dkv {t['dkv']} + dq "
-              f"{t['dq']} vs twin backward {t['bwd_plain']}")
-        if (b, T) == TRAIN_KERNEL_SHAPES[0][:2]:
-            times = t
-            for name in ("dkv", "dq"):
-                gx, gy, gz, threads, smem = launch_shape(f"dss_flash_bwd_{name}_bf16_shape",
-                                                         b, T, 6)
-                log(f"[6] bf16 {name} grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of "
+              f"{t['dq']} vs twin backward {t['bwd_plain']}" + fma)
+        if (b, T) == (TRAIN_B, 197):
+            shapes = (("fwd", "dss_flash_fwd_lse_f32_shape"),
+                      ("dkv", "dss_flash_bwd_dkv_f32_shape")) if f32 else \
+                (("dkv", "dss_flash_bwd_dkv_bf16_shape"), ("dq", "dss_flash_bwd_dq_bf16_shape"))
+            for name, fn in shapes:
+                gx, gy, gz, threads, smem = launch_shape(fn, b, T, 6)
+                log(f"[6] {tag} {name} grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of "
                     f"{threads} threads, {smem} B of dynamic shared memory")
             # SDPA (unmasked) on the (B, H, T, hd) views: the forward with inputs
             # that need a gradient, and one backward giving dq, dk and dv
@@ -1384,19 +1450,24 @@ def phase_train_kernels(dev) -> dict:
             bounds = {"fwd": attention_work(q, mask, products=2, io_tensors=4, stats=1),
                       "dkv": attention_work(q, mask, products=4, io_tensors=6, stats=2),
                       "dq": attention_work(q, mask, products=3, io_tensors=5, stats=2)}
-            log(f"[6] b{b} T={T}: SDPA fwd (requires_grad) {lib_fwd}, SDPA backward "
+            log(f"[6] b{b} T={T} {tag}: SDPA fwd (requires_grad) {lib_fwd}, SDPA backward "
                 f"(dq, dk, dv) {lib_bwd} ({TIMING}); bounds " + ", ".join(
                     f"{n} {x['bound_ms']:.4f} ms ({x['bound_by']}, "
-                    f"{x['bound_ms'] / t[n].ms:.1%} of the kernel)" for n, x in bounds.items()))
-    return {"flash_attention_lse": {"max_abs_err": worst["fwd"], "ms": times["fwd"].ms,
-                                    "plain_ms": times["fwd_plain"].ms, "library_ms": lib_fwd.ms,
-                                    **bounds["fwd"]},
-            "flash_bwd_dkv": {"max_abs_err": worst["dkv"], "ms": times["dkv"].ms,
-                              "plain_ms": times["bwd_plain"].ms, "library_ms": lib_bwd.ms,
-                              **bounds["dkv"]},
-            "flash_bwd_dq": {"max_abs_err": worst["dq"], "ms": times["dq"].ms,
-                             "plain_ms": times["bwd_plain"].ms, "library_ms": lib_bwd.ms,
-                             **bounds["dq"]}}
+                    f"{x['bound_ms'] / t[n].ms:.1%} of the kernel"
+                    + (f", {x['bound_ms'] / t[n + '_fma'].ms:.1%} of the FMA build"
+                       if n + "_fma" in t else "") + ")" for n, x in bounds.items()))
+            at_train[tag] = (t, lib_fwd.ms, lib_bwd.ms, bounds)
+    out = {}
+    for tag, suffix in (("bf16", ""), ("f32", "_f32")):
+        t, lib_fwd, lib_bwd, bounds = at_train[tag]
+        for name, kernel, plain, lib in (("flash_attention_lse", "fwd", "fwd_plain", lib_fwd),
+                                         ("flash_bwd_dkv", "dkv", "bwd_plain", lib_bwd),
+                                         ("flash_bwd_dq", "dq", "bwd_plain", lib_bwd)):
+            out[name + suffix] = {"max_abs_err": worst[tag][kernel], "ms": t[kernel].ms,
+                                  "plain_ms": t[plain].ms, "library_ms": lib, **bounds[kernel]}
+            if kernel + "_fma" in t:
+                out[name + suffix]["fma_ms"] = t[kernel + "_fma"].ms
+    return out
 
 
 def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:
@@ -1425,9 +1496,10 @@ def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:
 @contextlib.contextmanager
 def twins_on_the_card(forward: bool = True):
     """Route kernels 4-5 (the autograd function's backward) and, with
-    `forward`, kernel 3 (its forward) through their plain twins on CUDA
-    tensors: phase 7a twins the backward only, `probe_train` both. The
-    frozen blocks keep the
+    `forward`, kernel 3 (its forward, and the fp32 frozen blocks' no-grad
+    forward, kernel 3's f32 build) through their plain twins on CUDA
+    tensors: phase 7a twins the backward only, `probe_train` both, phase 7d
+    each in turn. The bf16 frozen blocks keep the
     packed kernel in every run; phase 2 holds it against its twin at their
     shape (b144, T=197). This step's gradients move by up to ~10% of their
     largest entry when any block's attention output changes by bf16 rounding
@@ -1438,14 +1510,15 @@ def twins_on_the_card(forward: bool = True):
     (ROADMAP queue 3). The backward kernels enter the gradients linearly."""
     import torch
     from deep_spectral_tpu_torch.models import flash_attention as fa
-    saved = (fa.flash_attention_lse, fa.flash_backward)
+    from deep_spectral_tpu_torch.models import vit
+    saved = (fa.flash_attention_lse, fa.flash_backward, vit.flash_attention_lse)
     if forward:
-        fa.flash_attention_lse = fa.flash_attention_lse_plain
+        fa.flash_attention_lse = vit.flash_attention_lse = fa.flash_attention_lse_plain
     fa.flash_backward = lambda *a: torch.stack(fa.flash_backward_plain(*a), dim=2)
     try:
         yield
     finally:
-        fa.flash_attention_lse, fa.flash_backward = saved
+        fa.flash_attention_lse, fa.flash_backward, vit.flash_attention_lse = saved
 
 
 def phase_train(dev) -> dict:
@@ -1582,6 +1655,163 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"unfrozen backbone: expected 12 launches of kernels 3-5 per "
                              f"step: {full}")
     return launches
+
+
+@contextlib.contextmanager
+def fma_builds_on_the_card():
+    """Route the f32 forward and dK/dV wrappers to the CUDA-core FMA builds
+    the split-TF32 kernels replaced (exact f32 products; `_fma` entry points):
+    7d's control of how far the step moves under an f32 rounding change."""
+    from deep_spectral_tpu_torch import _build
+    from deep_spectral_tpu_torch.probe_dkv import _WithControls
+    lib = _build.load()
+    _build._lib = _WithControls(lib, {name: getattr(lib, f"{name}_fma") for name in
+                                      ("dss_flash_fwd_lse_f32", "dss_flash_bwd_dkv_f32")})
+    try:
+        yield
+    finally:
+        _build._lib = lib
+
+
+def phase_train_fp32(dev) -> dict:
+    """7d: the fp32 recipe's step, the precision `semantic_train` defaults to:
+    `build_model` (DeepLabV3+ over dino_vits16, 'auto' attention: kernel 3's
+    f32 build in all 12 blocks, kernels 4-5's f32 builds in the trained one),
+    crop 224, b144, one unfrozen block. Every route is one step from the same
+    state under deterministic algorithms, so what differs is the kernels.
+    Gated, as 7a gates the bf16 step: kernel 3's o and lse at each of the
+    step's 12 launches against its twin on the q/k/v it was given (F32_TOL),
+    and the trained gradients against the same step with kernels 4-5
+    twinned behind kernel 3's own o and lse (F32_GRAD_REL of the largest
+    entry). Recorded: the gradients against the step with every f32 kernel
+    twinned, beside the same reading for the CUDA-core FMA builds (exact f32
+    products): the head amplifies any f32 rounding change in the blocks'
+    attention (see `twins_on_the_card`), so that reading is the step's, not
+    the kernels'. Then 10 steps' ms/step and peak memory through the kernels
+    and through einsum attention. Returns the f32 builds' launches over the
+    10 kernel steps and both step times."""
+    import warnings
+    import torch
+    from deep_spectral_tpu_torch.models import flash_attention as fa
+    from deep_spectral_tpu_torch.models import vit
+    from deep_spectral_tpu_torch.models.deeplab import DeepLabViT
+    from deep_spectral_tpu_torch.models.vit import get_model_config
+    from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
+    cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
+                         batch_size=TRAIN_B, unfrozen_backbone_layers=1, seed=0)
+    if cfg.precision != "fp32":
+        raise AssertionError(f"semantic_train's default precision is {cfg.precision}")
+    x_np, y_np = blob_batch(TRAIN_B, np.random.default_rng(27))
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+
+    def new_state(impl):
+        model = SS.build_model(cfg) if impl == "flash" else DeepLabViT(
+            get_model_config("dino_vits16"), CLASSES, compute_dtype=torch.float32,
+            attention_impl=impl)
+        return SS.create_train_state(cfg, model, device=dev)
+
+    kernel3, seen = fa.flash_attention_lse, []
+
+    def capture(q, k, v, kv_mask=None):
+        o, lse = kernel3(q, k, v, kv_mask)
+        seen.append((q, k, v, kv_mask, o, lse))
+        return o, lse
+
+    # the wrapper counts under its module-level name, now this
+    capture.launches = capture.f32_launches = 0
+
+    routes = {"kernels": contextlib.nullcontext, "kernels 4-5 twinned":
+              lambda: twins_on_the_card(forward=False), "all twinned": twins_on_the_card,
+              "FMA builds": fma_builds_on_the_card}
+    grads, first = {}, None
+    for route, ctx in routes.items():
+        state = new_state("flash")
+        _zero_launches()
+        if route == "kernels":
+            fa.flash_attention_lse = vit.flash_attention_lse = capture
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # cuBLAS's determinism notice
+                with ctx():
+                    SS.train_step(state, x, y, torch.Generator(device=dev).manual_seed(28))
+            torch.cuda.synchronize()
+            if route == "kernels":  # kernel 3's count is `capture`'s now
+                first = {"flash_attention_lse": capture.f32_launches,
+                         "flash_bwd_dkv": fa.flash_bwd_dkv.f32_launches,
+                         "flash_bwd_dq": fa.flash_bwd_dq.f32_launches}
+        finally:
+            torch.use_deterministic_algorithms(False)
+            fa.flash_attention_lse = vit.flash_attention_lse = kernel3
+        grads[route] = {n: p.grad.detach().clone() for n, p in state.opt.params.items()}
+        del state
+    if len(seen) != 12:
+        raise AssertionError(f"the fp32 step ran kernel 3 {len(seen)} times, not 12")
+    err_o = err_lse = 0.0
+    for q, k, v, kv_mask, o, lse in seen:
+        o_ref, lse_ref = fa.flash_attention_lse_plain(q, k, v, kv_mask)
+        err_o = max(err_o, (o - o_ref).abs().max().item())
+        err_lse = max(err_lse, (lse - lse_ref).abs().max().item())
+    del seen
+    log(f"[7d] one fp32 b{TRAIN_B} step: kernel 3 at its 12 launches (11 frozen blocks, the "
+        f"trained one) vs its twin on the same q/k/v: max |o diff| {err_o:.3e}, max |lse "
+        f"diff| {err_lse:.3e} (tol {F32_TOL}); the step's f32 launches {first}")
+
+    def rel(a, b):
+        r = {n: (grads[a][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+             for n, g in grads[b].items()}
+        return r, sorted(r, key=r.get)[-3:]
+
+    readings = {}
+    for a, b in (("kernels", "kernels 4-5 twinned"), ("kernels", "all twinned"),
+                 ("FMA builds", "all twinned")):
+        r, top = rel(a, b)
+        readings[a, b] = max(r.values())
+        log(f"[7d] one fp32 b{TRAIN_B} step (deterministic algorithms), {a} vs {b}: "
+            f"{len(r)} trained tensors, worst gradient differences relative to max |{b}|"
+            + (f" (tol {F32_GRAD_REL})" if b == "kernels 4-5 twinned" else " (recorded)")
+            + ": " + ", ".join(f"{n} {r[n]:.3e}" for n in top))
+    bad = not (err_o <= F32_TOL and err_lse <= F32_TOL and
+               np.isfinite(readings["kernels", "kernels 4-5 twinned"]) and
+               readings["kernels", "kernels 4-5 twinned"] <= F32_GRAD_REL)
+    if bad:
+        raise AssertionError(f"the fp32 step's f32 kernels disagree with their twins: o "
+                             f"{err_o}, lse {err_lse}, gradients {readings}")
+    if first != {"flash_attention_lse": 12, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
+        raise AssertionError(f"the fp32 step's f32 launches: {first}")
+    del grads
+
+    n_steps, out = 10, {}
+    for impl in ("flash", "einsum"):
+        state = new_state(impl)
+        gen = torch.Generator(device=dev).manual_seed(29)
+        SS.train_step(state, x, y, gen)                   # warm-up (cuDNN, allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = [SS.train_step(state, x, y, gen)["loss"] for _ in range(n_steps)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n_steps
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(v) for v in losses]
+        out[impl] = {"ms": ms, "peak_gib": peak / 2**30, "launches": _f32_launches()}
+        log(f"[7d] train dino_vits16 DeepLabV3+ crop {CROP} b{TRAIN_B} fp32 {impl}, 1 unfrozen "
+            f"block: {ms:.3f} ms/step = {TRAIN_B / ms * 1e3:.2f} img/s (CUDA events, mean of "
+            f"{n_steps} steps after 1 warm-up); peak memory {peak / 2**30:.3f} GiB; f32 "
+            f"launches over the {n_steps} steps: {out[impl]['launches']}; losses "
+            f"{' '.join(f'{v:.4f}' for v in losses)}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"fp32 {impl} train loss not finite or not falling")
+        del state
+    want = {"flash_attention_lse": 12 * n_steps, "flash_bwd_dkv": n_steps,
+            "flash_bwd_dq": n_steps}
+    if out["flash"]["launches"] != want or any(out["einsum"]["launches"].values()):
+        raise AssertionError(f"fp32 steps' f32 launches: {out}, want {want} through the kernels")
+    return {"launches": out["flash"]["launches"], "ms": out["flash"]["ms"],
+            "einsum_ms": out["einsum"]["ms"]}
 
 
 def make_voc(root: Path) -> None:
@@ -2284,6 +2514,10 @@ def _parallel_sp(dev, mesh, x, world) -> tuple[dict, list, tuple]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[path] = _launches()
+        if f32:  # every hop is kernel 3's f32 build
+            launches["sp_f32_builds"] = _f32_launches()
+            _want_launches(f"13a SP {path} (f32 builds)", launches["sp_f32_builds"], {
+                "flash_attention_lse": launches[path]["flash_attention_lse"]})
         x_norm, keys = _gather_tokens(group, out["x_norm"]), _gather_tokens(group, keys)
         qkv = {n: _gather_tokens(group, out["qkv"][n]) for n in "qkv"}
         T = x_norm.shape[1]
@@ -2804,11 +3038,12 @@ def main(argv: list) -> int:
         phase_cli(Path(tmp), "cuda")
     train_kernels = phase_train_kernels(dev)
     train_launches = phase_train(dev)
+    train_fp32 = phase_train_fp32(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_cli(Path(tmp))
     phase_stage2_routes(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_localization(Path(tmp))
+        loc = phase_localization(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         seg_launches = phase_segments(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
@@ -2844,13 +3079,24 @@ def main(argv: list) -> int:
           "launches": train_launches[name],
           "launches_by_path": {"train": train_launches[name], "remat": p12["remat"][name],
                                **{path: par[path][name] for path in
-                                  (("sp", "sp_f32", "ring_hops", "dp_train")
+                                  (("sp", "ring_hops", "dp_train")
                                    if name == "flash_attention_lse" else ("dp_train",))}},
           **train_kernels[name],
           **({"ring_hop_shapes": p13["ring_hops"]} if name == "flash_attention_lse" else {})}
          for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
                                     ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
-                                    ("flash_bwd_dq", "flash_bwd_dq.cu", 156))]
+                                    ("flash_bwd_dq", "flash_bwd_dq.cu", 156))
+    ] + [{"name": f"{name}_f32", "route": "cuda",
+          "source": f"deep_spectral_tpu_torch/csrc/{source}",
+          "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
+          "launches": train_fp32["launches"][name],
+          "launches_by_path": {"train_fp32": train_fp32["launches"][name], **(
+              {"lost": loc["lost"][name], "dino_seg": loc["dino_seg"][name],
+               "sp_f32": par["sp_f32_builds"][name]} if name == "flash_attention_lse" else {})},
+          **train_kernels[f"{name}_f32"]}
+         for name, source, line in (("flash_attention_lse", "flash_fwd_f32.cu", 64),
+                                    ("flash_bwd_dkv", "flash_bwd_dkv_f32.cu", 112),
+                                    ("flash_bwd_dq", "flash_attn_train.cu", 156))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

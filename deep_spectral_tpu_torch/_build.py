@@ -11,9 +11,9 @@ writes to a temporary file and renames it into place, so two processes that
 build at once both end with a whole library.
 
 The library links against the CUDA runtime only: the wgmma kernels' TMA
-tensor maps are encoded with `cuTensorMapEncodeTiled` (libcuda), which
-`csrc/hopper.cuh` looks up through the runtime's entry-point query, so no
-`-lcuda` is needed. Headers (`csrc/*.cuh`) enter the hash with the sources.
+tensor maps (bf16 in `csrc/hopper.cuh`, f32 in `csrc/tf32.cuh`) are encoded
+with `cuTensorMapEncodeTiled` (libcuda), which `csrc/hopper.cuh` looks up
+through the runtime's entry-point query, so no `-lcuda` is needed. Headers (`csrc/*.cuh`) enter the hash with the sources.
 
 Nothing here runs at import time: the package imports on hosts without nvcc
 or a GPU, and only a wrapper that is handed a CUDA tensor calls `load()`.
@@ -50,10 +50,15 @@ _SIGNATURES = {
     # S, X, ce, out, work, colmax; B, N, m, degree; stream
     "dss_cheb_filter": [_P] * 6 + [_I] * 4 + [_P],
     "dss_cheb_filter_shape": [_I, _I, _I, _IP],
-    # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream
+    # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream (the _fma
+    # builds: the CUDA-core yardsticks of the split-TF32 kernels)
     "dss_flash_fwd_lse_f32": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_fwd_lse_f32_fma": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_fwd_lse_f32_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dk, dv; B, T, H; strides; scale; stream
     "dss_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dkv_f32_fma": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dkv_f32_shape": [_I, _I, _I, _IP],
     "dss_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
     "dss_flash_bwd_dkv_bf16_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dq; B, T, H; strides; scale; stream

@@ -1,7 +1,12 @@
 // Differentiable masked flash attention on the CUDA cores (sm_90a), f32 only:
 // the forward that also writes the row log-sum-exp, and the two backward
-// kernels. (Their bf16 builds run on tensor cores: flash_fwd.cu's WRITE_LSE
-// build, flash_bwd_dkv.cu and flash_bwd_dq.cu.)
+// kernels, as exact f32 FMAs. The f32 dQ kernel here is the port's f32 route
+// of kernel 5. The forward and dKV kernels are kept as the yardstick of their
+// split-TF32 tensor-core builds (flash_fwd_f32.cu, flash_bwd_dkv_f32.cu,
+// which the wrappers route f32 to): `dss_flash_fwd_lse_f32_fma` and
+// `dss_flash_bwd_dkv_f32_fma` are called by chip_smoke.py and probe_f32
+// only. (The bf16 builds of all three run on tensor cores: flash_fwd.cu's
+// WRITE_LSE build, flash_bwd_dkv.cu and flash_bwd_dq.cu.)
 //
 // Replaces, in deep_spectral_tpu/models/flash_attention.py, for f32:
 //   * _flash_kernel          (launched by _flash_forward, save_residuals=True)
@@ -18,12 +23,13 @@
 // from the caller. The mask is on keys only: masked query rows still get o,
 // lse and dq.
 //
-// What bounds it on this card: nothing yet but the simple design. Every
-// product runs as exact f32 FMAs on the CUDA cores (tensor cores would mean
-// TF32, other numerics), so the ceiling is the 67 TFLOP/s f32 rate, and each
+// What bounds it on this card: the design. Every product runs as exact f32
+// FMAs on the CUDA cores, so the ceiling is the 67 TFLOP/s f32 rate, and each
 // thread reads 8 shared-memory words per 16 FMAs, which caps it at about half
-// of that. At the train shape (b144, T=197, H=6, hd=64) the forward is 8.6
-// GFLOP and the two backward kernels 30 GFLOP together.
+// of that; f32-accurate work on the tensor cores (three TF32 products, 165
+// TFLOP/s) would be 2.5x that ceiling. At the train shape (b144, T=197, H=6,
+// hd=64) the forward is 8.6 GFLOP and the two backward kernels 30 GFLOP
+// together.
 //
 // Design: one CTA of 256 threads per (64-row tile, head, batch); the other
 // sequence axis is a loop inside the CTA (the Pallas grid's sequential axis).
@@ -379,10 +385,10 @@ int launch_config(Kernel kernel, int smem_bytes) {
 // Entry points. `strides` is a host array of (batch, token, head) element
 // strides, three per tensor, in argument order; lse and di are contiguous
 // (B, H, T) f32.
-extern "C" int dss_flash_fwd_lse_f32(const void* q, const void* k, const void* v,
-                                     const void* kv_mask, void* o, void* lse, int B, int T,
-                                     int H, const long long* strides, float scale,
-                                     void* stream) {
+extern "C" int dss_flash_fwd_lse_f32_fma(const void* q, const void* k, const void* v,
+                                         const void* kv_mask, void* o, void* lse, int B,
+                                         int T, int H, const long long* strides, float scale,
+                                         void* stream) {
   const int smem = 4 * TILE * sizeof(float);
   if (int err = launch_config(flash_fwd_lse_kernel, smem)) return err;
   const dim3 grid((T + BT - 1) / BT, H, B);
@@ -394,10 +400,11 @@ extern "C" int dss_flash_fwd_lse_f32(const void* q, const void* k, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dss_flash_bwd_dkv_f32(const void* q, const void* k, const void* v,
-                                     const void* kv_mask, const void* dout, const void* lse,
-                                     const void* di, void* dk, void* dv, int B, int T, int H,
-                                     const long long* strides, float scale, void* stream) {
+extern "C" int dss_flash_bwd_dkv_f32_fma(const void* q, const void* k, const void* v,
+                                         const void* kv_mask, const void* dout, const void* lse,
+                                         const void* di, void* dk, void* dv, int B, int T,
+                                         int H, const long long* strides, float scale,
+                                         void* stream) {
   const int smem = 6 * TILE * sizeof(float);
   if (int err = launch_config(flash_bwd_dkv_kernel, smem)) return err;
   const dim3 grid((T + BT - 1) / BT, H, B);

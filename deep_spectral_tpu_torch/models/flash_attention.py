@@ -10,13 +10,16 @@ raises.
     inference forward; twin `flash_attention_packed_plain`.
   * `flash_attention_lse` (the port of `_flash_kernel`): forward that also
     returns the row log-sum-exp; bf16 runs `csrc/flash_fwd.cu`'s lse-writing
-    instantiation (wgmma + TMA), f32 `csrc/flash_attn_train.cu` (CUDA
-    cores); twin `flash_attention_lse_plain`.
+    instantiation (wgmma + TMA), f32 `csrc/flash_fwd_f32.cu` (wgmma + TMA,
+    split-TF32 products); twin `flash_attention_lse_plain`.
   * `flash_bwd_dkv` (the port of `_flash_bwd_dkv_kernel`; bf16
-    `csrc/flash_bwd_dkv.cu`) and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; bf16
-    `csrc/flash_bwd_dq.cu`), both on wgmma + TMA, f32 builds in
-    `csrc/flash_attn_train.cu`, run together by `flash_backward`; twin
+    `csrc/flash_bwd_dkv.cu`, f32 `csrc/flash_bwd_dkv_f32.cu`, split-TF32 on
+    wgmma and mma.sync) and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; bf16
+    `csrc/flash_bwd_dq.cu` on wgmma + TMA, f32 `csrc/flash_attn_train.cu` on
+    the CUDA cores), run together by `flash_backward`; twin
     `flash_backward_plain`.
+Each wrapper's `launches` counts its launches in both dtypes,
+`f32_launches` those of its f32 build.
 `FlashAttentionFn` is the autograd function over them (the port of
 `flash_attention_trainable`'s custom VJP).
 
@@ -65,13 +68,15 @@ def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _check_tma(x: torch.Tensor, name: str, shape) -> None:
-    """Raise unless x is a bf16 view of `shape` that the TMA loads take."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"flash kernel takes bf16 {name}; got {x.dtype}")
+def _check_tma(x: torch.Tensor, name: str, shape, dtype=torch.bfloat16) -> None:
+    """Raise unless x is a `dtype` (bf16 or f32) view of `shape` that the TMA
+    loads take: unit stride on hd, every other stride a multiple of 16 bytes
+    (8 bf16 or 4 f32 elements), a 16-byte aligned data pointer."""
+    if x.dtype != dtype:
+        raise TypeError(f"flash kernel takes {str(dtype)[6:]} {name}; got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(x.shape)} != {tuple(shape)}")
-    if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]):
+    if x.stride(-1) != 1 or any(s % (16 // x.element_size()) for s in x.stride()[:3]):
         raise ValueError(f"{name} strides {x.stride()}: the kernel needs unit "
                          f"stride on hd and 16-byte aligned rows")
     if x.data_ptr() % 16:
@@ -255,13 +260,15 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(hd), kv-masked) v and the row log-sum-exp.
 
     q/k/v (B, T, H, hd), read through their strides. CPU tensors: the plain
-    twin. CUDA tensors with hd == 64: bf16 runs kernel 3 on wgmma + TMA
-    (`csrc/flash_fwd.cu`, the build that writes the lse), which needs every
-    stride but hd's a multiple of 8 elements and 16-byte aligned data
-    pointers, as `flash_attention_packed` does; f32 runs its CUDA-core build
-    (`csrc/flash_attn_train.cu`); anything else raises. Returns o, a new
-    contiguous (B, T, H, hd) tensor in q's dtype, and lse, (B, H, T) f32.
-    `flash_attention_lse.launches` counts kernel launches (either build)."""
+    twin. CUDA tensors with hd == 64: kernel 3 on wgmma + TMA, bf16 in
+    `csrc/flash_fwd.cu` (the build that writes the lse), f32 in
+    `csrc/flash_fwd_f32.cu` (split-TF32 products); both need unit stride on
+    hd, every other stride a multiple of 16 bytes (8 bf16 or 4 f32
+    elements) and 16-byte aligned data pointers, as `flash_attention_packed`
+    does; anything else raises. Returns o, a new contiguous (B, T, H, hd)
+    tensor in q's dtype, and lse, (B, H, T) f32.
+    `flash_attention_lse.launches` counts kernel launches (either build),
+    `flash_attention_lse.f32_launches` those of the f32 build."""
     if not q.is_cuda:
         return flash_attention_lse_plain(q, k, v, kv_mask)
     B, T, H, hd = q.shape
@@ -269,9 +276,9 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = _bool_mask(kv_mask)
     o = torch.empty((B, T, H, hd), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        _check_tma(x, name, (B, T, H, hd), q.dtype)
     if q.dtype == torch.bfloat16:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            _check_tma(x, name, (B, T, H, hd))
         _launch_packed(q, k, v, mask, o, lse, "flash_attention_lse")
     else:
         from .. import _build
@@ -283,11 +290,12 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, T, H, _strides(q, k, v, o), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention_lse")
+        flash_attention_lse.f32_launches += 1
     flash_attention_lse.launches += 1
     return o, lse
 
 
-flash_attention_lse.launches = 0
+flash_attention_lse.launches = flash_attention_lse.f32_launches = 0
 
 
 def _bwd_operands(q, k, v, kv_mask, do, lse, di):
@@ -300,17 +308,19 @@ def _bwd_operands(q, k, v, kv_mask, do, lse, di):
 
 def _launch_bwd(kernel: str, q, k, v, mask, do, lse, di, outs: dict, dev) -> None:
     """Kernel 4 (`kernel` "dkv") or 5 ("dq") on checked operands, writing
-    the `outs` views: bf16 on wgmma + TMA (`csrc/flash_bwd_{kernel}.cu`), which
-    needs every operand's strides but hd's a multiple of 8 elements and
-    16-byte aligned data pointers, f32 on the CUDA cores
-    (`csrc/flash_attn_train.cu`)."""
+    the `outs` views: bf16 on wgmma + TMA (`csrc/flash_bwd_{kernel}.cu`), f32
+    dkv on split-TF32 wgmma and mma.sync fed by TMA
+    (`csrc/flash_bwd_dkv_f32.cu`); these need every operand's strides but
+    hd's a multiple of 16 bytes and 16-byte aligned data pointers. f32 dq
+    runs on the CUDA cores (`csrc/flash_attn_train.cu`), which need unit
+    stride on hd only."""
     from .. import _build
     B, T, H, hd = q.shape
     _check_train_args({"q": q, **outs}, None, B, T, H)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    if bf16 or kernel == "dkv":
         for name, x in {"q": q, "k": k, "v": v, "do": do, **outs}.items():
-            _check_tma(x, name, (B, T, H, hd))
+            _check_tma(x, name, (B, T, H, hd), q.dtype)
     launch = getattr(_build.load(), f"dss_flash_bwd_{kernel}_{'bf16' if bf16 else 'f32'}")
     out = list(outs.values())
     with torch.cuda.device(dev):
@@ -328,10 +338,11 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, dk=None, dv=None):
     di = rowsum(o * do), both (B, H, T) f32. CPU tensors: the plain twin.
     CUDA tensors: kernel 4, writing into `dk`/`dv` when given ((B, T, H, hd)
     views with unit stride on hd, e.g. slices of one (B, T, 3, H, hd)
-    buffer); bf16 runs it on wgmma + TMA (`csrc/flash_bwd_dkv.cu`), which
-    needs every operand's strides but hd's a multiple of 8 elements and
-    16-byte aligned data pointers, f32 on the CUDA cores
-    (`csrc/flash_attn_train.cu`). `flash_bwd_dkv.launches` counts launches."""
+    buffer); bf16 runs it on wgmma + TMA (`csrc/flash_bwd_dkv.cu`), f32 on
+    split-TF32 wgmma and mma.sync fed by TMA (`csrc/flash_bwd_dkv_f32.cu`);
+    both need every operand's strides but hd's a multiple of 16 bytes and
+    16-byte aligned data pointers. `flash_bwd_dkv.launches` counts launches,
+    `flash_bwd_dkv.f32_launches` those of the f32 build."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, kv_mask, lse, do, di)[1:]
     B, T, H, dev, mask = _bwd_operands(q, k, v, kv_mask, do, lse, di)
@@ -339,10 +350,11 @@ def flash_bwd_dkv(q, k, v, kv_mask, do, lse, di, dk=None, dv=None):
     dv = torch.empty_like(q, memory_format=torch.contiguous_format) if dv is None else dv
     _launch_bwd("dkv", q, k, v, mask, do, lse, di, {"dk": dk, "dv": dv}, dev)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.f32_launches += q.dtype == torch.float32
     return dk, dv
 
 
-flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches = flash_bwd_dkv.f32_launches = 0
 
 
 def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, dq=None):
@@ -350,17 +362,19 @@ def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, dq=None):
     plain twin. CUDA tensors: kernel 5, writing into `dq` when given; bf16
     runs it on wgmma + TMA (`csrc/flash_bwd_dq.cu`, with the same stride and
     alignment needs as kernel 4's), f32 on the CUDA cores
-    (`csrc/flash_attn_train.cu`). `flash_bwd_dq.launches` counts launches."""
+    (`csrc/flash_attn_train.cu`). `flash_bwd_dq.launches` counts launches,
+    `flash_bwd_dq.f32_launches` those of the f32 build."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, kv_mask, lse, do, di)[0]
     B, T, H, dev, mask = _bwd_operands(q, k, v, kv_mask, do, lse, di)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format) if dq is None else dq
     _launch_bwd("dq", q, k, v, mask, do, lse, di, {"dq": dq}, dev)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.f32_launches += q.dtype == torch.float32
     return dq
 
 
-flash_bwd_dq.launches = 0
+flash_bwd_dq.launches = flash_bwd_dq.f32_launches = 0
 
 
 def flash_backward(q, k, v, kv_mask, o, lse, do) -> torch.Tensor:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -29,14 +30,15 @@ CONTROLS = {"dss_flash_bwd_dkv_bf16": ("flash_bwd_dkv.cu", "DSS_DKV_SINGLE_ROUND
             "dss_flash_bwd_dq_bf16": ("flash_bwd_dq.cu", "DSS_DQ_SINGLE_ROUNDING")}
 
 
-def control_entry_points() -> dict:
-    """The single-rounding control builds' entry points, by name; the two
-    nvcc runs go together."""
+def control_entry_points(controls: dict = CONTROLS) -> dict:
+    """Control builds' entry points, by name: each entry point's source
+    built alone with its define (`controls`: name -> (source, define); by
+    default the single-rounding controls); the nvcc runs go together."""
     from . import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (source, define) in CONTROLS.items():
-        out = _build.BUILD_DIR / f"lib{define.lower()}.so"
+    for name, (source, define) in controls.items():
+        out = _build.BUILD_DIR / f"lib{Path(source).stem}_{define.lower()}.so"
         cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, f"-D{define}", "-shared",
                "-o", str(out), str(_build.CSRC / source)]
         procs[name] = (out, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -54,7 +56,7 @@ def control_entry_points() -> dict:
 
 
 class _WithControls:
-    """The port's kernel library with the controls' entry points."""
+    """The port's kernel library with some entry points replaced (by name)."""
 
     def __init__(self, lib, controls: dict):
         self._lib = lib

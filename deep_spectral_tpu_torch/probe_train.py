@@ -13,6 +13,12 @@ device's idle share against the unprofiled step, for one unfrozen block
 (chip_smoke phase 7b) and for the whole backbone unfrozen (phase 7c); and
 the wall time of the fp32 flash and fp32 einsum steps.
 
+`fp32`: the fp32 recipe's step (the precision `semantic_train` defaults
+to; one unfrozen block: kernel 3's f32 build in all 12 blocks, kernels 4-5's
+in the trained one) through the flash kernels and through einsum attention,
+each one's ms/step and peak memory, then torch.profiler over the flash step
+as in `profile`. Runs unchanged in an older checkout.
+
 `steps`: the wall time of the two bf16 flash steps alone (one unfrozen
 block, the whole backbone), with no profiler. The file runs unchanged in
 an older checkout of the port, so two commits' steps can be compared in
@@ -95,44 +101,64 @@ def steps(dev) -> None:
         _timed_state(dev, x, y, *config)
 
 
-def profile(dev) -> None:
+def _profiled(state, x, y, gen, step_ms) -> None:
+    """torch.profiler over STEPS_PROFILED steps: kernel time by group and the
+    top kernels, and the idle share against the unprofiled step."""
     from torch.autograd import DeviceType
     from .tasks.semantic_segmentation import train_step
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(STEPS_PROFILED):
+            train_step(state, x, y, gen)
+        torch.cuda.synchronize()
+    kern = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            kern[ev.name][0] += ev.device_time_total / 1e3 / STEPS_PROFILED
+            kern[ev.name][1] += 1
+    total = sum(t for t, _ in kern.values())
+    print(f"summed kernel time {total:.3f} ms/step; idle share against the unprofiled "
+          f"step {1 - total / step_ms:.3f}")
+    groups = [("kernels 3-5",
+               r"flash_fwd_lse|flash_fwd_f32|flash_bwd_d|"
+               r"flash_fwd_packed_kernel(<true>|ILb1E)"),
+              ("packed flash kernel", r"flash_fwd_packed"),
+              ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn|implicit|winograd|fft"),
+              ("gemm (cuBLAS)", r"gemm|Gemm|cutlass|Kernel2|splitK|nvjet"),
+              ("softmax", r"softmax"), ("reduce", r"reduce|Reduce"),
+              ("index/gather/scatter", r"index|gather|scatter"),
+              ("elementwise/copy", r"elementwise|vectorized|unrolled|copy|Copy|fill")]
+    by_group = defaultdict(float)
+    for name, (t, _) in kern.items():
+        group = next((g for g, pat in groups if re.search(pat, name)), "other")
+        by_group[group] += t
+    for group, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {group:24s} {t:8.3f} ms/step {t / total:6.1%}")
+    print("top kernels (ms/step, launches/step):")
+    for name, (t, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:25]:
+        print(f"  {t:8.3f} {n // STEPS_PROFILED:4d}  {name[:110]}")
+
+
+def profile(dev) -> None:
     x, y = _batch(dev)
     for precision, impl, unfrozen in BF16_STEPS + (("fp32", "flash", 1), ("fp32", "einsum", 1)):
         state, gen, step_ms = _timed_state(dev, x, y, precision, impl, unfrozen)
-        if (precision, impl) != ("bf16", "flash"):
-            continue
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(STEPS_PROFILED):
-                train_step(state, x, y, gen)
-            torch.cuda.synchronize()
-        kern = defaultdict(lambda: [0.0, 0])
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                kern[ev.name][0] += ev.device_time_total / 1e3 / STEPS_PROFILED
-                kern[ev.name][1] += 1
-        total = sum(t for t, _ in kern.values())
-        print(f"summed kernel time {total:.3f} ms/step; idle share against the unprofiled "
-              f"step {1 - total / step_ms:.3f}")
-        groups = [("kernels 3-5",
-                   r"flash_fwd_lse|flash_bwd_d|flash_fwd_packed_kernel(<true>|ILb1E)"),
-                  ("packed flash kernel", r"flash_fwd_packed"),
-                  ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn|implicit|winograd|fft"),
-                  ("gemm (cuBLAS)", r"gemm|Gemm|cutlass|Kernel2|splitK|nvjet"),
-                  ("softmax", r"softmax"), ("reduce", r"reduce|Reduce"),
-                  ("index/gather/scatter", r"index|gather|scatter"),
-                  ("elementwise/copy", r"elementwise|vectorized|unrolled|copy|Copy|fill")]
-        by_group = defaultdict(float)
-        for name, (t, _) in kern.items():
-            group = next((g for g, pat in groups if re.search(pat, name)), "other")
-            by_group[group] += t
-        for group, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
-            print(f"  {group:24s} {t:8.3f} ms/step {t / total:6.1%}")
-        print("top kernels (ms/step, launches/step):")
-        for name, (t, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:25]:
-            print(f"  {t:8.3f} {n // STEPS_PROFILED:4d}  {name[:110]}")
+        if (precision, impl) == ("bf16", "flash"):
+            _profiled(state, x, y, gen, step_ms)
+
+
+def fp32(dev) -> None:
+    x, y = _batch(dev)
+    print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
+    for impl in ("flash", "einsum"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, gen, step_ms = _timed_state(dev, x, y, "fp32", impl, 1)
+        print(f"   peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB "
+              "(from the state's creation)", flush=True)
+        if impl == "flash":
+            _profiled(state, x, y, gen, step_ms)
+        del state, gen
+        torch.cuda.empty_cache()
 
 
 def sensitivity(dev) -> None:
@@ -220,6 +246,6 @@ def determinism(dev) -> None:
 if __name__ == "__main__":
     import sys
     probes = {"sensitivity": sensitivity, "profile": profile, "steps": steps,
-              "determinism": determinism}
+              "determinism": determinism, "fp32": fp32}
     for name in sys.argv[1:] or ["sensitivity", "profile"]:
         probes[name](torch.device("cuda", 0))

@@ -7,8 +7,10 @@ runs where JAX is not installed:
 
 Tolerances: flash outputs are bf16 of magnitude <~2 (ulp 2^-7) and the
 kernel rounds p to bf16 at running maxima where the twin uses the row max:
-1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (true
-f32 on both sides, summation order differs); in bf16: 1e-2 on o and 2e-2
+1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (the
+twins are true f32; the forward and dKV kernels run split-TF32 products,
+~21 significant bits each, dQ exact f32 FMAs; summation order differs); in
+bf16: 1e-2 on o and 2e-2
 relative to the largest twin entry on the gradients (inputs and outputs are
 rounded to bf16; p and ds are f32 on both sides, the bf16 dKV and dQ
 kernels feed them to the tensor cores as a hi/lo pair); the lse is f32 in
@@ -224,6 +226,72 @@ def test_bf16_trainable_kernels_raise_on_misaligned_views(cuda):
         with pytest.raises(ValueError):
             flash_bwd_dq(ok, ok, ok, None, ok, lse, lse, bad)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("T,B", [(1, 3), (65, 3), (197, 3), (901, 4)])
+def test_f32_split_tf32_kernels_match_twins(cuda, T, B):
+    """Kernel 3's and kernel 4's split-TF32 f32 builds (and kernel 5's f32
+    build) against their twins at 1e-4, on strided views of the fused qkv,
+    with a ragged end, an all-masked batch row (exactly 0) and a masked
+    start; T=901 at b4 as phase 6 runs it. Each launch counts once in
+    `launches` and once in `f32_launches`."""
+    qkv, do, mask = _train_inputs(B, T, torch.float32, cuda, seed=300 + T)
+    q, k, v = qkv.unbind(2)
+    fns = (flash_attention_lse, flash_bwd_dkv, flash_bwd_dq)
+    before = [(f.launches, f.f32_launches) for f in fns]
+    o, lse = flash_attention_lse(q, k, v, mask)
+    dq, dk, dv = flash_backward(q, k, v, mask, o, lse, do).unbind(2)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.f32_launches) for f in fns] == [(a + 1, b + 1) for a, b in before]
+    o_ref, lse_ref = flash_attention_lse_plain(q, k, v, mask)
+    valid = mask.any(dim=1)
+    for name, got, ref in zip(("o", "lse"), (o, lse), (o_ref, lse_ref)):
+        assert (got - ref)[valid].abs().max().item() <= 1e-4, name
+    assert o[1].abs().max().item() == 0.0
+    refs = flash_backward_plain(q, k, v, mask, o, lse, do)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert (got - ref)[valid].abs().max().item() <= 1e-4, name
+        assert got[1].abs().max().item() == 0.0, name
+
+
+def test_f32_kernels_raise_on_views_tma_cannot_take(cuda):
+    """Kernel 3's and kernel 4's f32 builds read their operands by TMA: an f32
+    view (an operand, or a dKV output) whose rows are not 16-byte multiples
+    or whose data pointer is 4 bytes off raises, and nothing runs in its
+    place; kernel 5's f32 build (CUDA cores) takes any unit-stride view."""
+    shifted = torch.zeros(2 * 8 * 2 * 64 + 1, device=cuda)[1:].view(2, 8, 2, 64)
+    odd_rows = torch.zeros((2, 8, 2, 66), device=cuda)[..., :64]
+    ok = torch.zeros((2, 8, 2, 64), device=cuda)
+    lse = torch.zeros((2, 2, 8), device=cuda)
+    before = (flash_attention_lse.launches, flash_bwd_dkv.launches)
+    for bad in (shifted, odd_rows):
+        with pytest.raises(ValueError):
+            flash_attention_lse(ok, bad, ok)
+        with pytest.raises(ValueError):
+            flash_bwd_dkv(ok, ok, ok, None, bad, lse, lse)
+        with pytest.raises(ValueError):
+            flash_bwd_dkv(ok, ok, ok, None, ok, lse, lse, bad, ok)
+        flash_bwd_dq(ok, ok, ok, None, ok, lse, lse, bad)
+    torch.cuda.synchronize()
+    assert (flash_attention_lse.launches, flash_bwd_dkv.launches) == before
+
+
+def test_f32_flash_fn_matches_einsum_autograd(cuda):
+    """FlashAttentionFn in f32 on the card (kernels 3-5's f32 builds) against
+    autograd through the einsum attention on the same input: output and
+    fused qkv gradient within 1e-4 of the largest entry."""
+    from deep_spectral_tpu_torch.models.vit import attend
+    qkv, do, mask = _train_inputs(3, 197, torch.float32, cuda, seed=9)
+    grads, outs = {}, {}
+    for impl in ("flash", "einsum"):
+        a = qkv.clone().requires_grad_(True)
+        out = attend(a, mask, impl, torch.float32)[0]
+        out.backward(do)
+        outs[impl], grads[impl] = out.detach(), a.grad
+    valid = mask.any(dim=1)
+    for got, ref in ((outs["flash"], outs["einsum"]), (grads["flash"], grads["einsum"])):
+        got, ref = got[valid], ref[valid]
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 def test_block_qkv_grad_on_cuda_matches_twins(cuda):
