@@ -8,11 +8,11 @@ Phases, each of which must pass:
      `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time and
      each kernel's registers and spills (`-Xptxas -v`; the wgmma kernels
      must not spill); count the tensor-core instructions in the SASS
-     (`cuobjdump -sass` on the built library) of the six wgmma kernels:
+     (`cuobjdump -sass` on the built library) of the seven wgmma kernels:
      HGMMA in the packed flash forward, its lse-writing build, the bf16 dKV
      and dQ kernels, and TF32 HGMMA or HMMA in the split-TF32 f32 builds of
-     kernel 3 (`flash_fwd_f32.cu`) and kernel 4 (`flash_bwd_dkv_f32.cu`),
-     each count > 0;
+     kernel 3 (`flash_fwd_f32.cu`), kernel 4 (`flash_bwd_dkv_f32.cu`) and
+     kernel 5 (`flash_bwd_dq_f32.cu`), each count > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, at
      phase 9's dino_vits8 512x512 shape (b4, T=4097), at the train path's
@@ -46,14 +46,14 @@ Phases, each of which must pass:
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
      the train shape (b144, T=197, H=6, fused-qkv views) in bf16 and f32, b4
      T=901 with a ragged mask and an all-masked row in bf16 and f32, and b2
-     T=3601 f32; each f32 shape with the FMA builds of kernels 3-4 timed
+     T=3601 f32; each f32 shape with the FMA builds of kernels 3-5 timed
      beside the split-TF32 ones;
      in bf16 also the dKV and dQ kernels' hi/lo precision (`hi_lo_reading`:
      the share of dk and dv entries on valid keys, and of dq entries in
      batch rows with a valid key, not bit-equal to the twin, at most
      DKV_SHARE_MAX and DQ_SHARE_MAX); at the train shape also the dKV and dQ
-     kernels' grids and shared memory (in f32 those of the split-TF32
-     forward and dKV), their bounds and SDPA's forward (inputs that need a
+     kernels' grids and shared memory (in f32 also the split-TF32
+     forward's), their bounds and SDPA's forward (inputs that need a
      gradient) and backward (dq, dk and dv together) as yardsticks, in each
      dtype;
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
@@ -397,10 +397,11 @@ WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>
                  "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel",
                  "flash_fwd_f32_kernel": "flash_fwd_f32_kernel",
-                 "flash_bwd_dkv_f32_kernel": "flash_bwd_dkv_f32_kernel"}
+                 "flash_bwd_dkv_f32_kernel": "flash_bwd_dkv_f32_kernel",
+                 "flash_bwd_dq_f32_kernel": "flash_bwd_dq_f32_kernel"}
 # the split-TF32 kernels among them: their tensor-core instructions must be TF32
 # ones (HGMMA or HMMA with TF32 operands)
-TF32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel")
+TF32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 
 
 def _kernel_label(line: str) -> str:
@@ -1423,19 +1424,19 @@ def phase_train_kernels(dev) -> dict:
              "dq": cuda_ms(lambda: flash_bwd_dq(q, k, v, mask, do, lse, di)),
              "bwd_plain": cuda_ms(lambda: _backward_plain(q, k, v, mask, lse, do, di))}
         fma = ""
-        if f32:  # the CUDA-core builds the split-TF32 kernels replaced (dq is one)
-            fwd_fma, dkv_fma, _ = fma_calls(q, k, v, mask, do, lse, di)
-            t.update(fwd_fma=cuda_ms(fwd_fma), dkv_fma=cuda_ms(dkv_fma))
-            fma = f"; the FMA builds: fwd {t['fwd_fma']}, dkv {t['dkv_fma']} (dq is its FMA build)"
+        if f32:  # the CUDA-core builds the split-TF32 kernels replaced
+            fwd_fma, dkv_fma, dq_fma = fma_calls(q, k, v, mask, do, lse, di)
+            t.update(fwd_fma=cuda_ms(fwd_fma), dkv_fma=cuda_ms(dkv_fma), dq_fma=cuda_ms(dq_fma))
+            fma = (f"; the FMA builds: fwd {t['fwd_fma']}, dkv {t['dkv_fma']}, "
+                   f"dq {t['dq_fma']}")
         log(f"[6] b{b} T={T} H=6 hd=64 {str(dtype)[6:]} ragged={ragged}: max |kernel - twin| "
             + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items())
             + f"; {TIMING}: fwd {t['fwd']} vs twin {t['fwd_plain']}, dkv {t['dkv']} + dq "
               f"{t['dq']} vs twin backward {t['bwd_plain']}" + fma)
         if (b, T) == (TRAIN_B, 197):
-            shapes = (("fwd", "dss_flash_fwd_lse_f32_shape"),
-                      ("dkv", "dss_flash_bwd_dkv_f32_shape")) if f32 else \
-                (("dkv", "dss_flash_bwd_dkv_bf16_shape"), ("dq", "dss_flash_bwd_dq_bf16_shape"))
-            for name, fn in shapes:
+            shapes = (("fwd", "dss_flash_fwd_lse_f32_shape"),) if f32 else ()
+            for name, fn in shapes + tuple((n, f"dss_flash_bwd_{n}_{tag}_shape")
+                                           for n in ("dkv", "dq")):
                 gx, gy, gz, threads, smem = launch_shape(fn, b, T, 6)
                 log(f"[6] {tag} {name} grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of "
                     f"{threads} threads, {smem} B of dynamic shared memory")
@@ -1659,14 +1660,16 @@ def phase_train(dev) -> dict:
 
 @contextlib.contextmanager
 def fma_builds_on_the_card():
-    """Route the f32 forward and dK/dV wrappers to the CUDA-core FMA builds
-    the split-TF32 kernels replaced (exact f32 products; `_fma` entry points):
-    7d's control of how far the step moves under an f32 rounding change."""
+    """Route the f32 forward, dK/dV and dQ wrappers to the CUDA-core FMA
+    builds the split-TF32 kernels replaced (exact f32 products; `_fma` entry
+    points): 7d's control of how far the step moves under an f32 rounding
+    change."""
     from deep_spectral_tpu_torch import _build
     from deep_spectral_tpu_torch.probe_dkv import _WithControls
     lib = _build.load()
     _build._lib = _WithControls(lib, {name: getattr(lib, f"{name}_fma") for name in
-                                      ("dss_flash_fwd_lse_f32", "dss_flash_bwd_dkv_f32")})
+                                      ("dss_flash_fwd_lse_f32", "dss_flash_bwd_dkv_f32",
+                                       "dss_flash_bwd_dq_f32")})
     try:
         yield
     finally:
@@ -3096,7 +3099,7 @@ def main(argv: list) -> int:
           **train_kernels[f"{name}_f32"]}
          for name, source, line in (("flash_attention_lse", "flash_fwd_f32.cu", 64),
                                     ("flash_bwd_dkv", "flash_bwd_dkv_f32.cu", 112),
-                                    ("flash_bwd_dq", "flash_attn_train.cu", 156))]
+                                    ("flash_bwd_dq", "flash_bwd_dq_f32.cu", 156))]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,8 @@ _SIGNATURES = {
     "dss_flash_bwd_dkv_bf16_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dq; B, T, H; strides; scale; stream
     "dss_flash_bwd_dq_f32": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dq_f32_fma": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
+    "dss_flash_bwd_dq_f32_shape": [_I, _I, _I, _IP],
     "dss_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
     "dss_flash_bwd_dq_bf16_shape": [_I, _I, _I, _IP],
 }

@@ -1,10 +1,10 @@
 // Differentiable masked flash attention on the CUDA cores (sm_90a), f32 only:
 // the forward that also writes the row log-sum-exp, and the two backward
-// kernels, as exact f32 FMAs. The f32 dQ kernel here is the port's f32 route
-// of kernel 5. The forward and dKV kernels are kept as the yardstick of their
+// kernels, as exact f32 FMAs. All three are kept as the yardstick of their
 // split-TF32 tensor-core builds (flash_fwd_f32.cu, flash_bwd_dkv_f32.cu,
-// which the wrappers route f32 to): `dss_flash_fwd_lse_f32_fma` and
-// `dss_flash_bwd_dkv_f32_fma` are called by chip_smoke.py and probe_f32
+// flash_bwd_dq_f32.cu, which the wrappers route f32 to):
+// `dss_flash_fwd_lse_f32_fma`, `dss_flash_bwd_dkv_f32_fma` and
+// `dss_flash_bwd_dq_f32_fma` are called by chip_smoke.py and probe_f32
 // only. (The bf16 builds of all three run on tensor cores: flash_fwd.cu's
 // WRITE_LSE build, flash_bwd_dkv.cu and flash_bwd_dq.cu.)
 //
@@ -418,10 +418,11 @@ extern "C" int dss_flash_bwd_dkv_f32_fma(const void* q, const void* k, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dss_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
-                                    const void* kv_mask, const void* dout, const void* lse,
-                                    const void* di, void* dq, int B, int T, int H,
-                                    const long long* strides, float scale, void* stream) {
+extern "C" int dss_flash_bwd_dq_f32_fma(const void* q, const void* k, const void* v,
+                                        const void* kv_mask, const void* dout,
+                                        const void* lse, const void* di, void* dq, int B,
+                                        int T, int H, const long long* strides, float scale,
+                                        void* stream) {
   const int smem = 5 * TILE * sizeof(float);
   if (int err = launch_config(flash_bwd_dq_kernel, smem)) return err;
   const dim3 grid((T + BT - 1) / BT, H, B);

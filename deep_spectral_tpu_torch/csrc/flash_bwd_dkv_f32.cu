@@ -72,76 +72,9 @@ constexpr int KV_BYTES = BKV * HD * 4;     // 32 KB: two 16 KB halves of hd
 constexpr int Q_BYTES = BQ * HD * 4;       // 8 KB: two 4 KB halves of hd
 constexpr int STAGE_BYTES = 4 * Q_BYTES;   // Q hi, Q lo, dO hi, dO lo
 constexpr int STATS_BYTES = 2 * BQ * 4;    // lse and di of one q tile
+static_assert(Q_BYTES / 2 == X_HALF, "mma_acc reads Q and dO tiles of 32 rows");
 constexpr int SMEM_BYTES = 1024 /* alignment slack */ + 4 * KV_BYTES +
                            STAGES * (STAGE_BYTES + STATS_BYTES) + 8 * (3 * STAGES + 1);
-
-// D(64 x 32, f32) (+)= A(64 x 8) B(8 x 32), tf32, both K-major in
-// 128B-swizzled shared memory; scale_d == 0 overwrites D.
-__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
-                                               int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-      ", %16, %17, p, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// D(16 x 8) += A(16 x 8) B(8 x 8), tf32, f32 accumulate: a as split_a's
-// fragments (rows g, g + 8; k positions t, t + 4), b0/b1 at k positions t,
-// t + 4 of column g; d at rows g, g + 8, columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_tf32(float* d, const float (&a)[4], float b0, float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(__float_as_uint(a[0])), "r"(__float_as_uint(a[1])), "r"(__float_as_uint(a[2])),
-        "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
-// acc (16 keys x 64 hd of this warp) += A (16 x 32 q: 4 k-steps of split
-// fragments) X (32 q x 64 hd, hi and lo tiles as TMA laid them out). k-step
-// kk's k positions t and t + 4 are q rows 8kk + 2t and 8kk + 2t + 1.
-__device__ __forceinline__ void mma_acc(float (&acc)[32], const float (&a_hi)[4][4],
-                                        const float (&a_lo)[4][4], const uint8_t* x_hi,
-                                        const uint8_t* x_lo, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int r0 = 8 * kk + 2 * t;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = j * 8 + g;  // hd column
-      const int o0 = (col >> 5) * (Q_BYTES / 2) + swz(r0, (col & 31) * 4);
-      const int o1 = (col >> 5) * (Q_BYTES / 2) + swz(r0 + 1, (col & 31) * 4);
-      const float h0 = *reinterpret_cast<const float*>(x_hi + o0);
-      const float h1 = *reinterpret_cast<const float*>(x_hi + o1);
-      const float l0 = *reinterpret_cast<const float*>(x_lo + o0);
-      const float l1 = *reinterpret_cast<const float*>(x_lo + o1);
-      mma_tf32(&acc[4 * j], a_hi[kk], h0, h1);
-      mma_tf32(&acc[4 * j], a_hi[kk], l0, l1);
-      mma_tf32(&acc[4 * j], a_lo[kk], h0, h1);
-    }
-  }
-}
-
-// 16 accumulator fragments (64 x 32 per warpgroup) as 4 k-steps of hi and lo
-// A fragments (split_a's order, for a 32-column tile).
-__device__ __forceinline__ void split_a16(const float (&x)[16], float (&hi)[4][4],
-                                          float (&lo)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    split_tf32(x[4 * j + 0], hi[j][0], lo[j][0]);
-    split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);
-    split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);
-    split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,   // boxes of BQ rows

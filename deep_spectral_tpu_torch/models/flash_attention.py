@@ -15,9 +15,9 @@ raises.
   * `flash_bwd_dkv` (the port of `_flash_bwd_dkv_kernel`; bf16
     `csrc/flash_bwd_dkv.cu`, f32 `csrc/flash_bwd_dkv_f32.cu`, split-TF32 on
     wgmma and mma.sync) and `flash_bwd_dq` (`_flash_bwd_dq_kernel`; bf16
-    `csrc/flash_bwd_dq.cu` on wgmma + TMA, f32 `csrc/flash_attn_train.cu` on
-    the CUDA cores), run together by `flash_backward`; twin
-    `flash_backward_plain`.
+    `csrc/flash_bwd_dq.cu` on wgmma + TMA, f32 `csrc/flash_bwd_dq_f32.cu`,
+    split-TF32 on wgmma and mma.sync), run together by `flash_backward`;
+    twin `flash_backward_plain`.
 Each wrapper's `launches` counts its launches in both dtypes,
 `f32_launches` those of its f32 build.
 `FlashAttentionFn` is the autograd function over them (the port of
@@ -309,18 +309,20 @@ def _bwd_operands(q, k, v, kv_mask, do, lse, di):
 def _launch_bwd(kernel: str, q, k, v, mask, do, lse, di, outs: dict, dev) -> None:
     """Kernel 4 (`kernel` "dkv") or 5 ("dq") on checked operands, writing
     the `outs` views: bf16 on wgmma + TMA (`csrc/flash_bwd_{kernel}.cu`), f32
-    dkv on split-TF32 wgmma and mma.sync fed by TMA
-    (`csrc/flash_bwd_dkv_f32.cu`); these need every operand's strides but
-    hd's a multiple of 16 bytes and 16-byte aligned data pointers. f32 dq
-    runs on the CUDA cores (`csrc/flash_attn_train.cu`), which need unit
-    stride on hd only."""
+    on split-TF32 wgmma and mma.sync fed by TMA
+    (`csrc/flash_bwd_{kernel}_f32.cu`). All need q, k, v and do's strides but
+    hd's a multiple of 16 bytes and 16-byte aligned data pointers, and so do
+    the outputs but f32 dq, which is written with scalar stores and needs
+    unit stride on hd only."""
     from .. import _build
     B, T, H, hd = q.shape
     _check_train_args({"q": q, **outs}, None, B, T, H)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 or kernel == "dkv":
-        for name, x in {"q": q, "k": k, "v": v, "do": do, **outs}.items():
-            _check_tma(x, name, (B, T, H, hd), q.dtype)
+    tma = {"q": q, "k": k, "v": v, "do": do}
+    if bf16 or kernel == "dkv":  # f32 dq is written with scalar stores
+        tma.update(outs)
+    for name, x in tma.items():
+        _check_tma(x, name, (B, T, H, hd), q.dtype)
     launch = getattr(_build.load(), f"dss_flash_bwd_{kernel}_{'bf16' if bf16 else 'f32'}")
     out = list(outs.values())
     with torch.cuda.device(dev):
@@ -360,9 +362,12 @@ flash_bwd_dkv.launches = flash_bwd_dkv.f32_launches = 0
 def flash_bwd_dq(q, k, v, kv_mask, do, lse, di, dq=None):
     """dq of masked flash attention (see `flash_bwd_dkv`). CPU tensors: the
     plain twin. CUDA tensors: kernel 5, writing into `dq` when given; bf16
-    runs it on wgmma + TMA (`csrc/flash_bwd_dq.cu`, with the same stride and
-    alignment needs as kernel 4's), f32 on the CUDA cores
-    (`csrc/flash_attn_train.cu`). `flash_bwd_dq.launches` counts launches,
+    runs it on wgmma + TMA (`csrc/flash_bwd_dq.cu`), f32 on split-TF32 wgmma
+    and mma.sync fed by TMA (`csrc/flash_bwd_dq_f32.cu`); both need q, k, v
+    and do's strides but hd's a multiple of 16 bytes and 16-byte aligned
+    data pointers, as kernel 4 does, and raise otherwise. The bf16 build
+    writes `dq` by the same rules; the f32 build takes any `dq` view with
+    unit stride on hd. `flash_bwd_dq.launches` counts launches,
     `flash_bwd_dq.f32_launches` those of the f32 build."""
     if not q.is_cuda:
         return _backward_plain(q, k, v, kv_mask, lse, do, di)[0]

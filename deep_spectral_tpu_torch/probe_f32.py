@@ -37,7 +37,8 @@ F32_SHAPES = [(144, 197, False, True), (1, 901, False, False), (1, 601, False, F
               (1, 8465, False, False), (4, 901, True, True), (2, 3601, True, True)]
 # the split-TF32 entry points and their single-pass-TF32 control builds
 CONTROLS = {"dss_flash_fwd_lse_f32": ("flash_fwd_f32.cu", "DSS_F32_SINGLE_TF32"),
-            "dss_flash_bwd_dkv_f32": ("flash_bwd_dkv_f32.cu", "DSS_F32_SINGLE_TF32")}
+            "dss_flash_bwd_dkv_f32": ("flash_bwd_dkv_f32.cu", "DSS_F32_SINGLE_TF32"),
+            "dss_flash_bwd_dq_f32": ("flash_bwd_dq_f32.cu", "DSS_F32_SINGLE_TF32")}
 
 
 def _fma(lib, name: str):
@@ -190,13 +191,15 @@ def control(dev) -> None:
             try:
                 o, lse = fa.flash_attention_lse(q, k, v, mask)
                 dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse_ref, di)
+                dq = fa.flash_bwd_dq(q, k, v, mask, do, lse_ref, di)
             finally:
                 _build._lib = lib
             torch.cuda.synchronize()
             errs = {"o": (o - o_ref).abs().max().item(),
                     "lse": (lse - lse_ref).abs().max().item(),
                     "dk": (dk - refs[1]).abs().max().item(),
-                    "dv": (dv - refs[2]).abs().max().item()}
+                    "dv": (dv - refs[2]).abs().max().item(),
+                    "dq": (dq - refs[0]).abs().max().item()}
             print(f"b{b} T={T} f32 ragged={ragged}, {build}: max |kernel - twin| "
                   + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
                   + f" (F32_TOL {C.F32_TOL})", flush=True)

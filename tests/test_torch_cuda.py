@@ -8,8 +8,8 @@ runs where JAX is not installed:
 Tolerances: flash outputs are bf16 of magnitude <~2 (ulp 2^-7) and the
 kernel rounds p to bf16 at running maxima where the twin uses the row max:
 1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (the
-twins are true f32; the forward and dKV kernels run split-TF32 products,
-~21 significant bits each, dQ exact f32 FMAs; summation order differs); in
+twins are true f32; the three kernels run split-TF32 products, ~21
+significant bits each; summation order differs); in
 bf16: 1e-2 on o and 2e-2
 relative to the largest twin entry on the gradients (inputs and outputs are
 rounded to bf16; p and ds are f32 on both sides, the bf16 dKV and dQ
@@ -230,8 +230,8 @@ def test_bf16_trainable_kernels_raise_on_misaligned_views(cuda):
 
 @pytest.mark.parametrize("T,B", [(1, 3), (65, 3), (197, 3), (901, 4)])
 def test_f32_split_tf32_kernels_match_twins(cuda, T, B):
-    """Kernel 3's and kernel 4's split-TF32 f32 builds (and kernel 5's f32
-    build) against their twins at 1e-4, on strided views of the fused qkv,
+    """Kernels 3-5's split-TF32 f32 builds against their twins at 1e-4, on
+    strided views of the fused qkv,
     with a ragged end, an all-masked batch row (exactly 0) and a masked
     start; T=901 at b4 as phase 6 runs it. Each launch counts once in
     `launches` and once in `f32_launches`."""
@@ -255,15 +255,15 @@ def test_f32_split_tf32_kernels_match_twins(cuda, T, B):
 
 
 def test_f32_kernels_raise_on_views_tma_cannot_take(cuda):
-    """Kernel 3's and kernel 4's f32 builds read their operands by TMA: an f32
-    view (an operand, or a dKV output) whose rows are not 16-byte multiples
-    or whose data pointer is 4 bytes off raises, and nothing runs in its
-    place; kernel 5's f32 build (CUDA cores) takes any unit-stride view."""
+    """Kernels 3-5's f32 builds read their operands by TMA: an f32 view (an
+    operand, or a dKV output) whose rows are not 16-byte multiples or whose
+    data pointer is 4 bytes off raises, and nothing runs in its place; dQ's
+    f32 build writes dq with scalar stores, so a dq view like that runs."""
     shifted = torch.zeros(2 * 8 * 2 * 64 + 1, device=cuda)[1:].view(2, 8, 2, 64)
     odd_rows = torch.zeros((2, 8, 2, 66), device=cuda)[..., :64]
     ok = torch.zeros((2, 8, 2, 64), device=cuda)
     lse = torch.zeros((2, 2, 8), device=cuda)
-    before = (flash_attention_lse.launches, flash_bwd_dkv.launches)
+    before = (flash_attention_lse.launches, flash_bwd_dkv.launches, flash_bwd_dq.launches)
     for bad in (shifted, odd_rows):
         with pytest.raises(ValueError):
             flash_attention_lse(ok, bad, ok)
@@ -271,9 +271,15 @@ def test_f32_kernels_raise_on_views_tma_cannot_take(cuda):
             flash_bwd_dkv(ok, ok, ok, None, bad, lse, lse)
         with pytest.raises(ValueError):
             flash_bwd_dkv(ok, ok, ok, None, ok, lse, lse, bad, ok)
-        flash_bwd_dq(ok, ok, ok, None, ok, lse, lse, bad)
+        with pytest.raises(ValueError):
+            flash_bwd_dq(ok, bad, ok, None, ok, lse, lse)
+        with pytest.raises(ValueError):
+            flash_bwd_dq(ok, ok, ok, None, bad, lse, lse)
+        assert flash_bwd_dq(ok, ok, ok, None, ok, lse, lse, bad) is bad
     torch.cuda.synchronize()
-    assert (flash_attention_lse.launches, flash_bwd_dkv.launches) == before
+    assert (flash_attention_lse.launches, flash_bwd_dkv.launches,
+            flash_bwd_dq.launches) == (before[0], before[1], before[2] + 2)
+    assert shifted.abs().max().item() == 0.0 and odd_rows.abs().max().item() == 0.0
 
 
 def test_f32_flash_fn_matches_einsum_autograd(cuda):

@@ -1,16 +1,17 @@
 """The arithmetic of the port's split-TF32 flash kernels (kernel 3's f32 build,
-`csrc/flash_fwd_f32.cu`, and kernel 4's, `csrc/flash_bwd_dkv_f32.cu`),
-rendered in torch and held against the JAX package's Pallas kernels in
-interpret mode. (The CUDA kernels against their twins on the card:
-tests/test_torch_cuda.py.)
+`csrc/flash_fwd_f32.cu`, kernel 4's, `csrc/flash_bwd_dkv_f32.cu`, and
+kernel 5's, `csrc/flash_bwd_dq_f32.cu`), rendered in torch and held against
+the JAX package's Pallas kernels in interpret mode. (The CUDA kernels against
+their twins on the card: tests/test_torch_cuda.py.)
 
 Each f32 product in those kernels runs as three TF32 tensor-core products,
 a_hi b_hi + a_hi b_lo + a_lo b_hi with x_hi = tf32(x) and x_lo = tf32(x -
 x_hi), both rounded to nearest with ties away from zero (cvt.rna.tf32.f32);
 `_tf32` below is that rounding, bit for bit. The renderings keep the
 kernels' tile order (kernel 3: key tiles of 64 in the online softmax;
-kernel 4: q tiles of 32) and hold o and lse within 1e-5 and dk, dv within
-1e-5 of the largest Pallas entry: three TF32 products keep ~21 significant
+kernel 4: q tiles of 32; kernel 5: key tiles of 32) and hold o and lse
+within 1e-5 and dk, dv, dq within 1e-5 of the largest Pallas entry: three
+TF32 products keep ~21 significant
 bits of each product, the rest is f32 summation order. One TF32 product of
 the rounded operands (the single-pass control) keeps ~11 bits and misses
 those tolerances; each test prints both errors.
@@ -27,6 +28,7 @@ from deep_spectral_tpu_torch.models.flash_attention import (
 MASK = -0.7 * float(np.finfo(np.float32).max)
 KEY_TILE = 64     # kernel 3's key tile
 Q_TILE = 32       # kernel 4's streamed q tile
+DQ_KEY_TILE = 32  # kernel 5's streamed key tile
 TOL = 1e-5
 
 
@@ -101,6 +103,24 @@ def _kernel4_f32(q, k, v, do, mask, lse, di, split=True):
         dv += _mm(pT, doh[:, :, rows], split)
         dk += _mm(dsT, qh[:, :, rows], split)
     return (dk * scale).permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+def _kernel5_f32(q, k, v, do, mask, lse, di, split=True):
+    """Kernel 5's f32 build, q rows on the rows: per key tile of 32, S = Q K^T
+    and dP = dO V^T as split products, P = select(key valid, exp(S scale -
+    lse), 0), dS = P (dP - di), then dQ += dS K as a split product; dq scaled
+    at the end. All (B, T, H, hd) f32 but mask (B, T) and lse, di (B, H, T)."""
+    B, T, H, hd = q.shape
+    scale = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32)
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    dq = torch.zeros((B, H, T, hd))
+    for k0 in range(0, T, DQ_KEY_TILE):
+        keys = slice(k0, k0 + DQ_KEY_TILE)
+        s = _mm(qh, kh[:, :, keys].transpose(-1, -2), split)
+        dp = _mm(doh, vh[:, :, keys].transpose(-1, -2), split)
+        p = torch.where(mask[:, None, None, keys], torch.exp(s * scale - lse[..., None]), 0.0)
+        dq += _mm(p * (dp - di[..., None]), kh[:, :, keys], split)
+    return (dq * scale).permute(0, 2, 1, 3)
 
 
 def _inputs(T, seed):
@@ -181,6 +201,38 @@ def test_kernel4_split_tf32_matches_pallas(T):
     assert not dk[1].any() and not dv[1].any()
 
 
+@pytest.mark.parametrize("T", [1, 63, 65, 197])
+def test_kernel5_split_tf32_matches_pallas(T):
+    """dq, fed the kernel-3 rendering's lse and di = rowsum(o do) of the
+    Pallas o, within 1e-5 of the largest Pallas entry on batch rows with a
+    valid key (at T = 1, where dq is mathematically 0, within 1e-6 of 0 in
+    the rendering and in Pallas alike); the all-masked row exactly 0; the
+    single-pass control misses 1e-5 (at T = 1 in absolute terms)."""
+    q, k, v, do, mask = _inputs(T, seed=200 + T)
+    jq, jk, jv, jdo = (_bhtd(x) for x in (q, k, v, do))
+    jm = jnp.asarray(mask.numpy())
+    o, lse_j = _flash_forward(jq, jk, jv, jm, interpret=True, save_residuals=True)
+    dq_ref = np.asarray(_flash_backward(jq, jk, jv, jm, o, lse_j, jdo, interpret=True)[0])
+    dq_ref = dq_ref.transpose(0, 2, 1, 3)
+    o = torch.from_numpy(np.array(o)).permute(0, 2, 1, 3)
+    di = (o * do).sum(-1).permute(0, 2, 1)
+    lse = _kernel3_f32(q, k, v, mask)[1]
+    valid = mask.any(dim=1).numpy()
+    # at T = 1 the reference is 0 up to rounding: the errors are absolute there
+    norm = 1.0 if T == 1 else np.abs(dq_ref[valid]).max()
+    got = {split: _kernel5_f32(q, k, v, do, mask, lse, di, split) for split in (True, False)}
+    errs = {split: np.abs(g.numpy()[valid] - dq_ref[valid]).max() / norm
+            for split, g in got.items()}
+    print(f"T={T}: max |emulated - Pallas| dq / {'1' if T == 1 else 'max |Pallas|'}: "
+          f"split TF32 {errs[True]:.3e}; single-pass TF32 {errs[False]:.3e}")
+    if T == 1:
+        # a softmax over one key has no gradient in its score: dq is 0 up to
+        # the rounding of dp - di, in the rendering and in Pallas alike
+        assert np.abs(got[True].numpy()).max() <= 1e-6 and np.abs(dq_ref).max() <= 1e-6
+    assert errs[True] <= TOL and errs[False] > TOL, errs
+    assert not got[True][1].any()
+
+
 def test_tf32_split_properties():
     """hi keeps at most 10 mantissa bits, ties round away from zero, and
     |hi + lo - x| <= 2^-21 |x| (in f64) over normal f32 values of every
@@ -228,6 +280,27 @@ def test_f32_launch_counts_skip_the_cpu():
     flash_bwd_dq(q, k, v, mask, do, lse, di)
     assert [(f.launches, f.f32_launches) for f in (flash_attention_lse, flash_bwd_dkv,
                                                    flash_bwd_dq)] == before
+
+
+def test_entry_points_match_their_sources():
+    """Every C entry point the kernel library binds (`_build._SIGNATURES`)
+    is defined in exactly one `csrc/*.cu` with as many parameters as its
+    ctypes argtypes, and each single-pass-TF32 control's source defines its
+    entry point and reads its define: a wrong name or argument count would
+    show only on the card."""
+    import re
+    from deep_spectral_tpu_torch import _build
+    from deep_spectral_tpu_torch.probe_f32 import CONTROLS
+    sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
+    for name, argtypes in _build._SIGNATURES.items():
+        defs = [(src, m.group(1)) for src, text in sources.items() for m in
+                re.finditer(rf'extern "C" int {name}\(([^)]*)\)\s*{{', text)]
+        assert len(defs) == 1, (name, [src for src, _ in defs])
+        assert len(defs[0][1].split(",")) == len(argtypes), name
+    for name, (source, define) in CONTROLS.items():
+        assert f'extern "C" int {name}(' in sources[source], name
+        assert '#include "tf32.cuh"' in sources[source]
+        assert f"#ifdef {define}" in (_build.CSRC / "tf32.cuh").read_text()
 
 
 @pytest.fixture(scope="module", autouse=True)
