@@ -34,12 +34,24 @@ Phases, each of which must pass:
      b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23), and
      phase 10's stage-2 buckets (b4, N=1024 and 640), with the step kernel's
      grid (more than one CTA per image) and shared memory and the chain's
-     bound (no PyTorch call computes it);
+     bound; at each shape the JAX package's XLA chain (`degree` cuBLAS
+     products of bf16 operands with an f32 result, and the rescale passes;
+     `ops.eigen.chebyshev_filter_chain`) held to the twin and timed as a
+     CUDA graph (its device work; the eager time, bound by the host's
+     enqueue of ~100 launches, is logged beside it), the graph's time at
+     b24 N=900 m=8 degree 10 the kernel's `library_ms`, and recorded, the
+     chain on the f32 operator at b24 N=900 and b2 N=3600;
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
      graph converges); both kernels' launch counts must be > 0, every residual
      <= CHEB_RESIDUAL_TOL, and the eigenpairs must agree with dense eigh;
+     then (4b) that solve through each filter request, 'auto' (the
+     kernel), 'xla' (the XLA chain) and f32 matvecs (through
+     `_laplacian_eigs_batched` on the same affinity), each with the eigh
+     guard held to the same dense-eigh gates, timed per batch beside the
+     others with its guard's re-solves counted, the kernel launching
+     under 'auto' alone;
   5. stages 1-2 through `python -m deep_spectral_tpu_torch.pipeline` on six
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
@@ -90,7 +102,9 @@ Phases, each of which must pass:
      (`image_downsample_factor` 8, N=3600) plus lambda times `knn_affinity`
      of blob images, through the filter kernel, within the same gates;
      (c) recorded, not gated: the guard's re-solves at K=20 on phase 4's
-     features, and the N=3600 solve through 'chebyshev' and 'lobpcg';
+     features, and the N=3600 solve through 'chebyshev' (the kernel, and
+     the XLA chain, which the 'auto' solver would not take above N=2048)
+     and 'lobpcg';
  10. localization on a synthetic VOC tree (480x480 and 320x480 blob images,
      the blob as the GT box), in this process: stages 1-2
      (`extract_features`, `extract_eigs` with the color-fused graph), then
@@ -177,8 +191,10 @@ warm-up call.
 Then it prints one JSON line with each kernel's launches, error, times, bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its flops over the
 card's peak: bf16 tensor cores, or for f32 three TF32 products a flop,
-`bound_by` naming which) and library time (`library_ms`, null where no
-PyTorch call computes the function); kernels 3-5's f32 builds are entries of
+`bound_by` naming which) and library time (`library_ms`: SDPA for the
+attention kernels; for the filter the XLA chain, `degree` cuBLAS calls and
+the rescale passes replayed as one CUDA graph, since no one PyTorch call
+computes it); kernels 3-5's f32 builds are entries of
 their own (`*_f32`, launches by path from the wrappers' `f32_launches`, the
 replaced FMA build's time as `fma_ms`), the card's
 name and power limit, and, last, {"ok": true, "device": {...}}.
@@ -587,6 +603,8 @@ def phase_cheb(dev) -> dict:
     import torch
     from deep_spectral_tpu_torch.ops.cheb_filter import (
         chebyshev_filter, chebyshev_filter_plain)
+    from deep_spectral_tpu_torch.ops.eigen import chebyshev_filter_chain
+    from deep_spectral_tpu_torch.utils.precision import exact_f32
     g = torch.Generator().manual_seed(2)
     worst, main = 0.0, None
     # (batch, N, degree, window, block m): the main path's two windows, then
@@ -611,8 +629,24 @@ def phase_cheb(dev) -> dict:
         if not np.isfinite(err) or err > CHEB_TOL:
             raise AssertionError(f"cheb kernel disagrees with its twin: {err}")
         worst = max(worst, err)
+        # the JAX package's XLA chain: degree cuBLAS products (bf16 operands,
+        # f32 result) and the rescale passes; not a kernel of the port. Its
+        # ~100 small launches a call queue slower on the host than the card
+        # runs them, so it is timed as a CUDA graph (the library's device
+        # work), and eagerly as a note.
+        chain_err = (chebyshev_filter_chain(S, X, c, e, degree) - ref).abs().max().item()
+        cg, eg = (torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1).expand(b)
+                  for v in (c, e))
+        graph, g_out = graphed(lambda: chebyshev_filter_chain(S, X, cg, eg, degree))
+        graph.replay()
+        chain_err = max(chain_err, (g_out - ref).abs().max().item())
+        if not np.isfinite(chain_err) or chain_err > CHEB_TOL:
+            raise AssertionError(f"the XLA chain disagrees with the twin: {chain_err}")
         times = (cuda_ms(lambda: chebyshev_filter(S, X, c, e, degree)),
-                 cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)))
+                 cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)),
+                 cuda_ms(graph.replay),
+                 cuda_ms(lambda: chebyshev_filter_chain(S, X, c, e, degree)))
+        del graph, g_out
         # S read once, X read and the result written once; degree products
         # of 2 N^2 m flops each on the bf16 tensor cores
         bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * m, PEAK_BF16)
@@ -622,11 +656,28 @@ def phase_cheb(dev) -> dict:
             f"({TIMING}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
             f"{bd['bound_ms'] / times[0].ms:.1%} of it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
             f"threads, {smem} B of static shared memory, {degree} step launches + 1 "
-            f"rescale pass")
+            f"rescale pass; XLA chain (cuBLAS bf16 products) as a CUDA graph {times[2]} "
+            f"({GRAPH_TIMING}), {times[2].ms / times[0].ms:.2f}x the kernel, eager "
+            f"{times[3]}, {times[3].ms / times[0].ms:.2f}x; max |chain - twin| "
+            f"{chain_err:.3e} (tol {CHEB_TOL})")
         if gx * gy <= 1 and N >= 900:
             raise AssertionError("the filter runs one CTA per image")
         if (b, N, degree, m) == (B, 900, 10, 8):
-            main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": None, **bd}
+            main = {"ms": times[0].ms, "plain_ms": times[1].ms,
+                    "library_ms": times[2].ms, **bd}
+        if window == "per-image" and m == 8 and (b, N) in ((B, 900), (2, 3600)):
+            # recorded: the chain on the f32 operator in true f32
+            S32 = S.float()
+            with exact_f32():
+                diff = (chebyshev_filter_chain(S32, X, c, e, degree) - ref).abs().max().item()
+                t32 = cuda_ms(lambda: chebyshev_filter_chain(S32, X, c, e, degree))
+                graph, _ = graphed(lambda: chebyshev_filter_chain(S32, X, cg, eg, degree))
+                g32 = cuda_ms(graph.replay)
+            log(f"[3] recorded: XLA chain on the f32 operator (true f32) b{b} N={N} m={m} "
+                f"degree={degree}: as a CUDA graph {g32}, {g32.ms / times[0].ms:.2f}x the "
+                f"kernel; eager {t32} ({TIMING}), {t32.ms / times[0].ms:.2f}x; "
+                f"max |f32 chain - bf16 twin| {diff:.3e}")
+            del S32, graph
     return {"max_abs_err": worst, **main}
 
 
@@ -718,7 +769,73 @@ def phase_main_path(dev) -> dict:
         raise AssertionError("main-path eigenpairs disagree with dense eigh")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    filter_routes(feats, mask, ev_d, vec_d)
     return launches
+
+
+def filter_routes(feats, mask, ev_d, vec_d) -> None:
+    """Phase 4's solve on phase 4's features through each filter request:
+    'auto' (the kernel) and 'xla' (the JAX package's chain of cuBLAS
+    products) through stage 2's `spectral_decompose_batched`, and f32
+    matvecs (the chain on the f32 operator) through `_laplacian_eigs_batched`
+    on the affinity stage 2 builds, since the batched call takes no
+    `matvec_precision`, as in the JAX package. Each with its guard's
+    re-solves and the filter chains one solve runs (its outer iterations),
+    held to the first images' dense eigh as phase 4 is, and timed per
+    batch; the kernel must launch under 'auto' alone."""
+    import torch
+    from deep_spectral_tpu_torch.ops import eigen
+    from deep_spectral_tpu_torch.ops.affinity import feature_affinity
+    from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
+    N, n = feats.shape[1], len(ev_d)
+    chain, chains = eigen.chebyshev_filter_chain, []
+
+    def counted(*a, **kw):
+        chains.append(1)
+        return chain(*a, **kw)
+
+    def solver(filter_impl, precision):
+        if precision == "bf16":
+            return lambda **kw: eigen.spectral_decompose_batched(
+                feats, mask, K=K, cheb_filter_impl=filter_impl, **kw)
+
+        def per_graph(**kw):
+            W = feature_affinity(feats, max_normalize=False, mask=mask)
+            w_scale = 1.0 / torch.clamp_min(W.amax(dim=(-2, -1)), 1e-12)
+            return eigen._laplacian_eigs_batched(
+                W, K, mask=mask, w_scale=w_scale, w_premasked=True,
+                cheb_filter_impl=filter_impl, matvec_precision=precision, **kw)
+        return per_graph
+
+    for name, filter_impl, precision in (("auto", "auto", "bf16"), ("xla", "xla", "bf16"),
+                                         ("f32", "auto", "f32")):
+        solve = solver(filter_impl, precision)
+        _, _, res = solve(return_residual=True)
+        _zero_launches()
+        chains.clear()
+        eigen.chebyshev_filter_chain = counted
+        try:
+            evals, vecs = solve()
+        finally:
+            eigen.chebyshev_filter_chain = chain
+        torch.cuda.synchronize()
+        cheb = chebyshev_filter.launches
+        t = calls_ms(solve)
+        resolved = int(((res > eigen.CHEB_RESIDUAL_TOL) | ~torch.isfinite(res)).sum().item())
+        impl = eigen.resolved_cheb_impl(N, filter_impl, precision, K + 3)
+        ev_err = (evals[:n] - ev_d).abs().max().item()
+        cos = min(subspace_cos(vecs[i], vec_d[i]) for i in range(n))
+        log(f"[4b] phase 4's solve b{len(feats)} N={N} K={K} through {name!r} (filter {impl!r}): "
+            f"{t} per batch ({CALLS_TIMING}); {resolved}/{len(feats)} images re-solved by the guard "
+            f"(residual max {res.max().item():.3e}); filters in the solve: {cheb} kernel "
+            f"chains, {len(chains)} XLA chains; vs dense "
+            f"eigh ({n} images): max |eigenvalue diff| {ev_err:.3e} (tol {EIG_TOL}), min "
+            f"subspace cosine {cos:.6f} (min {SUBSPACE_MIN})")
+        finite = bool(torch.isfinite(evals).all() and torch.isfinite(vecs).all())
+        if not (finite and ev_err <= EIG_TOL and cos >= SUBSPACE_MIN):
+            raise AssertionError(f"{name}: eigenpairs disagree with dense eigh")
+        if (cheb > 0) != (name == "auto") or impl != ("pallas" if name == "auto" else "xla"):
+            raise AssertionError(f"{name}: filter {impl!r}, {cheb} kernel launches")
 
 
 def phase_cli(tmp: Path, device: str) -> None:
@@ -793,6 +910,27 @@ def calls_ms(fn) -> Timing:
 
 
 CALLS_TIMING = "CUDA events, median [min-max] of 5 single calls after a warm-up"
+
+
+def graphed(fn):
+    """`fn`, whose shapes are fixed, captured once in a CUDA graph after two
+    warm-up calls on a side stream: returns the graph, whose replay runs
+    fn's launches with no host enqueue between them, and the captured
+    output, which each replay rewrites."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+GRAPH_TIMING = "CUDA events over replays of one CUDA graph, median [min-max] of 5 windows of 20"
 
 
 def blob_images_lr(b: int, grid: int, rng) -> np.ndarray:
@@ -931,18 +1069,21 @@ def phase_stage2_routes(dev) -> None:
     _, f4, _, _, _ = out4
     _, _, res20 = eigen.spectral_decompose_batched(f4, mask16, K=20, return_residual=True)
     resolved20 = int((res20 > eigen.CHEB_RESIDUAL_TOL).sum().item())
-    times = {}
-    for solver in ("chebyshev", "lobpcg"):
-        times[solver] = calls_ms(lambda s=solver: eigen.spectral_decompose_batched(
-            feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, solver=s,
-            return_residual=True))
-    res_c = eigen.spectral_decompose_batched(
-        feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, solver="chebyshev",
-        return_residual=True)[2]
+    times, res_c = {}, {}
+    for route, kw in (("chebyshev", {"solver": "chebyshev"}),
+                      ("chebyshev through the XLA chain",
+                       {"solver": "chebyshev", "cheb_filter_impl": "xla"}),
+                      ("lobpcg", {"solver": "lobpcg"})):
+        def solve(kw=kw):
+            return eigen.spectral_decompose_batched(
+                feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA,
+                return_residual=True, **kw)
+        times[route] = calls_ms(solve)
+        res_c[route] = solve()[2].max().item()
     log(f"[9c] recorded: K=20 on phase 4's b{B} features: {resolved20}/{B} residuals above "
-        f"the guard (max {res20.max().item():.3e}); N={N} b{LOBPCG_B} color-fused K={K}: "
-        f"chebyshev {times['chebyshev']} (residual max {res_c.max().item():.3e}, "
-        f"unguarded), lobpcg {times['lobpcg']} ({CALLS_TIMING})")
+        f"the guard (max {res20.max().item():.3e}); N={N} b{LOBPCG_B} color-fused K={K} "
+        f"({CALLS_TIMING}; residual max, unguarded): " + "; ".join(
+            f"{route} {times[route]} ({res_c[route]:.3e})" for route in times))
 
 
 def make_loc_voc(root: Path) -> list:

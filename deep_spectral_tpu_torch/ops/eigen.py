@@ -9,11 +9,14 @@ package, the port whitens (A = I - D^-1/2 W D^-1/2), solves A, and unwhitens
   * 'eigh': dense `torch.linalg.eigh` (exact; small graphs and the guard's
     re-solve);
   * 'chebyshev': Chebyshev-filtered subspace iteration (`_chebyshev_laplacian`),
-    whose filter chain is the hand-written CUDA kernel on the GPU
-    (`ops/cheb_filter.py`), residual-guarded;
+    residual-guarded, whose filter chain is, by `cheb_filter_impl`, the
+    hand-written CUDA kernel on the GPU (`ops/cheb_filter.py`; 'pallas',
+    which the port's 'auto' means) or the JAX package's XLA chain of
+    `degree` batched products (`chebyshev_filter_chain`; 'xla');
   * 'lobpcg': block LOBPCG (`ops/lobpcg.py`) on the Gershgorin-shifted
-    operator, for graphs above the chebyshev admission (CHEB_MAX_N) and for
-    lapnorm=False at N >= 512.
+    operator, for graphs above the 'auto' solver's chebyshev limit
+    (CHEB_MAX_N, XLA_CHAIN_CHEB_MAX_N under the chain) and for lapnorm=False
+    at N >= 512.
 
 `spectral_decompose_batched` also runs the reference's other `which_matrix`
 modes ('affinity' and 'affinity_torch': the largest eigenpairs of W;
@@ -30,7 +33,9 @@ its batch-mates.
 
 Precision: the solvers' Rayleigh-Ritz products, the residual, LOBPCG and
 A_mv run in true f32 (`exact_f32()`, no TF32), the filter chain on a bf16
-operator with f32 accumulation; the small eighs use `torch.linalg.eigh`.
+operator with f32 accumulation (`matvec_precision='bf16'`) or, with
+`matvec_precision='f32'`, on the f32 operator in true f32 (the XLA chain:
+the kernel takes bf16 only); the small eighs use `torch.linalg.eigh`.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 
 from ..utils.precision import exact_f32
 from .affinity import degree_vector, feature_affinity, l2_normalize
-from .cheb_filter import chebyshev_filter
+from .cheb_filter import _per_image, chebyshev_filter
 from .lobpcg import eigh_finite as _eigh_finite
 from .lobpcg import lobpcg_standard
 
@@ -56,13 +61,30 @@ _WIDE_INIT_LAM_CUT = 1.0
 # Inherited from the JAX package; not yet measured on this card.
 _WIDE_INIT_MAX_N = 1600
 
-# Largest N the 'auto' solver sends to chebyshev: the JAX package's admission
-# of its Pallas filter (`ops.cheb_filter.fits_vmem(N, m=8)`, the same for any
-# block m <= 128). Inherited from the JAX package; not yet measured on this
-# card. The port's kernel itself takes any N.
+# Largest N the 'auto' solver sends to chebyshev while the filter is the
+# kernel: the JAX package's admission of its Pallas filter
+# (`ops.cheb_filter.fits_vmem(N, m=8)`, the same for any block m <= 128).
+# The port's kernel itself takes any N, so a filter request is not resolved
+# by N (`resolved_cheb_impl`); only the 'auto' solver's regime reads this.
+# On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 9c) the kernel's
+# Chebyshev solve of a b4 N=3600 color-fused graph took 9.53 ms against
+# LOBPCG's 36.28, so the crossover lies above 3600 there too; where is not
+# measured. The rule stays the JAX package's.
 CHEB_MAX_N = 3856
 
+# Largest N the 'auto' solver sends to chebyshev when the filter is the XLA
+# chain (cheb_filter_impl='xla' or matvec_precision='f32'): the JAX
+# package's `_XLA_CHAIN_CHEB_MAX_N`, LOBPCG above. On an H100 80GB HBM3 at
+# 700 W (chip_smoke.py phases 4b and 9c) the chain's solve took 12.72 ms a
+# b24 N=900 batch against the kernel's 6.23 (8.94 with f32 matvecs), and at
+# b4 N=3600 the chain's Chebyshev 13.41 ms against LOBPCG's 36.28: on that
+# card the chain beats LOBPCG above 2048 too. The rule stays the JAX
+# package's.
+XLA_CHAIN_CHEB_MAX_N = 2048
+
 _SOLVERS = ("auto", "eigh", "chebyshev", "lobpcg")
+_FILTER_IMPLS = ("auto", "xla", "pallas")
+_MATVEC_PRECISIONS = ("bf16", "f32")
 
 
 def sign_fix(eigenvectors: torch.Tensor,
@@ -111,16 +133,48 @@ def _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale=None):
     return evals, _as_vectors(V, mask, apply_sign_fix)
 
 
-def _resolve_solver(N: int, m_block: int, lapnorm: bool, solver: str) -> str:
+def resolved_cheb_impl(N: int, filter_impl: str = "auto",
+                       matvec_precision: str = "bf16", m: int = 8) -> str:
+    """The Chebyshev filter that runs for a request, decided before anything
+    runs: 'pallas', the hand-written kernel (`ops/cheb_filter.chebyshev_filter`;
+    its plain twin on CPU tensors), or 'xla', the chain of batched products
+    (`chebyshev_filter_chain`). 'auto' is the port's mapping of JAX's 'auto':
+    JAX resolves it to its Pallas kernel on a TPU and to the XLA chain
+    elsewhere; the port resolves it to its own kernel on every device, so
+    'auto' is 'pallas' here. A 'pallas' request resolves to 'xla' with f32
+    matvecs (the kernel takes a bf16 operator), as in the JAX package's
+    `resolved_cheb_impl`. N (the operator's size) and m (the solver's block,
+    K + lobpcg_block_extra) are that function's arguments and do not change
+    the port's answer: the port's kernel takes any (N, m), so where JAX's
+    'pallas' resolves to 'xla' above its admission (CHEB_MAX_N at m <= 128)
+    the port's stays the kernel. The 'auto' solver still leaves chebyshev
+    for LOBPCG above CHEB_MAX_N (`_resolve_solver`), as JAX's does."""
+    del N, m
+    if filter_impl not in _FILTER_IMPLS:
+        raise ValueError(f"cheb_filter_impl must be one of {_FILTER_IMPLS}; "
+                         f"got {filter_impl!r}")
+    if matvec_precision not in _MATVEC_PRECISIONS:
+        raise ValueError(f"matvec_precision must be one of {_MATVEC_PRECISIONS}; "
+                         f"got {matvec_precision!r}")
+    return "xla" if filter_impl == "xla" or matvec_precision == "f32" else "pallas"
+
+
+def _resolve_solver(N: int, m_block: int, lapnorm: bool, solver: str,
+                    filter_impl: str = "auto", matvec_precision: str = "bf16") -> str:
     """The JAX package's 'auto' selection: dense eigh for small graphs,
-    chebyshev for lapnorm graphs from N = 512 up to CHEB_MAX_N, lobpcg above
-    (or for lapnorm=False)."""
+    chebyshev for lapnorm graphs from N = 512 up to CHEB_MAX_N while the
+    filter is the kernel, and up to XLA_CHAIN_CHEB_MAX_N when it is the XLA
+    chain (`resolved_cheb_impl`), lobpcg above (or for lapnorm=False). Its
+    answer is JAX's for every request, the port's 'auto' filter taken as
+    JAX's 'pallas'."""
     if solver not in _SOLVERS:
         raise ValueError(f"solver must be one of {_SOLVERS}; got {solver!r}")
+    impl = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block)
     if solver != "auto":
         return solver
     if N >= 4 * m_block + 1 and N >= 512:
-        if lapnorm and N <= CHEB_MAX_N:
+        limit = CHEB_MAX_N if impl == "pallas" else XLA_CHAIN_CHEB_MAX_N
+        if lapnorm and N <= limit:
             return "chebyshev"
         return "lobpcg"
     return "eigh"
@@ -169,24 +223,70 @@ def _as_vectors(V, mask, apply_sign_fix):
     return vectors
 
 
+def _chain_product(S: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """S T in f32 for the XLA chain: a bf16 S takes bf16(T) with an f32
+    result (cuBLAS on CUDA tensors; on CPU tensors, which have no bf16 ->
+    f32 product, both operands upcast, exact since products of bf16 values
+    are exact in f32); an f32 S multiplies in f32 (the caller's
+    `exact_f32()` keeps it off TF32)."""
+    if S.dtype != torch.bfloat16:
+        return S @ T
+    if S.is_cuda:
+        return torch.bmm(S, T.to(torch.bfloat16), out_dtype=torch.float32)
+    return S.float() @ T.to(torch.bfloat16).float()
+
+
+def chebyshev_filter_chain(S: torch.Tensor, X: torch.Tensor, c, e,
+                           degree: int) -> torch.Tensor:
+    """T_degree(((I - S) - c) / e) X per image as the JAX package's XLA
+    filter computes it (`ops/eigen.py`'s `filt`): one batched product a
+    step, in its arithmetic, A X = X - S X, T_1 = (A X - c X) / e and
+    T_{j+1} = 2 (A T_j - c T_j) / e - T_{j-1}, with the joint per-column
+    rescale of (T_j, T_{j+1}) by 1 / max(max |T_{j+1}|, 1) after each step
+    but the first. S (B, N, N) bf16 or f32, X (B, N, m) f32, c and e
+    scalars or (B,). Returns (B, N, m) f32."""
+    if degree < 1:
+        raise ValueError("degree must be >= 1")
+    B = X.shape[0]
+    c = _per_image(c, B, X.device)[:, None, None]
+    e = _per_image(e, B, X.device)[:, None, None]
+
+    def a_shift(T):
+        return ((T - _chain_product(S, T)) - c * T) / e
+
+    one = torch.ones((), dtype=torch.float32, device=X.device)
+    T0, T1 = X, a_shift(X)
+    for _ in range(degree - 1):
+        T2 = 2.0 * a_shift(T1) - T0
+        sc = 1.0 / torch.maximum(T2.abs().amax(dim=1, keepdim=True), one)
+        T0, T1 = T1 * sc, T2 * sc
+    return T1
+
+
 def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
                          apply_sign_fix, w_scale=None, window_init="auto",
-                         x0=None):
+                         x0=None, filter_impl="auto", matvec_precision="bf16"):
     """Chebyshev-filtered subspace iteration for the smallest-K eigenpairs of
     the whitened Laplacian, batched: W (B, N, N), d (B, N).
 
     Repeats [filter of `degree` damping [lam_cut, 2] -> orthonormalize ->
     Rayleigh-Ritz] until each lane's residual max_k ||A x_k - theta_k x_k||
     is <= CHEB_RESIDUAL_TOL or `n_outer` filters ran; converged lanes freeze.
-    Returns (evals (B, K), vectors (B, K, N), residual (B,), outers (B,)):
-    residual is +inf where non-finite, `outers` counts each lane's filter
-    applications. x0: optional (N, m_block) start block (default
-    `default_start_block`)."""
+    The filter is the one `resolved_cheb_impl` names: the kernel on the bf16
+    operator, or the XLA chain on the bf16 or (matvec_precision='f32') f32
+    operator. Returns (evals (B, K), vectors (B, K, N), residual (B,),
+    outers (B,)): residual is +inf where non-finite, `outers` counts each
+    lane's filter applications. x0: optional (N, m_block) start block
+    (default `default_start_block`)."""
     B, N, _ = W.shape
     dev = W.device
+    use_kernel = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block) == "pallas"
     inv_sqrt_d = torch.rsqrt(d)
     sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
-    S_fast = (sc[:, :, None] * W * sc[:, None, :]).to(torch.bfloat16)
+    S_fast = sc[:, :, None] * W * sc[:, None, :]
+    if matvec_precision == "bf16":
+        S_fast = S_fast.to(torch.bfloat16)
+    filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
 
     def A_mv(X):  # I - D^-1/2 W D^-1/2, true f32
         return X - sc[:, :, None] * (W @ (sc[:, :, None] * X))
@@ -219,9 +319,18 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
         window_init = "wide" if N <= _WIDE_INIT_MAX_N else "estimate"
     with exact_f32():
         if window_init == "estimate":
-            # T_3(A - 2I) magnifies the bottom of [0, 2] (|T_3|: 26 at 0 -> 0
-            # at 2), then one Rayleigh-Ritz gives the first window.
-            X, theta, res = rr(chebyshev_filter(S_fast, X, 2.0, 1.0, 3))
+            if use_kernel:
+                # T_3(A - 2I) magnifies the bottom of [0, 2] (|T_3|: 26 at 0
+                # -> 0 at 2), then one Rayleigh-Ritz gives the first window.
+                X = chebyshev_filter(S_fast, X, 2.0, 1.0, 3)
+            else:
+                # the XLA chain's pre-loop: three normalized power steps of
+                # 2I - A
+                for _ in range(3):
+                    X = 2.0 * X - (X - _chain_product(S_fast, X))
+                    X = X / torch.clamp_min(
+                        torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
+            X, theta, res = rr(X)
         else:
             # 'wide' / 'wide@<lam_cut>': the first outer filters with the
             # fixed window [lam_cut0, 2]; res = inf makes every lane run it.
@@ -237,7 +346,7 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
             if not bool(active.any()):  # the one host sync per outer iteration
                 break
             c, e = window(theta)
-            Xn, theta_n, res_n = rr(chebyshev_filter(S_fast, X, c, e, degree))
+            Xn, theta_n, res_n = rr(filt(S_fast, X, c, e, degree))
             X = torch.where(active[:, None, None], Xn, X)
             theta = torch.where(active[:, None], theta_n, theta)
             res = torch.where(active, res_n, res)
@@ -285,7 +394,8 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
                             apply_sign_fix=True, solver="auto", lobpcg_iters=None,
                             lobpcg_tol=None, lobpcg_block_extra=3, cheb_outer=4,
                             cheb_degree=10, cheb_guard=True,
-                            cheb_window_init="auto", return_residual=False,
+                            cheb_filter_impl="auto", cheb_window_init="auto",
+                            matvec_precision="bf16", return_residual=False,
                             w_scale=None, w_premasked=False, x0=None):
     """`laplacian_eigs` over a batch: W (B, N, N), mask (B, N), w_scale (B,)."""
     W = W.float()
@@ -302,7 +412,8 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
 
     validate_cheb_window_init(cheb_window_init)
     m_block = K + lobpcg_block_extra
-    solver = _resolve_solver(N, m_block, lapnorm, solver)
+    solver = _resolve_solver(N, m_block, lapnorm, solver, cheb_filter_impl,
+                             matvec_precision)
     if solver in ("lobpcg", "chebyshev"):
         if solver == "lobpcg":
             iters = lobpcg_iters if lobpcg_iters is not None else (60 if N <= 2048 else 100)
@@ -314,7 +425,8 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
                 raise ValueError("solver='chebyshev' supports lapnorm=True only")
             evals, vectors, res, _ = _chebyshev_laplacian(
                 W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
-                w_scale=w_scale, window_init=cheb_window_init, x0=x0)
+                w_scale=w_scale, window_init=cheb_window_init, x0=x0,
+                filter_impl=cheb_filter_impl, matvec_precision=matvec_precision)
         if return_residual:
             return evals, vectors, res
         if cheb_guard:
@@ -349,7 +461,8 @@ def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
                    lobpcg_tol: Optional[float] = None,
                    lobpcg_block_extra: int = 3,
                    cheb_outer: int = 4, cheb_degree: int = 10,
-                   cheb_guard: bool = True, cheb_window_init: str = "auto",
+                   cheb_guard: bool = True, cheb_filter_impl: str = "auto",
+                   cheb_window_init: str = "auto", matvec_precision: str = "bf16",
                    return_residual: bool = False, w_scale=None,
                    w_premasked: bool = False, x0=None):
     """Smallest-K eigenpairs of the graph Laplacian of one (N, N) affinity W.
@@ -362,7 +475,10 @@ def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
     K + lobpcg_block_extra (also the chebyshev block). With cheb_guard an
     iterative result that is not finite, or a chebyshev result whose
     residual exceeds CHEB_RESIDUAL_TOL, is replaced by the dense solve;
-    return_residual returns (evals, vectors, residual) unguarded. w_scale: solve w_scale * W without materializing it;
+    return_residual returns (evals, vectors, residual) unguarded.
+    cheb_filter_impl ('auto' | 'xla' | 'pallas') and matvec_precision
+    ('bf16' | 'f32') choose the chebyshev filter (`resolved_cheb_impl`) and
+    with it the 'auto' solver's regime. w_scale: solve w_scale * W without materializing it;
     w_premasked: W already has zero padded rows and columns. Returns
     eigenvalues (K,) ascending and eigenvectors (K, N)."""
     out = _laplacian_eigs_batched(
@@ -371,7 +487,8 @@ def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
         lobpcg_tol=lobpcg_tol, lobpcg_block_extra=lobpcg_block_extra,
         cheb_outer=cheb_outer,
         cheb_degree=cheb_degree, cheb_guard=cheb_guard,
-        cheb_window_init=cheb_window_init, return_residual=return_residual,
+        cheb_filter_impl=cheb_filter_impl, cheb_window_init=cheb_window_init,
+        matvec_precision=matvec_precision, return_residual=return_residual,
         w_scale=None if w_scale is None else torch.as_tensor(w_scale).reshape(1),
         w_premasked=w_premasked, x0=x0)
     return tuple(o[0] for o in out)
@@ -428,8 +545,8 @@ def spectral_decompose_batched(
         K: int = 5, which_matrix: str = "laplacian", normalize: bool = True,
         threshold_at_zero: bool = True, lapnorm: bool = True,
         image_color_lambda: float = 0.0, solver: str = "auto",
-        cheb_window_init: str = "auto", cheb_degree: int = 10,
-        return_residual: bool = False,
+        cheb_filter_impl: str = "auto", cheb_window_init: str = "auto",
+        cheb_degree: int = 10, return_residual: bool = False,
         eig_chunk: Union[int, str, None] = "auto", x0=None):
     """Affinity -> Laplacian -> eigensolve for a batch of images.
 
@@ -444,10 +561,11 @@ def spectral_decompose_batched(
     modes), unguarded; without it, images whose iterative solve did not
     converge (a residual above CHEB_RESIDUAL_TOL or a non-finite result) are
     re-solved with dense eigh by `_laplacian_eigs_batched`'s guard, which
-    prints how many. eig_chunk
-    solves the batch in sequential sub-batches (see resolve_eig_chunk).
-    x0: the iterative solvers' (N, K + 3) start block. Returns eigenvalues
-    (B, K) and eigenvectors (B, K, N)."""
+    prints how many. cheb_filter_impl: the chebyshev filter, as
+    `resolved_cheb_impl` resolves it ('auto', the port's default, is the
+    kernel). eig_chunk solves the batch in sequential sub-batches (see
+    resolve_eig_chunk). x0: the iterative solvers' (N, K + 3) start block.
+    Returns eigenvalues (B, K) and eigenvectors (B, K, N)."""
     if which_matrix not in _WHICH_MATRIX:
         raise ValueError(f"unknown which_matrix: {which_matrix}")
     B, N, _ = feats.shape
@@ -458,6 +576,7 @@ def spectral_decompose_batched(
     def solve(f, m, cw):
         if which_matrix in ("laplacian", "matting_laplacian"):
             kw = dict(lapnorm=lapnorm, mask=m, solver=solver, cheb_degree=cheb_degree,
+                      cheb_filter_impl=cheb_filter_impl,
                       cheb_window_init=cheb_window_init,
                       return_residual=return_residual, w_premasked=True, x0=x0)
             W = feature_affinity(f, normalize=normalize,
@@ -495,17 +614,22 @@ def spectral_decompose_batched(
 def spectral_decompose(feats: torch.Tensor, K: int, *,
                        which_matrix: str = "laplacian", normalize: bool = True,
                        threshold_at_zero: bool = True, lapnorm: bool = True,
+                       color_W: Optional[torch.Tensor] = None,
                        image_color_lambda: float = 0.0,
                        mask: Optional[torch.Tensor] = None,
-                       solver: str = "auto", cheb_window_init: str = "auto",
+                       solver: str = "auto", cheb_filter_impl: str = "auto",
+                       cheb_window_init: str = "auto",
                        cheb_degree: int = 10, return_residual: bool = False,
                        x0=None):
-    """`spectral_decompose_batched` for one image's (N, D) features."""
+    """`spectral_decompose_batched` for one image's (N, D) features, with
+    its optional (N, N) color affinity color_W."""
     out = spectral_decompose_batched(
-        feats[None], None if mask is None else mask[None], K=K,
+        feats[None], None if mask is None else mask[None],
+        None if color_W is None else color_W[None], K=K,
         which_matrix=which_matrix, normalize=normalize,
         threshold_at_zero=threshold_at_zero, lapnorm=lapnorm,
         image_color_lambda=image_color_lambda, solver=solver,
-        cheb_window_init=cheb_window_init, cheb_degree=cheb_degree,
-        return_residual=return_residual, eig_chunk=None, x0=x0)
+        cheb_filter_impl=cheb_filter_impl, cheb_window_init=cheb_window_init,
+        cheb_degree=cheb_degree, return_residual=return_residual, eig_chunk=None,
+        x0=x0)
     return tuple(o[0] for o in out)

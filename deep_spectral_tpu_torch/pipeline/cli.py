@@ -16,7 +16,10 @@ The stages of `deep_spectral_tpu.pipeline.cli`, in its order, with its flag
 names (and the reference's, extract/extract.py:837-850), plus `--device`
 (default cuda) for the stages that use the card (1-3, 6, 7, 9). Implemented
 with argparse by introspecting each stage function's signature. Every flag
-of the JAX CLI runs but stage 2's `--cheb_filter_impl` other than auto.
+of the JAX CLI runs. Stage 2's `--cheb_filter_impl` picks the Chebyshev
+filter: `auto` (the default) and `pallas` are the filter kernel on the card
+(its plain twin on the CPU), `xla` the chain of batched products that the
+JAX package runs off a TPU.
 `python -m deep_spectral_tpu_torch.pipeline.run_all` runs stages 1-9 in one
 command.
 """

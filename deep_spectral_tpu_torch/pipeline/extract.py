@@ -38,9 +38,12 @@ ImageNet-normalized there (stages 1 and 6) or cast to f32 there (stage 9).
 
 Every stage-2 flag of the JAX stage runs: the color-fused graph
 (`image_color_lambda > 0`, `which_color_matrix` 'knn' or 'rw'), every
-`which_matrix`, feature upsampling (`image_downsample_factor`) and every
-solver. `cheb_filter_impl` other than 'auto' raises NotImplementedError: the
-port has one filter (the CUDA kernel on the GPU, its plain twin on the CPU).
+`which_matrix`, feature upsampling (`image_downsample_factor`), every
+solver and every `cheb_filter_impl`: 'auto' and 'pallas' are the filter
+kernel (the CUDA kernel on the GPU, its plain twin on the CPU), 'xla' the
+JAX package's chain of batched products (`ops.eigen.resolved_cheb_impl`).
+A kernel that fails raises: the JAX stage's pallas -> xla downgrade on a
+build failure is not ported.
 
 k-means draws its seeding from a `torch.Generator`, not `jax.random`: stage
 3 seeds each image's generator with `seed + index` (its position among the
@@ -66,8 +69,8 @@ from ..models.convert import load_model
 from ..models.vit import extract_patch_keys, get_model_config
 from ..ops.affinity import knn_affinity, rw_affinity
 from ..ops.crf import dense_crf
-from ..ops.eigen import (resolve_eig_chunk, spectral_decompose_batched,
-                         validate_cheb_window_init)
+from ..ops.eigen import (resolve_eig_chunk, resolved_cheb_impl,
+                         spectral_decompose_batched, validate_cheb_window_init)
 from ..ops.kmeans import kmeans, pca
 from ..ops.morphology import erode_or_dilate_mask, infer_background_swap, mask_bbox
 from ..ops.resize import resize_bilinear, resize_nearest
@@ -333,7 +336,7 @@ def extract_eigs(
     batch_size: int = 8,
     bucket_granularity: int = 4,
     solver: str = "auto",  # 'eigh' (exact) | 'chebyshev' | 'lobpcg' | 'auto'
-    cheb_filter_impl: str = "auto",
+    cheb_filter_impl: str = "auto",  # 'xla' | 'pallas' | 'auto' (the kernel)
     cheb_window_init: str = "auto",  # auto|wide|wide@<lam_cut>|estimate
     eig_chunk: str = "auto",  # sub-batch the solve: auto|none|<int>
     device: str = "cuda",
@@ -342,12 +345,12 @@ def extract_eigs(
     extract/extract.py:119-280), batched on the device. The images of a
     batch whose iterative solve did not converge (a chebyshev residual above
     CHEB_RESIDUAL_TOL, or a non-finite result) are re-solved together with
-    dense eigh by the solver's guard, before the batch is fetched."""
+    dense eigh by the solver's guard, before the batch is fetched. The
+    chebyshev filter that the request resolves to is printed once a run."""
     del multiprocessing
-    if cheb_filter_impl != "auto":
-        raise NotImplementedError(
-            f"cheb_filter_impl={cheb_filter_impl!r}: the port has one filter "
-            f"(the CUDA kernel on the GPU, its plain twin on the CPU)")
+    # fails fast on a bad request; the port's resolution reads no shape
+    print(f"eigs: chebyshev filter {resolved_cheb_impl(0, cheb_filter_impl)!r} "
+          f"(cheb_filter_impl={cheb_filter_impl!r})")
     if which_color_matrix not in ("knn", "rw"):
         raise ValueError(f"which_color_matrix must be 'knn' or 'rw'; "
                          f"got {which_color_matrix!r}")
@@ -415,7 +418,6 @@ def extract_eigs(
     # One solve in flight: a batch's results are fetched after the next
     # batch has been sent.
     inflight = _InFlight()
-
     def consume(bucket: bucketing.Bucket, batch_items, prepared):
         feats_np, native, imgs, masks_np, extents, metas = prepared
         feats = _to_device(feats_np, dev)
@@ -433,8 +435,8 @@ def extract_eigs(
         # iterative solve did not converge (the reference's ARPACK retry,
         # extract/extract.py:227-234)
         evals, evecs = spectral_decompose_batched(
-            feats, masks, color_W, solver=solver, cheb_window_init=cheb_window_init,
-            eig_chunk=chunk, **solve_kw)
+            feats, masks, color_W, solver=solver, cheb_filter_impl=cheb_filter_impl,
+            cheb_window_init=cheb_window_init, eig_chunk=chunk, **solve_kw)
         inflight.push(_Fetch(evals, evecs), partial(save, metas, bucket))
 
     def save(metas, bucket, evals, evecs):

@@ -10,11 +10,13 @@ then the Chebyshev eigensolve on structured features).
 torch.profiler over 3 steps with the kernels grouped by name and the
 device's idle share against the unprofiled step.
 
-`kernel_calls`: for the two main-path kernels at the main path's shapes, the
-host's time to enqueue one call (wall clock over 20 calls, no sync) beside
-the device time of one call (torch.profiler, kernels by name), so a kernel
+`kernel_calls`: for the two main-path kernels at the main path's shapes,
+and for the filter's library yardstick there (the JAX package's XLA chain,
+`ops.eigen.chebyshev_filter_chain`, on the bf16 and on the f32 operator),
+the host's time to enqueue one call (wall clock over 20 calls, no sync)
+beside the device time of one call (torch.profiler, kernels by name), so a
 time taken with CUDA events over back-to-back calls can be told from the
-wrapper's host cost.
+host's cost.
 
 `steps` (`python -m deep_spectral_tpu_torch.probe_main steps`): only the
 step's ms/step (CUDA events) over 7 windows of 5 steps after 3 warm-up
@@ -114,6 +116,8 @@ def kernel_calls(dev) -> None:
     import chip_smoke as C
     from .models.flash_attention import flash_attention_packed
     from .ops.cheb_filter import chebyshev_filter
+    from .ops.eigen import chebyshev_filter_chain
+    from .utils.precision import exact_f32
     g = torch.Generator().manual_seed(0)
     qkv = torch.randn((C.B, 901, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
     q, k, v = qkv.unbind(2)
@@ -125,6 +129,16 @@ def kernel_calls(dev) -> None:
     calls = [(f"flash_attention_packed b{C.B} T=901", lambda: flash_attention_packed(q, k, v, mask))]
     calls += [(f"chebyshev_filter b{C.B} N=900 degree {d}",
                lambda d=d: chebyshev_filter(S, X, c, e, d)) for d in (3, 10)]
+    calls += [(f"XLA chain, bf16 operator, b{C.B} N=900 degree {d}",
+               lambda d=d: chebyshev_filter_chain(S, X, c, e, d)) for d in (3, 10)]
+    S32 = S.float()
+
+    def chain_f32(d):
+        with exact_f32():
+            return chebyshev_filter_chain(S32, X, c, e, d)
+
+    calls += [(f"XLA chain, f32 operator, b{C.B} N=900 degree {d}",
+               lambda d=d: chain_f32(d)) for d in (3, 10)]
     for name, fn in calls:
         for _ in range(3):
             fn()

@@ -362,6 +362,23 @@ def test_cheb_kernel_matches_twin(cuda, N, m, degree):
     assert (got - ref).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_xla_chain_on_cuda_matches_cpu(cuda, precision):
+    """The XLA chain (cuBLAS products: bf16 operands with an f32 result, or
+    true f32) against the same chain on the CPU; the kernel does not run."""
+    S, g = _operators(2, 900, 5)
+    if precision == "f32":
+        S = S.float()
+    X = torch.randn((2, 900, 8), generator=g)
+    c, e = torch.tensor([1.5, 1.9]), torch.tensor([0.5, 0.1])
+    before = chebyshev_filter.launches
+    got = te.chebyshev_filter_chain(S.to(cuda), X.to(cuda), c.to(cuda), e.to(cuda), 10)
+    torch.cuda.synchronize()
+    assert chebyshev_filter.launches == before
+    ref = te.chebyshev_filter_chain(S, X, c, e, 10)
+    assert (got.cpu() - ref).abs().max().item() <= 1e-3
+
+
 def _smooth_features(rng, h, w, d=64):
     """Image-like features: low-frequency spatial modes plus an object blob."""
     yy, xx = np.mgrid[:h, :w] / h
@@ -391,3 +408,34 @@ def test_solver_on_cuda_matches_cpu(cuda, window_init):
     a, b = vec_g.cpu().double(), vec.double()
     cos = (a * b).sum(-1).abs() / (a.norm(dim=-1) * b.norm(dim=-1))
     assert cos.min().item() > 0.999
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_xla_chain_solver_on_cuda_matches_cpu(cuda, precision):
+    """The solver through the XLA chain on the card against the CPU, with
+    the kernel launched no time."""
+    feats = torch.from_numpy(np.stack([_smooth_features(np.random.default_rng(s), 30, 30)
+                                       for s in (7, 8, 9)]))
+    kw = dict(return_residual=True, cheb_filter_impl="xla", matvec_precision=precision)
+    ev, vec, res = te._laplacian_eigs_batched(ta.feature_affinity(feats), 5, **kw)
+    before = chebyshev_filter.launches
+    ev_g, vec_g, res_g = te._laplacian_eigs_batched(ta.feature_affinity(feats.to(cuda)), 5, **kw)
+    assert chebyshev_filter.launches == before
+    assert res_g.max().item() <= te.CHEB_RESIDUAL_TOL
+    np.testing.assert_allclose(ev_g.cpu().numpy(), ev.numpy(), atol=1e-4)
+    a, b = vec_g.cpu().double(), vec.double()
+    cos = (a * b).sum(-1).abs() / (a.norm(dim=-1) * b.norm(dim=-1))
+    assert cos.min().item() > 0.999
+
+
+def test_chebyshev_above_the_admission_launches_the_kernel(cuda):
+    """solver='chebyshev' at N > CHEB_MAX_N with the default filter launches
+    the kernel: the port's filter request is not resolved by N."""
+    feats = torch.from_numpy(_smooth_features(np.random.default_rng(3), 62, 63))
+    assert feats.shape[0] > te.CHEB_MAX_N
+    before = chebyshev_filter.launches
+    ev, vec, res = te.laplacian_eigs(ta.feature_affinity(feats.to(cuda)), 5,
+                                     solver="chebyshev", cheb_outer=1, return_residual=True)
+    torch.cuda.synchronize()
+    assert chebyshev_filter.launches > before
+    assert bool(torch.isfinite(ev).all() and torch.isfinite(vec).all())

@@ -6,7 +6,8 @@ Stage 2 runs on the same feature files in both packages in its default
 configuration and, on two of the images (`VARIANT_IMAGES`: each of the JAX
 stage's bucket shapes costs a compile), in the variants of `VARIANTS` (the
 color-fused graph with the knn and rw color affinities, features upsampled
-to a grid of half the patch size, the 'affinity' mode). The port's stages
+to a grid of half the patch size, the 'affinity' mode, the XLA-chain filter
+on that upsampled grid, where the chebyshev solver runs). The port's stages
 run once more with no batch in flight (`DSS_TPU_INFLIGHT=0`), which must
 write the same bytes.
 
@@ -41,7 +42,8 @@ FEATURE_KEYS = {"k", "indices", "file", "id", "model_name", "patch_size", "shape
 VARIANTS = {"color_knn": dict(image_color_lambda=1.0, which_color_matrix="knn"),
             "color_rw": dict(image_color_lambda=1.0, which_color_matrix="rw"),
             "upsampled": dict(image_downsample_factor=4),  # 2x the P=8 grid
-            "affinity": dict(which_matrix="affinity")}
+            "affinity": dict(which_matrix="affinity"),
+            "xla": dict(cheb_filter_impl="xla", image_downsample_factor=4)}
 # 12x16 (768 nodes upsampled: chebyshev) and 8x9 (ragged in its 8x12 bucket)
 VARIANT_IMAGES = [0, 2]
 
@@ -187,8 +189,9 @@ def test_stages_resume_and_cli(run, tmp_path, capsys):
     assert len(list((tmp_path / "e").iterdir())) == len(names)
     eigs = ["extract_eigs", "--images_root", str(root / "images"),
             "--features_dir", str(root / "t_feats"), "--device", "cpu", "--K", "3"]
-    with pytest.raises(NotImplementedError):  # the port has one filter
-        t_cli.main(eigs + ["--output_dir", str(tmp_path / "x"), "--cheb_filter_impl", "xla"])
+    t_cli.main(eigs + ["--output_dir", str(tmp_path / "x"), "--cheb_filter_impl", "xla"])
+    assert len(list((tmp_path / "x").iterdir())) == len(names)
+    assert "eigs: chebyshev filter 'xla'" in capsys.readouterr().out
     for i, flags in enumerate((["--image_color_lambda", "1.0", "--which_color_matrix", "rw"],
                                ["--which_matrix", "affinity_svd"],
                                ["--image_downsample_factor", "16", "--lapnorm", "false"])):
