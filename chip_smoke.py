@@ -31,10 +31,16 @@ Phases, each of which must pass:
      CUDA-core FMA build it replaced timed beside it;
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
      with per-image (c, e) and at degree 3 with (2, 1), b2 N=3600, phase 9's
-     b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23), and
-     phase 10's stage-2 buckets (b4, N=1024 and 640), with the step kernel's
-     grid (more than one CTA per image) and shared memory and the chain's
-     bound; at each shape the JAX package's XLA chain (`degree` cuBLAS
+     b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23),
+     phase 10's stage-2 buckets (b4, N=1024 and 640), a late outer's b1
+     N=900, and b4 at the first N past the resident build's limit, with the
+     build its plan picks (resident: one thread-block cluster an image,
+     which must hold N=900, 640 and 1024; streaming above), the cluster size,
+     the clusters the card holds at once and the waves, the shared memory
+     and the chain's bound (3c, after every timed phase: one launch a chain
+     at each shape, torch.profiler); beside it
+     the mma.sync build it replaced (`chebyshev_filter_mma`, one launch a
+     step), held to the twin too; at each shape the JAX package's XLA chain (`degree` cuBLAS
      products of bf16 operands with an f32 result, and the rescale passes;
      `ops.eigen.chebyshev_filter_chain`) held to the twin and timed as a
      CUDA graph (its device work; the eager time, bound by the host's
@@ -184,6 +190,9 @@ beside the single-card path, and (f) `train()`'s steps per second over a
 tree of 500x375 JPEGs, data-parallel (`loop_rate`). `python3 chip_smoke.py
 loop` runs (f) alone: at world 1 with no mesh (which a `train()` without
 the `mesh` argument runs too), or with `--world N` at world N.
+`python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
+library the full run built (the full run starts it so, after its timed
+phases).
 Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
 calls: the median window, with the min-max printed beside it; phase 9's
 solves, which sync the host every iteration, are 5 single calls after a
@@ -191,7 +200,8 @@ warm-up call.
 Then it prints one JSON line with each kernel's launches, error, times, bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its flops over the
 card's peak: bf16 tensor cores, or for f32 three TF32 products a flop,
-`bound_by` naming which) and library time (`library_ms`: SDPA for the
+`bound_by` naming which; kernel 2 also `mma_ms`, its mma.sync build's time
+in the same call) and library time (`library_ms`: SDPA for the
 attention kernels; for the filter the XLA chain, `degree` cuBLAS calls and
 the rescale passes replayed as one CUDA graph, since no one PyTorch call
 computes it); kernels 3-5's f32 builds are entries of
@@ -352,12 +362,14 @@ def attention_work(q, mask, products: int, io_tensors: int, kv_tensors: int = 0,
     return bound(nbytes, flops, peak)
 
 
-def launch_shape(fn: str, *args) -> list:
-    """(grid x, y, z, threads, shared bytes) of a kernel, from its C library."""
+def launch_shape(fn: str, *args, n: int = 5) -> list:
+    """(grid x, y, z, threads, shared bytes) of a kernel, from its C library
+    (`n` ints: the filter's `dss_cheb_filter_sm90_info` writes six)."""
     import ctypes
     from deep_spectral_tpu_torch import _build
-    out = (ctypes.c_int * 5)()
-    getattr(_build.load(), fn)(*args, out)
+    out = (ctypes.c_int * n)()
+    err = getattr(_build.load(), fn)(*args, out)
+    _build.check(err, fn)
     return list(out)
 
 
@@ -418,10 +430,13 @@ WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>
 # the split-TF32 kernels among them: their tensor-core instructions must be TF32
 # ones (HGMMA or HMMA with TF32 operands)
 TF32_KERNELS = ("flash_fwd_f32_kernel", "flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+# the filter's two builds (mma.sync; their operator arrives by TMA: UTMALDG)
+TMA_KERNELS = {"cheb_resident_kernel": "cheb_resident_kernel",
+               "cheb_stream_kernel": "cheb_stream_kernel"}
 
 
 def _kernel_label(line: str) -> str:
-    for fragment, label in WGMMA_KERNELS.items():
+    for fragment, label in {**WGMMA_KERNELS, **TMA_KERNELS}.items():
         if fragment in line:
             return label
     return line.split("'")[1][:60] if "'" in line else line.split(":")[-1].strip()[:60]
@@ -441,19 +456,23 @@ def phase_build():
             func = _kernel_label(line)
         elif "registers" in line or "spill" in line or "wgmma" in line:
             log(f"    ptxas {func}: {line.strip()}")
-            if func in WGMMA_KERNELS.values():
+            if func in WGMMA_KERNELS.values() or func in TMA_KERNELS.values():
                 spills[func] = spills.get(func, 0) + sum(
                     int(n) for n in re.findall(r"(\d+) bytes spill", line))
     if any(spills.values()):
-        raise AssertionError(f"a wgmma kernel spills registers (bytes): {spills}")
+        raise AssertionError(f"a wgmma or filter kernel spills registers (bytes): {spills}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", _build.last_build["path"]],
                           capture_output=True, text=True, check=True).stdout
     hgmma, func = dict.fromkeys(WGMMA_KERNELS.values(), 0), ""
     tf32 = {name: {} for name in TF32_KERNELS}
+    tma = {name: {"UTMALDG": 0, "HMMA": 0} for name in TMA_KERNELS.values()}
     for line in sass.splitlines():
         if "Function :" in line:
             func = _kernel_label(line)
+        elif func in tma:
+            for op in tma[func]:
+                tma[func][op] += int(re.search(rf"\b{op}\b", line) is not None)
         elif func in tf32 and (m := re.search(r"\b(HGMMA|HMMA)\.\S*TF32\S*", line)):
             tf32[func][m.group(0)] = tf32[func].get(m.group(0), 0) + 1
             hgmma[func] += 1
@@ -464,6 +483,10 @@ def phase_build():
     if min(hgmma.values()) == 0:
         raise AssertionError(f"a wgmma kernel has no HGMMA (TF32 kernels: no TF32 HGMMA or "
                              f"HMMA) instruction: {hgmma}")
+    log(f"[1] the filter's kernels (csrc/cheb_filter_sm90.cu), TMA loads and tensor-core "
+        f"products in the SASS: {tma}")
+    if min(min(ops.values()) for ops in tma.values()) == 0:
+        raise AssertionError(f"a filter kernel has no TMA load or no HMMA: {tma}")
 
 
 def phase_flash(dev) -> dict:
@@ -599,36 +622,63 @@ def whitened_operators(b: int, N: int, dev, g):
     return (s[:, :, None] * W * s[:, None, :]).to(torch.bfloat16)
 
 
+def cheb_device_kernels(fn) -> dict:
+    """The filter's device kernels one call of `fn` runs, by name, with their
+    counts (torch.profiler)."""
+    import torch
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {m.group(0): e.count for e in prof.key_averages()
+            if (m := re.search(r"cheb_\w+_kernel", e.key))}
+
+
+def cheb_shapes() -> list:
+    """Phase 3's (batch, N, degree, window, block m): the main path's two
+    windows, then phase 9's color-fused first filter at N=3600 and its K=20
+    block (m=23), stage 2's buckets in phase 10, a late outer's single image,
+    and the first N past the resident build."""
+    from deep_spectral_tpu_torch.ops.cheb_filter import first_streamed_n
+    return [(B, 900, 10, "per-image", 8), (B, 900, 3, "(2, 1)", 8),
+            (2, 3600, 10, "per-image", 8), (LOBPCG_B, 3600, 3, "(2, 1)", 8),
+            (B, 900, 10, "per-image", 23), *((4, n, 10, "per-image", 8) for n in LOC_CHEB_N),
+            (1, 900, 10, "per-image", 8), (4, first_streamed_n(4, 8), 10, "per-image", 8)]
+
+
 def phase_cheb(dev) -> dict:
     import torch
     from deep_spectral_tpu_torch.ops.cheb_filter import (
-        chebyshev_filter, chebyshev_filter_plain)
+        cheb_filter_plan, chebyshev_filter, chebyshev_filter_mma, chebyshev_filter_plain,
+        kernel_operator)
     from deep_spectral_tpu_torch.ops.eigen import chebyshev_filter_chain
     from deep_spectral_tpu_torch.utils.precision import exact_f32
     g = torch.Generator().manual_seed(2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst, main = 0.0, None
-    # (batch, N, degree, window, block m): the main path's two windows, then
-    # phase 9's color-fused first filter at N=3600 and its K=20 block (m=23),
-    # then stage 2's buckets in phase 10
-    for (b, N, degree, window, m) in [(B, 900, 10, "per-image", 8), (B, 900, 3, "(2, 1)", 8),
-                                      (2, 3600, 10, "per-image", 8),
-                                      (LOBPCG_B, 3600, 3, "(2, 1)", 8),
-                                      (B, 900, 10, "per-image", 23),
-                                      *((4, n, 10, "per-image", 8) for n in LOC_CHEB_N)]:
+    for (b, N, degree, window, m) in cheb_shapes():
         S = whitened_operators(b, N, dev, g)
+        Sk = kernel_operator(S)  # the solver's layout: rows padded to 16 bytes
         X = torch.randn((b, N, m), generator=g).to(dev)
         if window == "(2, 1)":
             c, e = 2.0, 1.0
         else:
             lam_cut = (torch.rand(b, generator=g) * 0.9 + 0.05).to(dev)
             c, e = (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
-        out = chebyshev_filter(S, X, c, e, degree)
+        plan = cheb_filter_plan(b, N, m, sms)
+        out = chebyshev_filter(Sk, X, c, e, degree)
+        mma = chebyshev_filter_mma(S, X, c, e, degree)
         torch.cuda.synchronize()
         ref = chebyshev_filter_plain(S, X, c, e, degree)
         err = (out - ref).abs().max().item()
+        err_mma = (mma - ref).abs().max().item()
         if not np.isfinite(err) or err > CHEB_TOL:
             raise AssertionError(f"cheb kernel disagrees with its twin: {err}")
+        if not np.isfinite(err_mma) or err_mma > CHEB_TOL:
+            raise AssertionError(f"the mma.sync build disagrees with the twin: {err_mma}")
         worst = max(worst, err)
+        if N in (900, *LOC_CHEB_N) and m == 8 and plan.build != "resident":
+            raise AssertionError(f"N={N} m={m} takes the {plan.build} build")
         # the JAX package's XLA chain: degree cuBLAS products (bf16 operands,
         # f32 result) and the rescale passes; not a kernel of the port. Its
         # ~100 small launches a call queue slower on the host than the card
@@ -642,7 +692,8 @@ def phase_cheb(dev) -> dict:
         chain_err = max(chain_err, (g_out - ref).abs().max().item())
         if not np.isfinite(chain_err) or chain_err > CHEB_TOL:
             raise AssertionError(f"the XLA chain disagrees with the twin: {chain_err}")
-        times = (cuda_ms(lambda: chebyshev_filter(S, X, c, e, degree)),
+        times = (cuda_ms(lambda: chebyshev_filter(Sk, X, c, e, degree)),
+                 cuda_ms(lambda: chebyshev_filter_mma(S, X, c, e, degree)),
                  cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)),
                  cuda_ms(graph.replay),
                  cuda_ms(lambda: chebyshev_filter_chain(S, X, c, e, degree)))
@@ -650,21 +701,30 @@ def phase_cheb(dev) -> dict:
         # S read once, X read and the result written once; degree products
         # of 2 N^2 m flops each on the bf16 tensor cores
         bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * m, PEAK_BF16)
-        gx, gy, gz, threads, smem = launch_shape("dss_cheb_filter_shape", b, N, m)
-        log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}: max "
-            f"|kernel - twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]}, twin {times[1]} "
-            f"({TIMING}); bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
-            f"{bd['bound_ms'] / times[0].ms:.1%} of it; step grid ({gx}, {gy}, {gz}) = {gx * gy} CTAs per image of {threads} "
-            f"threads, {smem} B of static shared memory, {degree} step launches + 1 "
-            f"rescale pass; XLA chain (cuBLAS bf16 products) as a CUDA graph {times[2]} "
-            f"({GRAPH_TIMING}), {times[2].ms / times[0].ms:.2f}x the kernel, eager "
-            f"{times[3]}, {times[3].ms / times[0].ms:.2f}x; max |chain - twin| "
+        resident = plan.build == "resident"
+        _, _, threads, smem, at_once, waves = launch_shape(
+            "dss_cheb_filter_sm90_info", 0 if resident else 1, b, N, m,
+            plan.cluster if resident else plan.ctas, plan.rows if resident else plan.key_window,
+            n=6)
+        if smem != plan.smem:
+            raise AssertionError(f"the plan's shared memory {plan.smem} != the kernel's {smem}")
+        layout = (f"resident: clusters of {plan.cluster} CTAs ({plan.rows} rows each), "
+                  f"{at_once} clusters at once, {waves} wave(s)" if resident else
+                  f"streaming: {plan.ctas} persistent CTAs ({at_once} fit at once), "
+                  f"{plan.images_per_group} image(s) a group, key window {plan.key_window}")
+        log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}: {layout}, {threads} "
+            f"threads and {smem} B of shared memory a CTA; max |kernel - "
+            f"twin| {err:.3e}, mma.sync build {err_mma:.3e} (tol {CHEB_TOL}); kernel "
+            f"{times[0]}, mma.sync build {times[1]} ({times[1].ms / times[0].ms:.2f}x the "
+            f"kernel), twin {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']}), kernel {bd['bound_ms'] / times[0].ms:.1%} of it, mma.sync "
+            f"{bd['bound_ms'] / times[1].ms:.1%}; XLA chain (cuBLAS bf16 products) as a CUDA "
+            f"graph {times[3]} ({GRAPH_TIMING}), {times[3].ms / times[0].ms:.2f}x the kernel, "
+            f"eager {times[4]}, {times[4].ms / times[0].ms:.2f}x; max |chain - twin| "
             f"{chain_err:.3e} (tol {CHEB_TOL})")
-        if gx * gy <= 1 and N >= 900:
-            raise AssertionError("the filter runs one CTA per image")
         if (b, N, degree, m) == (B, 900, 10, 8):
-            main = {"ms": times[0].ms, "plain_ms": times[1].ms,
-                    "library_ms": times[2].ms, **bd}
+            main = {"ms": times[0].ms, "mma_ms": times[1].ms, "plain_ms": times[2].ms,
+                    "library_ms": times[3].ms, **bd}
         if window == "per-image" and m == 8 and (b, N) in ((B, 900), (2, 3600)):
             # recorded: the chain on the f32 operator in true f32
             S32 = S.float()
@@ -679,6 +739,30 @@ def phase_cheb(dev) -> dict:
                 f"max |f32 chain - bf16 twin| {diff:.3e}")
             del S32, graph
     return {"max_abs_err": worst, **main}
+
+
+def phase_cheb_launches(dev) -> None:
+    """One chain at each of phase 3's shapes under torch.profiler: exactly
+    one launch of the kernel of the build its plan picks. Run by `chip_smoke.py
+    3c` in a process of its own (torch.profiler slows the launches of the
+    process it ran in, and a process that ran other profiler sessions
+    reported no events)."""
+    import torch
+    from deep_spectral_tpu_torch.ops.cheb_filter import (
+        cheb_filter_plan, chebyshev_filter, kernel_operator)
+    g = torch.Generator().manual_seed(7)
+    seen = []
+    for b, N, degree, _, m in cheb_shapes():
+        build = cheb_filter_plan(b, N, m).build
+        S = kernel_operator(whitened_operators(b, N, dev, g))
+        X = torch.randn((b, N, m), generator=g).to(dev)
+        ran = cheb_device_kernels(lambda: chebyshev_filter(S, X, 2.0, 1.0, degree))
+        if ran != {f"cheb_{'resident' if build == 'resident' else 'stream'}_kernel": 1}:
+            raise AssertionError(f"b{b} N={N}: one chain ran {ran}, not one {build} launch")
+        seen.append((b, N, m, build))
+        del S, X
+    log(f"[3c] one launch a chain (torch.profiler), the plan's build, at every phase-3 "
+        f"shape: {seen}")
 
 
 def subspace_cos(V1, V2) -> float:
@@ -3156,6 +3240,10 @@ def main(argv: list) -> int:
                          check=True).stdout.strip().splitlines()[0]
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    if only == ["3c"]:  # the built library is already there: no rebuild
+        phase_cheb_launches(dev)
+        log("partial run (phase 3c): no result line")
+        return 0
     phase_build()
     if only:
         if "12" in only:
@@ -3193,6 +3281,12 @@ def main(argv: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         p12 = phase_12(Path(tmp), dev)
     p13 = phase_parallel(dev)
+    sub = subprocess.run([sys.executable, str(Path(__file__).resolve()), "3c"],
+                         capture_output=True, text=True)
+    log(sub.stdout.strip().splitlines()[-2] if sub.stdout.strip() else "[3c] no output")
+    if sub.returncode != 0:
+        raise AssertionError(f"chip_smoke.py 3c failed ({sub.returncode}):\n{sub.stdout}\n"
+                             f"{sub.stderr[-3000:]}")
     jax_modules = [m for m in sys.modules if m.split(".")[0] in ("jax", "deep_spectral_tpu")]
     if jax_modules:
         raise AssertionError(f"the port imported JAX or the JAX package: {jax_modules[:5]}")
@@ -3211,7 +3305,7 @@ def main(argv: list) -> int:
                                  for path in ("pp", "tp", "dp")}},
          **flash},
         {"name": "chebyshev_filter", "route": "cuda",
-         "source": "deep_spectral_tpu_torch/csrc/cheb_filter.cu",
+         "source": "deep_spectral_tpu_torch/csrc/cheb_filter_sm90.cu",
          "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",
          "launches": launches["cheb"],
          "launches_by_path": {"main": launches["cheb"],

@@ -47,9 +47,18 @@ _SIGNATURES = {
     # q, k, v, kv_mask, out, lse (null: no lse); B, T, H; 9 strides; scale; stream
     "dss_flash_fwd_packed": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_F, _P],
     "dss_flash_fwd_packed_shape": [_I, _I, _I, _IP],
-    # S, X, ce, out, work, colmax; B, N, m, degree; stream
-    "dss_cheb_filter": [_P] * 6 + [_I] * 4 + [_P],
-    "dss_cheb_filter_shape": [_I, _I, _I, _IP],
+    # S, ld, bs, X, ce, out, T staging in global memory; B, N, m, degree,
+    # cluster, rows, smem; stream
+    "dss_cheb_filter_resident": [_P, _LL, _LL] + [_P] * 4 + [_I] * 7 + [_P],
+    # S, ld, bs, X, ce, out, work, tb, flags; B, N, m, degree, ctas, ipg,
+    # key_window, smem; stream
+    "dss_cheb_filter_stream": [_P, _LL, _LL] + [_P] * 6 + [_I] * 8 + [_P],
+    # build, B, N, m, cluster or ctas, rows or key_window; out (6 ints)
+    "dss_cheb_filter_sm90_info": [_I] * 6 + [_IP],
+    # the mma.sync build, the yardstick: S, X, ce, out, work, colmax; B, N,
+    # m, degree; stream
+    "dss_cheb_filter_mma": [_P] * 6 + [_I] * 4 + [_P],
+    "dss_cheb_filter_mma_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream (the _fma
     # builds: the CUDA-core yardsticks of the split-TF32 kernels)
     "dss_flash_fwd_lse_f32": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],

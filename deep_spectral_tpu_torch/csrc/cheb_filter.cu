@@ -1,8 +1,11 @@
-// Chebyshev filter chain for Hopper (sm_90a): T_degree(((I - S) - c) / e) X,
-// batched over images.
+// Chebyshev filter chain, the mma.sync build: T_degree(((I - S) - c) / e) X,
+// batched over images, one launch per step.
 //
-// Replaces: deep_spectral_tpu/ops/cheb_filter.py::_cheb_kernel (launched by
-// chebyshev_filter). Same arithmetic as the Pallas form:
+// The yardstick of csrc/cheb_filter_sm90.cu, which replaced it on every path
+// (`dss_cheb_filter_mma`, reached through ops/cheb_filter.chebyshev_filter_mma,
+// is timed beside the new kernel and runs on no path). It ported
+// deep_spectral_tpu/ops/cheb_filter.py::_cheb_kernel. Same arithmetic as the
+// Pallas form:
 //   a_shift(t) = ((1 - c) t - S bf16(t)) * (1 / e)     (f32 accumulation)
 //   T_0 = X, T_1 = a_shift(X),
 //   T_{j+1} = 2 a_shift(T_j) - T_{j-1}, then (T_j, T_{j+1}) of each column are
@@ -38,8 +41,8 @@
 // step (updated in place, each CTA only touches its own rows), R0/R1 (B, N, m)
 // alternate as the unscaled T_j (read by every CTA of the image) and T_{j+1}
 // (written), and colmax (degree + 1, B, m) holds each step's column maxima.
-// The operator is re-read every step; keeping it on chip across the chain
-// (a thread-block cluster over distributed shared memory) is the next step.
+// The operator is re-read every step; cheb_filter_sm90.cu keeps it on chip
+// across the chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -318,7 +321,7 @@ cudaError_t launch_steps(const __nv_bfloat16* S, const float* X, const float* ce
 }  // namespace
 
 // Launch geometry of one step: grid (x, y, z), threads per CTA, static shared bytes.
-extern "C" int dss_cheb_filter_shape(int B, int N, int m, int* shape5) {
+extern "C" int dss_cheb_filter_mma_shape(int B, int N, int m, int* shape5) {
   shape5[0] = (N + ROWS - 1) / ROWS;
   shape5[1] = (m + MC - 1) / MC;
   shape5[2] = B;
@@ -328,7 +331,7 @@ extern "C" int dss_cheb_filter_shape(int B, int N, int m, int* shape5) {
 }
 
 // work: 3 * B * N * m floats; colmax: (degree + 1) * B * m words, zeroed here.
-extern "C" int dss_cheb_filter(const void* S, const void* X, const void* ce, void* out,
+extern "C" int dss_cheb_filter_mma(const void* S, const void* X, const void* ce, void* out,
                                void* work, void* colmax, int B, int N, int m, int degree,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -5,6 +5,10 @@
 
 extern "C" const char* dss_error_string(int err) {
   if (err == DSS_ERR_TENSOR_MAP)
-    return "cuTensorMapEncodeTiled is missing or refused a q/k/v/do layout";
+    return "cuTensorMapEncodeTiled is missing or refused a tensor layout";
+  if (err == DSS_ERR_PLAN)
+    return "the Chebyshev filter's plan does not fit the kernel's layout";
+  if (err == DSS_ERR_OCCUPANCY)
+    return "the card holds no thread-block cluster of the plan's size and shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

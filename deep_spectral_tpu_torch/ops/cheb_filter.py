@@ -1,10 +1,10 @@
 """Chebyshev filter chain T_degree(((I - S) - c) / e) X, batched over images.
 
 `chebyshev_filter` launches the hand-written Hopper kernel
-(`csrc/cheb_filter.cu`, the port of the JAX package's Pallas `_cheb_kernel`)
-for CUDA tensors, and computes the same function with its plain PyTorch twin,
-`chebyshev_filter_plain`, for CPU tensors. A CUDA tensor the kernel does not
-take raises; there is no other fallback.
+(`csrc/cheb_filter_sm90.cu`, the port of the JAX package's Pallas
+`_cheb_kernel`) for CUDA tensors, and computes the same function with its
+plain PyTorch twin, `chebyshev_filter_plain`, for CPU tensors. A CUDA tensor
+the kernel does not take raises; there is no other fallback.
 
 Arithmetic (the Pallas form, shared by kernel and twin):
     a_shift(t) = ((1 - c) t - S bf16(t)) * (1 / e)      f32 accumulation
@@ -12,14 +12,189 @@ Arithmetic (the Pallas form, shared by kernel and twin):
 and every step after the first scales (T_j, T_{j+1}) of each column by
 1 / max(max |T_{j+1}|, 1), which keeps |T_j| near 1 (the caller's
 Rayleigh-Ritz normalizes the per-column scale away).
+
+The kernel runs one launch per chain, in one of two builds that
+`cheb_filter_plan` picks from (B, N, m) before the launch: 'resident' (one
+thread-block cluster an image holds the image's operator in shared memory for
+the whole chain) when the operator fits up to 16 CTAs' shared memory, else
+'streaming' (persistent CTAs stream the operator through shared memory by
+TMA). `chebyshev_filter_mma` is the earlier
+build (`csrc/cheb_filter.cu`, mma.sync, one launch per step), kept as the
+yardstick; no path calls it.
 """
 from __future__ import annotations
 
-from typing import Union
+import functools
+from typing import NamedTuple, Union
 
 import torch
 
 Scalar = Union[float, torch.Tensor]
+
+SMEM_MAX = 232_448           # shared bytes a CTA can use (H100)
+KEYS = 64                    # keys per 128-byte swizzled operator row segment (a TMA box)
+CARD_SMS = 132               # H100 SXM; the wrapper reads the card's own count
+RESIDENT_UNITS = 2048        # rows x columns (m rounded up to 8) a CTA keeps in registers
+RESIDENT_MAX_CLUSTER = 16    # non-portable cluster size, admitted by the card at every
+#                              resident plan's shared memory (cudaOccupancyMaxActiveClusters)
+# Clusters of each size the H100 holds at once at one CTA an SM (its 132 SMs
+# in GPCs of 16-18; cudaOccupancyMaxActiveClusters, `probe_cheb clusters` and
+# `sizes`, H100 80GB HBM3): 4 -> 30, 5 -> 22, 6 -> 17, 7 and 8 -> 15, 9 -> 9,
+# 10-16 -> 7; sizes 1-3 not measured (one an SM's worth assumed).
+CLUSTERS_AT_ONCE = {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
+                    **{k: 7 for k in range(10, 17)}}
+STREAM_STAGES = 8            # ring stages of 64 rows x 64 keys
+STREAM_KEY_WINDOW = 4096     # keys of bf16 T staged at once
+
+
+class ChebPlan(NamedTuple):
+    """How the kernel runs a (B, N, m) chain. 'resident': `cluster` CTAs an
+    image, `rows` operator rows a CTA, `ctas` = B * cluster. 'streaming':
+    `ctas` persistent CTAs, images in groups of `images_per_group`, bf16 T
+    staged in windows of `key_window` keys, segments of up to `rows` rows.
+    `smem`: dynamic shared bytes a CTA."""
+    build: str
+    cluster: int
+    rows: int
+    smem: int
+    ctas: int
+    images_per_group: int
+    key_window: int
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def resident_smem(N: int, m: int, rows: int, cluster: int) -> int:
+    """Shared bytes of the resident build (csrc/cheb_filter_sm90.cu
+    `res_layout`): the slab (64-key blocks of `rows` 128-byte rows, 1 KB more
+    when a half row block reads past it), bf16 T staged for every column
+    group (keys padded to 64, pitch 8 more), the warps' partial sums, every
+    peer's column maxima, the local ones and the scale factors, three
+    mbarriers, and 1 KB of alignment slack (T_{j-1}, T_j and T_{j+1} of the
+    CTA's rows live in registers)."""
+    kb = -(-N // KEYS)
+    mp = _round_up(m, 8)
+    rb = -(-rows // 16)
+    ks = max(1, 8 // -(-rb // 2))
+    return (1024 + kb * rows * 128 + (1024 if rows % 16 else 0) + mp * (kb * KEYS + 8) * 2
+            + ks * rb * 16 * mp * 4 + 3 * mp * 4 + 8 * mp * 4 + 32)
+
+
+def stream_smem(key_window: int) -> int:
+    """Shared bytes of the streaming build (`stream_layout`): the ring, one
+    column group's staged window, partial sums, maxima, mbarriers, slack."""
+    return (1024 + STREAM_STAGES * 64 * 128 + 8 * (key_window + 8) * 2 + 2 * 64 * 8 * 4
+            + 8 * 4 + 2 * STREAM_STAGES * 8)
+
+
+def _resident_cost(B: int, N: int, m: int, rows: int, cluster: int) -> float:
+    """A chain's time in cycles a step, modelled on the H100's readings
+    (`probe_cheb ablate` timeline, b24 N=900: ~3,000 cycles of exchange and
+    bookkeeping a step, ~2,000 of products for a warp that multiplies two row
+    blocks by a quarter of the keys): waves x (fixed + exchange + products),
+    the exchange and products growing with N and the column groups, the
+    products with the row blocks a warp takes."""
+    groups = -(-m // 8)
+    pairs = -(-(-(-rows // 16)) // 2)           # a warp multiplies two row blocks
+    ks = max(1, 8 // pairs)
+    per_warp = -(-pairs * ks // 8) * 2 / ks     # row blocks x key share a warp multiplies
+    waves = -(-B // CLUSTERS_AT_ONCE[cluster])
+    return waves * (1500 + groups * N / 900 * (1500 + 4000 * per_warp))
+
+
+@functools.lru_cache(maxsize=256)
+def cheb_filter_plan(B: int, N: int, m: int, sms: int = CARD_SMS) -> ChebPlan:
+    """The build, cluster size and rows per CTA for a (B, N, m) chain on a
+    card of `sms` SMs. Resident when a cluster of at most
+    RESIDENT_MAX_CLUSTER CTAs, every one with rows, holds the image's
+    operator (rows per CTA a multiple of 8, at most 256, the TMA box's limit,
+    and rows x m within what its threads keep in registers): of those, the
+    one `_resident_cost` finds fastest (ties: the larger cluster). Else
+    streaming: one CTA an SM (at most one a row block), every image streamed
+    at every step. The kernel can also stream images in groups that fit the
+    L2 (`images_per_group`), each group's chain run before the next's; at b4
+    and b2 N=3600, degree 3 and 10, groups of one image were slower than no
+    groups (the grid barriers and pipeline drains of more, smaller steps
+    cost more than re-reading S from HBM saves; `probe_cheb stream`,
+    PERF.md), so the plan does not group."""
+    if min(B, N, m) < 1:
+        raise ValueError(f"empty chain: B={B}, N={N}, m={m}")
+    best = None
+    for rows in range(8, 257, 8):
+        cluster = -(-N // rows)
+        if cluster > RESIDENT_MAX_CLUSTER or (cluster - 1) * rows >= N and cluster > 1:
+            continue
+        if rows * _round_up(m, 8) > RESIDENT_UNITS or \
+                resident_smem(N, m, rows, cluster) > SMEM_MAX:
+            continue
+        key = (_resident_cost(B, N, m, rows, cluster), -cluster)
+        if best is None or key < best[0]:
+            best = (key, rows, cluster)
+    if best is not None:
+        _, rows, cluster = best
+        return ChebPlan("resident", cluster, rows, resident_smem(N, m, rows, cluster),
+                        B * cluster, 1, 0)
+    ctas = min(sms, B * -(-N // 16))
+    window = min(_round_up(N, KEYS), STREAM_KEY_WINDOW)
+    return ChebPlan("streaming", 1, 64, stream_smem(window), ctas, B, window)
+
+
+def first_streamed_n(B: int, m: int) -> int:
+    """The smallest N (a multiple of 8) the plan streams: one past the
+    resident build's limit at that batch and block width."""
+    return next(n for n in range(8, 1 << 16, 8) if cheb_filter_plan(B, n, m).build != "resident")
+
+
+def cheb_row_ranges(plan: ChebPlan, B: int, N: int) -> list:
+    """The operator rows each CTA owns, as the kernel splits them:
+    [(group, cta, image, lo, hi)]. Resident: CTA `rank` of image b's cluster
+    owns [rank rows, +rows) (group 0). Streaming: group g's images' row
+    blocks of 16, in order, split evenly over the CTAs in contiguous ranges,
+    each cut into segments at image ends and every 4 blocks."""
+    out = []
+    if plan.build == "resident":
+        for b in range(B):
+            for rank in range(plan.cluster):
+                lo = rank * plan.rows
+                if lo < N:
+                    out.append((0, b * plan.cluster + rank, b, lo, min(lo + plan.rows, N)))
+        return out
+    rbi = -(-N // 16)
+    for grp in range(-(-B // plan.images_per_group)):
+        img0 = grp * plan.images_per_group
+        tot = min(plan.images_per_group, B - img0) * rbi
+        for cta in range(plan.ctas):
+            blk, hi = cta * tot // plan.ctas, (cta + 1) * tot // plan.ctas
+            while blk < hi:
+                bi, rb = divmod(blk, rbi)
+                nb = min(4, rbi - rb, hi - blk)
+                out.append((grp, cta, img0 + bi, rb * 16, min(rb * 16 + nb * 16, N)))
+                blk += nb
+    return out
+
+
+def _kernel_layout(S: torch.Tensor) -> bool:
+    B, N, _ = S.shape
+    return (S.dtype == torch.bfloat16 and S.stride(2) == 1 and S.stride(1) % 8 == 0
+            and S.stride(1) >= N and S.stride(0) % 8 == 0
+            and (B == 1 or S.stride(0) >= N * S.stride(1)) and S.data_ptr() % 16 == 0)
+
+
+def kernel_operator(S: torch.Tensor) -> torch.Tensor:
+    """S (B, N, N) as the kernel reads it: bf16 with 16-byte aligned rows
+    (the TMA map's row stride must be a multiple of 16 bytes). S itself when
+    it is so; else one copy (cast to bf16 on the way) into a (B, N,
+    roundup(N, 8)) buffer, returned as its (B, N, N) view. The solver builds
+    its operator this way, so the main path never copies here."""
+    if _kernel_layout(S):
+        return S
+    B, N, _ = S.shape
+    buf = torch.empty((B, N, _round_up(N, 8)), dtype=torch.bfloat16, device=S.device)
+    view = buf[:, :, :N]
+    view.copy_(S)
+    return view
 
 
 def _per_image(x: Scalar, B: int, device) -> torch.Tensor:
@@ -53,22 +228,7 @@ def chebyshev_filter_plain(S: torch.Tensor, X: torch.Tensor, c: Scalar,
     return t1
 
 
-def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
-                     degree: int) -> torch.Tensor:
-    """T_degree(((I - S) - c) / e) X per image.
-
-    S: (B, N, N) whitened operator; X: (B, N, m) f32; c, e: window
-    parameters, scalars or per image (B,). CPU tensors run the plain twin.
-    CUDA tensors run the kernel, which takes a bf16 S and f32 X, any m (in
-    groups of 8 columns) and any N. Returns a new (B, N, m) f32 tensor.
-
-    The kernel runs one launch per step of the chain plus a last rescale
-    pass, all from one call; `chebyshev_filter.launches` counts calls, that
-    is whole chains, not those launches."""
-    if degree < 1:
-        raise ValueError("degree must be >= 1")
-    if not X.is_cuda:
-        return chebyshev_filter_plain(S, X, c, e, degree)
+def _checked(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar):
     B, N, m = X.shape
     if S.dtype != torch.bfloat16 or X.dtype != torch.float32:
         raise TypeError(f"cheb kernel takes bf16 S and f32 X; got {S.dtype}, {X.dtype}")
@@ -76,11 +236,103 @@ def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
         raise ValueError(f"S shape {tuple(S.shape)} != {(B, N, N)}")
     if S.device != X.device:
         raise ValueError(f"S is on {S.device}, X on {X.device}")
+    if isinstance(c, (int, float)) and isinstance(e, (int, float)):
+        # filled on the device: no blocking copy of two host scalars a call
+        ce = torch.empty((B, 2), dtype=torch.float32, device=X.device)
+        ce[:, 0].fill_(c)
+        ce[:, 1].fill_(e)
+    else:
+        ce = torch.stack([_per_image(c, B, X.device), _per_image(e, B, X.device)],
+                         dim=1).contiguous()
+    return X.contiguous(), ce
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SMS[index]
+
+
+def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
+                     degree: int) -> torch.Tensor:
+    """T_degree(((I - S) - c) / e) X per image.
+
+    S: (B, N, N) whitened operator; X: (B, N, m) f32; c, e: window
+    parameters, scalars or per image (B,). CPU tensors run the plain twin.
+    CUDA tensors run the kernel, which takes a bf16 S (rows not 16-byte
+    aligned are copied once, `kernel_operator`) and f32 X, any m (in groups
+    of 8 columns), any N and B. Returns a new (B, N, m) f32 tensor.
+
+    One launch per call, in the build `cheb_filter_plan` picks;
+    `chebyshev_filter.launches` counts them."""
+    if degree < 1:
+        raise ValueError("degree must be >= 1")
+    if not X.is_cuda:
+        return chebyshev_filter_plain(S, X, c, e, degree)
+    B, N, m = X.shape
+    X, ce = _checked(S, X, c, e)
+    plan = cheb_filter_plan(B, N, m, _sms(X.device))
+    out = launch_plan(kernel_operator(S), X, ce, degree, plan)
+    chebyshev_filter.launches += 1
+    return out
+
+
+def launch_plan(S: torch.Tensor, X: torch.Tensor, ce: torch.Tensor, degree: int,
+                plan: ChebPlan, lib=None) -> torch.Tensor:
+    """One launch of the kernel under `plan` (no checks, no count):
+    `chebyshev_filter`'s launch, and the probes' with other plans or another
+    build of the library (`lib`). S in the kernel's layout
+    (`kernel_operator`), X contiguous f32, ce (B, 2)."""
+    B, N, m = X.shape
+    out = torch.empty((B, N, m), dtype=torch.float32, device=X.device)
+    from .. import _build
+    lib = lib or _build.load()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.build == "resident":
+            tg = torch.empty((B, _round_up(m, 8), _round_up(N, 8)), dtype=torch.bfloat16,
+                             device=X.device)
+            err = lib.dss_cheb_filter_resident(
+                S.data_ptr(), S.stride(1), S.stride(0), X.data_ptr(), ce.data_ptr(),
+                out.data_ptr(), tg.data_ptr(), B, N, m, degree, plan.cluster, plan.rows,
+                plan.smem, stream)
+        else:
+            # T_{j-1}, T_j, T_{j+1} of every row (f32), bf16 T transposed and
+            # double-buffered, and the grid barrier's counter + each step's
+            # column maxima
+            work = torch.empty((3, B, N, m), dtype=torch.float32, device=X.device)
+            tb = torch.empty((2, B, _round_up(m, 8), _round_up(N, KEYS)),
+                             dtype=torch.bfloat16, device=X.device)
+            flags = torch.empty(1 + (degree + 1) * B * m, dtype=torch.int32, device=X.device)
+            err = lib.dss_cheb_filter_stream(
+                S.data_ptr(), S.stride(1), S.stride(0), X.data_ptr(), ce.data_ptr(),
+                out.data_ptr(), work.data_ptr(), tb.data_ptr(), flags.data_ptr(), B, N, m,
+                degree, plan.ctas, plan.images_per_group, plan.key_window, plan.smem, stream)
+    _build.check(err, "chebyshev_filter")
+    return out
+
+
+chebyshev_filter.launches = 0
+
+
+def chebyshev_filter_mma(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
+                         degree: int) -> torch.Tensor:
+    """The earlier build of the kernel (`csrc/cheb_filter.cu`: mma.sync,
+    one launch per step plus a last rescale pass, the operator re-read every
+    step), kept as the yardstick of `chebyshev_filter`; no path calls it.
+    CUDA tensors only; `chebyshev_filter_mma.launches` counts calls."""
+    if degree < 1:
+        raise ValueError("degree must be >= 1")
+    if not X.is_cuda:
+        raise ValueError("chebyshev_filter_mma runs on CUDA tensors only")
+    B, N, m = X.shape
+    X, ce = _checked(S, X, c, e)
     # the kernel's vector loads need 16-byte aligned bases
-    S, X = (x if x.data_ptr() % 16 == 0 else x.clone()
-            for x in (S.contiguous(), X.contiguous()))
-    ce = torch.stack([_per_image(c, B, X.device), _per_image(e, B, X.device)],
-                     dim=1).contiguous()
+    S, X = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (S.contiguous(), X))
     out = torch.empty((B, N, m), dtype=torch.float32, device=X.device)
     # T_{j-1} and the two alternating unscaled T_j, and each step's column maxima
     work = torch.empty((3, B, N, m), dtype=torch.float32, device=X.device)
@@ -88,12 +340,12 @@ def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
     from .. import _build
     lib = _build.load()
     with torch.cuda.device(X.device):
-        err = lib.dss_cheb_filter(
+        err = lib.dss_cheb_filter_mma(
             S.data_ptr(), X.data_ptr(), ce.data_ptr(), out.data_ptr(), work.data_ptr(),
             colmax.data_ptr(), B, N, m, degree, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "chebyshev_filter")
-    chebyshev_filter.launches += 1
+    _build.check(err, "chebyshev_filter_mma")
+    chebyshev_filter_mma.launches += 1
     return out
 
 
-chebyshev_filter.launches = 0
+chebyshev_filter_mma.launches = 0

@@ -45,7 +45,7 @@ import torch
 
 from ..utils.precision import exact_f32
 from .affinity import degree_vector, feature_affinity, l2_normalize
-from .cheb_filter import _per_image, chebyshev_filter
+from .cheb_filter import _per_image, chebyshev_filter, kernel_operator
 from .lobpcg import eigh_finite as _eigh_finite
 from .lobpcg import lobpcg_standard
 
@@ -285,7 +285,10 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
     sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
     S_fast = sc[:, :, None] * W * sc[:, None, :]
     if matvec_precision == "bf16":
-        S_fast = S_fast.to(torch.bfloat16)
+        # the kernel's TMA map needs 16-byte aligned rows: built padded here
+        # once, not copied by the wrapper at every filter
+        S_fast = (kernel_operator(S_fast) if use_kernel and S_fast.is_cuda
+                  else S_fast.to(torch.bfloat16))
     filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
 
     def A_mv(X):  # I - D^-1/2 W D^-1/2, true f32

@@ -29,8 +29,10 @@ from deep_spectral_tpu_torch.models.flash_attention import (
     flash_backward_plain, flash_bwd_dkv, flash_bwd_dq)
 from deep_spectral_tpu_torch.ops import affinity as ta
 from deep_spectral_tpu_torch.ops import eigen as te
-from deep_spectral_tpu_torch.ops.cheb_filter import (chebyshev_filter,
-                                                     chebyshev_filter_plain)
+from deep_spectral_tpu_torch.ops.cheb_filter import (cheb_filter_plan, chebyshev_filter,
+                                                     chebyshev_filter_mma,
+                                                     chebyshev_filter_plain,
+                                                     first_streamed_n)
 
 pytestmark = pytest.mark.cuda
 
@@ -360,6 +362,38 @@ def test_cheb_kernel_matches_twin(cuda, N, m, degree):
     assert chebyshev_filter.launches == before + 1
     ref = chebyshev_filter_plain(S, X, c, e, degree)
     assert (got - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,N,m,degree", [(2, 17, 13, 10), (2, 900, 8, 10), (2, 333, 13, 3),
+                                          (2, 1000, 13, 10), (2, 2500, 8, 10), (1, 900, 8, 10),
+                                          (2, 900, 23, 1), (4, 640, 23, 3), (4, "below", 8, 10),
+                                          (4, "limit", 8, 10), (4, 3600, 8, 3)])
+def test_cheb_sm90_matches_twin_and_mma(cuda, B, N, m, degree):
+    """The Hopper kernel (the build its plan picks: resident clusters up to
+    the limit, streaming from it) against the twin and against the mma.sync
+    build at test_cheb_kernel_matches_twin's grid, plus B=1, m=23, degree 1,
+    N on both sides of the resident limit and phase 9's N=3600 degree 3; one
+    column of the last image NaN (NaNs where the twin's); one launch a
+    call."""
+    if N in ("below", "limit"):
+        N = first_streamed_n(B, m) - (8 if N == "below" else 0)
+    S, g = _operators(B, N, N + m)
+    X = torch.randn((B, N, m), generator=g)
+    X[B - 1, N // 2, m - 1] = float("nan")
+    c, e = torch.tensor([1.5, 1.9, 1.7, 1.2][:B]), torch.tensor([0.5, 0.1, 0.3, 0.8][:B])
+    S, X, c, e = (t.to(cuda) for t in (S, X, c, e))
+    before = chebyshev_filter.launches
+    got = chebyshev_filter(S, X, c, e, degree)
+    mma = chebyshev_filter_mma(S, X, c, e, degree)
+    torch.cuda.synchronize()
+    assert chebyshev_filter.launches == before + 1
+    ref = chebyshev_filter_plain(S, X, c, e, degree)
+    for out in (got, mma):
+        assert torch.equal(torch.isnan(out), torch.isnan(ref))
+        assert torch.isnan(out[B - 1, :, m - 1]).all()
+        assert (out - ref).nan_to_num().abs().max().item() <= 1e-3
+    assert cheb_filter_plan(B, N, m).build == ("resident" if N < first_streamed_n(B, m)
+                                               else "streaming")
 
 
 @pytest.mark.parametrize("precision", ["bf16", "f32"])

@@ -95,7 +95,9 @@ def test_cheb_twin_matches_pallas(side, degree):
 
 
 def _filter_by_steps(S, X, c, e, degree, slab=64):
-    """The CUDA filter kernel's decomposition of the chain, in plain torch:
+    """The mma.sync build's decomposition of the chain (`csrc/cheb_filter.cu`,
+    kept as the yardstick of the Hopper kernel, whose schedules
+    tests/test_torch_cheb_sm90.py renders), in plain torch:
     one pass per step over slabs of `slab` operator rows. A step reads the
     previous step's unscaled output R and its column maxima, turns them into
     the factor, scales R (and the carried T_{j-1}, buffer A) in f32 and only
@@ -137,7 +139,7 @@ def _filter_by_steps(S, X, c, e, degree, slab=64):
 @pytest.mark.parametrize("N,m,degree", [(37, 5, 1), (37, 13, 3), (37, 5, 10),
                                         (130, 13, 10), (130, 5, 3), (130, 13, 1)])
 def test_cheb_kernel_step_order(N, m, degree):
-    """The kernel's step order (the factor carried into the next step and
+    """The mma.sync build's step order (the factor carried into the next step and
     applied before the bf16 rounding, then a final scaling pass) against the
     twin and the Pallas kernel (interpret mode), on the same numpy inputs, N
     not a multiple of the 64-row slab, one column holding a NaN. The
