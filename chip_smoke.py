@@ -649,12 +649,20 @@ def cheb_shapes() -> list:
 def phase_cheb(dev) -> dict:
     import torch
     from deep_spectral_tpu_torch.ops.cheb_filter import (
-        cheb_filter_plan, chebyshev_filter, chebyshev_filter_mma, chebyshev_filter_plain,
-        kernel_operator)
+        CARD_SMS, H100_CLUSTERS_AT_ONCE, card_clusters_at_once, cheb_filter_plan,
+        chebyshev_filter, chebyshev_filter_mma, chebyshev_filter_plain, kernel_operator)
     from deep_spectral_tpu_torch.ops.eigen import chebyshev_filter_chain
     from deep_spectral_tpu_torch.utils.precision import exact_f32
     g = torch.Generator().manual_seed(2)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the plan's card: its SMs and the clusters of each size it holds at
+    # once, asked of the card; on an H100 SXM the CPU's record must agree
+    card = card_clusters_at_once(dev)
+    log(f"[3] the card holds {dict(enumerate(card[1]))} clusters of each size at once "
+        f"(one CTA an SM; {card[0]} SMs)")
+    if card[0] == CARD_SMS and "H100" in torch.cuda.get_device_name(dev) and \
+            card[1] != H100_CLUSTERS_AT_ONCE:
+        raise AssertionError(f"H100_CLUSTERS_AT_ONCE {H100_CLUSTERS_AT_ONCE} is not this "
+                             f"card's answer {card[1]}")
     worst, main = 0.0, None
     for (b, N, degree, window, m) in cheb_shapes():
         S = whitened_operators(b, N, dev, g)
@@ -665,7 +673,7 @@ def phase_cheb(dev) -> dict:
         else:
             lam_cut = (torch.rand(b, generator=g) * 0.9 + 0.05).to(dev)
             c, e = (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
-        plan = cheb_filter_plan(b, N, m, sms)
+        plan = cheb_filter_plan(b, N, m, *card)
         out = chebyshev_filter(Sk, X, c, e, degree)
         mma = chebyshev_filter_mma(S, X, c, e, degree)
         torch.cuda.synchronize()
@@ -711,7 +719,7 @@ def phase_cheb(dev) -> dict:
         layout = (f"resident: clusters of {plan.cluster} CTAs ({plan.rows} rows each), "
                   f"{at_once} clusters at once, {waves} wave(s)" if resident else
                   f"streaming: {plan.ctas} persistent CTAs ({at_once} fit at once), "
-                  f"{plan.images_per_group} image(s) a group, key window {plan.key_window}")
+                  f"key window {plan.key_window}")
         log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}: {layout}, {threads} "
             f"threads and {smem} B of shared memory a CTA; max |kernel - "
             f"twin| {err:.3e}, mma.sync build {err_mma:.3e} (tol {CHEB_TOL}); kernel "
@@ -749,11 +757,11 @@ def phase_cheb_launches(dev) -> None:
     reported no events)."""
     import torch
     from deep_spectral_tpu_torch.ops.cheb_filter import (
-        cheb_filter_plan, chebyshev_filter, kernel_operator)
+        card_clusters_at_once, cheb_filter_plan, chebyshev_filter, kernel_operator)
     g = torch.Generator().manual_seed(7)
     seen = []
     for b, N, degree, _, m in cheb_shapes():
-        build = cheb_filter_plan(b, N, m).build
+        build = cheb_filter_plan(b, N, m, *card_clusters_at_once(dev)).build
         S = kernel_operator(whitened_operators(b, N, dev, g))
         X = torch.randn((b, N, m), generator=g).to(dev)
         ran = cheb_device_kernels(lambda: chebyshev_filter(S, X, 2.0, 1.0, degree))

@@ -50,11 +50,13 @@ _SIGNATURES = {
     # S, ld, bs, X, ce, out, T staging in global memory; B, N, m, degree,
     # cluster, rows, smem; stream
     "dss_cheb_filter_resident": [_P, _LL, _LL] + [_P] * 4 + [_I] * 7 + [_P],
-    # S, ld, bs, X, ce, out, work, tb, flags; B, N, m, degree, ctas, ipg,
+    # S, ld, bs, X, ce, out, work, flags; B, N, m, degree, ctas,
     # key_window, smem; stream
-    "dss_cheb_filter_stream": [_P, _LL, _LL] + [_P] * 6 + [_I] * 8 + [_P],
+    "dss_cheb_filter_stream": [_P, _LL, _LL] + [_P] * 5 + [_I] * 7 + [_P],
     # build, B, N, m, cluster or ctas, rows or key_window; out (6 ints)
     "dss_cheb_filter_sm90_info": [_I] * 6 + [_IP],
+    # cluster, shared bytes a CTA; out: clusters the card holds at once
+    "dss_cheb_clusters_at_once": [_I, _I, _IP],
     # the mma.sync build, the yardstick: S, X, ce, out, work, colmax; B, N,
     # m, degree; stream
     "dss_cheb_filter_mma": [_P] * 6 + [_I] * 4 + [_P],

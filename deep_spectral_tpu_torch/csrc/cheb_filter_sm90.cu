@@ -44,22 +44,29 @@
 // Streaming (larger graphs): persistent CTAs, one an SM, launched
 // cooperatively so that all are resident and a grid-wide barrier (a counter
 // in global memory, release/acquire) is sound; the whole chain is one launch.
-// Images go in groups (`ipg` of them), each group's chain run before the
-// next's; groups whose operators fit the L2 would read S from L2 after their
-// first step, but measured slower than one group of every image (more grid
-// barriers and pipeline drains), so the plan makes one group. A group's rows,
-// in blocks of 16, are split evenly over the CTAs (contiguous ranges, which
-// may cross images). A producer warp streams the CTA's operator rows (boxes
-// of 64 keys x 16 rows) through a ring of shared-memory stages filled by TMA,
-// with full/empty mbarriers, so loads stay in flight while 8 consumer warps
-// run the products; it runs ahead across steps, since S does not change.
-// bf16(T_j) lives in global memory (double-buffered, transposed) and is
-// staged in key windows of up to 4096. A step: products, T_{j+1} of the CTA's
-// rows in f32 (state kept in global memory by its owner), atomicMax of the
-// column maxima, grid barrier; the owner scales and rounds its rows into the
-// other T buffer, grid barrier. (Carrying the factor into the next step's
-// staging, as the mma.sync build does, saves a barrier but stages f32 where
-// this stages bf16: measured slower at N=3600.)
+// The rows of every image, in blocks of 16, are split evenly over the CTAs
+// (contiguous ranges, which may cross images). A producer warp streams the
+// CTA's operator rows (boxes of 64 keys x 16 rows) through a ring of 16
+// shared-memory stages filled by TMA, with full/empty mbarriers, so loads
+// stay in flight while the consumer warps run the products; it runs ahead
+// across steps, since S does not change. The traversal alternates direction
+// step by step (segments, then keys, from the end on even steps), so a step
+// first reads the operator rows the step before read last, which are still
+// in L2 when the operators do not all fit it. Four groups of 2 consumer
+// warps take every 4th stage, a warp two row blocks of it, all 64 keys
+// (fragments loaded before the products).
+// One grid barrier a step: T_j goes to global memory unscaled (f32,
+// transposed, one buffer a step parity) with its column maxima (atomicMax).
+// After the barrier every CTA stages bf16(T_j * factor) of the image in key
+// windows of up to 4096, scaling in f32 before the rounding, 8 key blocks at
+// a time: a chunk's loads are issued as the products of the chunk before it
+// start, and rounded into shared memory as they end. The owner of a row
+// scales its T_j and T_{j-1} by the same factors as it computes T_{j+1}
+// (its inputs loaded before the products). Measured against a first form
+// with two barriers a step (the owners scaled and rounded their rows between
+// them; bf16 staging), images in groups that fit the L2 (slower: more
+// barriers), bulk copies (TMA) for the staging (slower: queued behind the
+// ring's loads) and fewer CTAs (slower): PERF.md.
 //
 // Tensor cores: mma.sync m16n8k16 (bf16 x bf16 exact, f32 sums), A fragments
 // by ldmatrix from the swizzled operator in shared memory (a warp takes two
@@ -92,29 +99,37 @@
 
 namespace cg = cooperative_groups;
 
-// DSS_CHEB_ABLATE, set only by `probe_cheb ablate` in builds of its own whose
-// results are wrong: the resident build with parts of its step left out, to
-// time them. Bit 1: the products; 2: the exchange with the peers (each CTA
-// keeps its maxima and rows to itself, behind a CTA barrier). Bit 4 (a
-// correct build): CTA 0 of the first cluster records clock64() at the
-// step's phase boundaries (`dss_cheb_timeline`).
+// DSS_CHEB_ABLATE, set only by `probe_cheb` in builds of its own. Bits 1 and
+// 2 (`ablate`; wrong results, times only): the resident build without its
+// products (1) or without the exchange with the peers (2: each CTA keeps its
+// maxima and rows to itself, behind a CTA barrier). Bit 4 (`ablate`,
+// `crossover`; a correct build): CTA 0 of the first cluster records
+// clock64() at the step's phase boundaries (`dss_cheb_timeline`). Bit 8
+// (`flip`; a correct build, the sums in another order): the streaming build
+// traverses every step forward.
 #ifndef DSS_CHEB_ABLATE
 #define DSS_CHEB_ABLATE 0
 #endif
-// DSS_CHEB_SEND_ST_ASYNC, set only by `probe_cheb variants`: the earlier
-// exchange of the own rows of T, st.async stores from every thread into
-// every peer, in place of one multicast copy a column from global memory.
-#ifndef DSS_CHEB_SEND_ST_ASYNC
-#define DSS_CHEB_SEND_ST_ASYNC 0
-#endif
+// Bit 4 also makes the streaming build's CTA 0 record, a step: the cycles it
+// spent staging T's first chunks, waiting for ring stages and in the
+// epilogues, clock64() when its products are done and past the grid
+// barrier, and the cycles its producer waited for free stages.
 #if DSS_CHEB_ABLATE & 4
 constexpr int TL_PHASES = 6;
 __device__ long long dss_timeline[2 + 32 * TL_PHASES];
+#define TL_ON (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0)
 #define TIMELINE(i) \
-  if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0 && (i) < 2 + 32 * TL_PHASES) \
-    dss_timeline[i] = clock64();
+  if (TL_ON && (i) < 2 + 32 * TL_PHASES) dss_timeline[i] = clock64();
+#define TL_CLOCK() clock64()
+#define TL_ADD(i, v) \
+  if (TL_ON && (i) < 2 + 32 * TL_PHASES) dss_timeline[i] += (v);
+#define TL_ADD_PRODUCER(i, v) \
+  if (tid == THREADS && blockIdx.x == 0 && (i) < 2 + 32 * TL_PHASES) dss_timeline[i] += (v);
 #else
 #define TIMELINE(i)
+#define TL_CLOCK() 0LL
+#define TL_ADD(i, v) (void)(v);
+#define TL_ADD_PRODUCER(i, v) (void)(v);
 #endif
 
 namespace {
@@ -123,10 +138,12 @@ constexpr int KT = 64;             // keys per 128-byte (swizzled) operator row 
 constexpr int MC = 8;              // columns per group (the mma's n)
 constexpr int NWARPS = 8;          // resident: all warps compute
 constexpr int THREADS = NWARPS * 32;
-constexpr int STAGES = 8;          // streaming: ring stages of 64 rows x 64 keys
+constexpr int STAGES = 16;         // streaming: ring stages of 64 rows x 64 keys
 constexpr int STAGE_BYTES = 64 * 128;
 constexpr int BOX_ROWS = 16;       // streaming: rows per TMA box
 constexpr int SEG_BLOCKS = 4;      // streaming: row blocks of 16 per segment (the stage)
+constexpr int GROUPS = 4;          // streaming: consumer warp groups, taking every 4th stage
+constexpr int CHUNK = 8;           // streaming: key blocks of T staged at once
 constexpr int STREAM_THREADS = THREADS + 32;  // 8 consumer warps + the producer warp
 constexpr int UPT = 4;             // resident: (column, 2 rows) units a thread keeps
 constexpr int NBW = 2;             // resident: row blocks a warp multiplies by one B fragment
@@ -171,7 +188,7 @@ __host__ __device__ inline ResLayout res_layout(int N, int m, int R, int CS) {
 // Streaming shared memory.
 struct StreamLayout {
   int TPs;
-  long long ring, sT, part, cm, bars, total;
+  long long ring, sT, part, cm, sf, bars, total;
 };
 
 __host__ __device__ inline StreamLayout stream_layout(int KW) {
@@ -183,8 +200,10 @@ __host__ __device__ inline StreamLayout stream_layout(int KW) {
   L.sT = o;
   o += (long long)MC * L.TPs * 2;
   L.part = o;
-  o += 2LL * 64 * MC * 4;
+  o += (long long)GROUPS * 64 * MC * 4;
   L.cm = o;
+  o += MC * 4;
+  L.sf = o;  // the staged columns' scale factors
   o += MC * 4;
   L.bars = o;
   o += 2LL * STAGES * 8;
@@ -231,18 +250,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
 // block of 128-byte rows starting at the 1024-aligned `base`.
 __device__ __forceinline__ uint32_t swz(uint32_t base, int row, int chunk) {
   return base + row * 128 + ((chunk ^ (row & 7)) << 4);
-}
-
-// A fragment (rows rb*16 .. +16, keys 16 kk .. +16 of a 64-key block) and
-// the product with the staged columns at key offset `key` + 16 kk.
-__device__ __forceinline__ void mma_kstep(float (&acc)[4], uint32_t block, int rb, int kk,
-                                          uint32_t tcol, int key, int lane) {
-  uint32_t a[4], bf[2];
-  const int q = lane >> 3;
-  const int row = rb * 16 + (lane & 7) + 8 * (q & 1);
-  ldsm_x4(a, swz(block, row, 2 * kk + (q >> 1)));
-  ldsm_x2(bf, tcol + (key + 16 * kk + 8 * (q & 1)) * 2);
-  mma_16816(acc, a, bf);
 }
 
 // The resident slab's k-steps [kbeg, kend) for row blocks rb .. rb + nb - 1
@@ -312,13 +319,6 @@ __device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src, ui
       : "memory");
 }
 
-// 16 bytes into a peer's shared memory, completing on the peer's mbarrier.
-__device__ __forceinline__ void st_async_v4(uint32_t addr, const uint4& v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar) : "memory");
-}
-
 // max(*addr, v) in a peer's shared memory, completing 4 bytes on the peer's
 // mbarrier.
 __device__ __forceinline__ void red_async_max(uint32_t addr, uint32_t v, uint32_t bar) {
@@ -371,8 +371,8 @@ __device__ __forceinline__ float a_shift(float omc, float t1, float y, float inv
 
 // grid (CS, B), cluster (CS, 1, 1): CTA `rank` of cluster b owns rows
 // [rank R, rank R + R) of image b. No cluster barrier inside the chain: the
-// column maxima and the bf16 rows of T go to every peer by st.async, each
-// receiver waits on its own mbarrier for the bytes it expects, and the
+// column maxima go to every peer by red.async and the bf16 rows of T by a
+// multicast bulk copy from L2, each receiver waits on its own mbarrier for the bytes it expects, and the
 // exchange of the maxima orders the rest (a peer writes T_{j+1} into this
 // CTA's staging only after it has this CTA's maxima of step j, sent after
 // this CTA's last read of T_j; it sends its maxima of step j + 1 only after
@@ -585,11 +585,11 @@ cheb_resident_kernel(const __grid_constant__ CUtensorMap tS,
     }
     TIMELINE(5 + (step - 1) * TL_PHASES)
     if (!last) {  // the own rows into every peer's staging buffer
-      if (!DSS_CHEB_SEND_ST_ASYNC) asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
       __syncthreads();
       if (DSS_CHEB_ABLATE & 2) {
         __syncthreads();
-      } else if (!DSS_CHEB_SEND_ST_ASYNC) {
+      } else {
         // each column's own rows from global memory (L2) into every peer
         // with rows: one multicast copy a column, the TMA engine's work
         const uint16_t mask = (uint16_t)(((1u << with_rows) - 1u) & ~(1u << rank));
@@ -599,16 +599,6 @@ cheb_resident_kernel(const __grid_constant__ CUtensorMap tS,
                          tbar, mask);
         TIMELINE(6 + (step - 1) * TL_PHASES)
         if (has_rows) mbar_wait_cluster(tbar, parity);  // T_{j+1} staged
-      } else {
-        for (int k = tid; k < MP * own8 * CS; k += THREADS) {
-          const int p = k % CS, q = k / CS;
-          if (p == rank || p >= with_rows) continue;
-          const __nv_bfloat16* chunk = sT + (q % MP) * L.TP + row0 + 8 * (q / MP);
-          st_async_v4(peer_addr(smem_u32(chunk), p), *reinterpret_cast<const uint4*>(chunk),
-                      peer_addr(tbar, p));
-        }
-        TIMELINE(6 + (step - 1) * TL_PHASES)
-        if (has_rows) mbar_wait_cluster(tbar, parity);
       }
     }
     TIMELINE(7 + (step - 1) * TL_PHASES)
@@ -622,30 +612,36 @@ struct StreamArgs {
   const float* X;        // (B, N, m)
   const float* ce;       // (B, 2)
   float* out;            // (B, N, m)
-  float* t0;             // (B, N, m): T_{j-1} of each row, kept by its owner
-  float* t1;             // (B, N, m): T_j
-  float* w;              // (B, N, m): T_{j+1} unscaled
-  __nv_bfloat16* tb;     // (2, B, MP, NT): bf16 T, transposed, double-buffered
-  unsigned int* colmax;  // (degree + 1, B, m)
+  float* u;              // (2, B, MP, NT): T_j unscaled, transposed, by step parity
+  float* t1;             // (B, MP, NT): the scaled T_{j-1} of each row, kept by its owner
+  unsigned int* colmax;  // (degree + 1, B, MP)
   unsigned int* counter; // grid barrier
-  int B, N, m, degree, ipg, KW;
+  int B, N, m, degree, KW;
 };
 
-// The CTA's share of image group `grp`: row blocks [lo, hi) of the group's
-// images in order, cut at image ends and every SEG_BLOCKS blocks.
+// The CTA's share: row blocks [lo, hi) of the images in order, cut at image
+// ends and every SEG_BLOCKS blocks; from the last block back when `rev`.
 template <typename F>
-__device__ __forceinline__ void for_each_segment(const StreamArgs& a, int grp, F&& fn) {
+__device__ __forceinline__ void for_each_segment(const StreamArgs& a, bool rev, F&& fn) {
   const int RBI = (a.N + 15) / 16;
-  const int img0 = grp * a.ipg;
-  const int nimg = min(a.ipg, a.B - img0);
-  const long long tot = (long long)nimg * RBI;
+  const long long tot = (long long)a.B * RBI;
   const long long lo = (long long)blockIdx.x * tot / gridDim.x;
   const long long hi = (long long)(blockIdx.x + 1) * tot / gridDim.x;
-  for (long long blk = lo; blk < hi;) {
-    const int bi = (int)(blk / RBI), rb = (int)(blk % RBI);
-    const int nb = (int)min((long long)min(SEG_BLOCKS, RBI - rb), hi - blk);
-    fn(img0 + bi, rb * 16, min(nb * 16, a.N - rb * 16), nb);
-    blk += nb;
+  if (!rev) {
+    for (long long blk = lo; blk < hi;) {
+      const int bi = (int)(blk / RBI), rb = (int)(blk % RBI);
+      const int nb = (int)min((long long)min(SEG_BLOCKS, RBI - rb), hi - blk);
+      fn(bi, rb * 16, min(nb * 16, a.N - rb * 16), nb);
+      blk += nb;
+    }
+    return;
+  }
+  for (long long end = hi; end > lo;) {  // blocks [end - nb, end)
+    const int bi = (int)((end - 1) / RBI), re = (int)((end - 1) % RBI) + 1;
+    const int nb = (int)min((long long)min(SEG_BLOCKS, re), end - lo);
+    const int rb = re - nb;
+    fn(bi, rb * 16, min(nb * 16, a.N - rb * 16), nb);
+    end -= nb;
   }
 }
 
@@ -672,6 +668,37 @@ __device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int n)
   consumer_sync();
 }
 
+// Row blocks rb and rb + 1 (the first nbr of them) of a ring stage (row
+// blocks of 16 x 64 keys): four k-steps, their fragments loaded before the
+// products, each B fragment feeding both row blocks.
+__device__ __forceinline__ void mma_stage(float (&acc)[2][4], uint32_t block, int rb, int nbr,
+                                          uint32_t tcol, int key, int lane) {
+  uint32_t a[2][4][4], bf[4][2];
+  const int q = lane >> 3;
+  const int row = rb * 16 + (lane & 7) + 8 * (q & 1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    ldsm_x2(bf[kk], tcol + (key + 16 * kk + 8 * (q & 1)) * 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < nbr) ldsm_x4(a[h][kk], swz(block, row + 16 * h, 2 * kk + (q >> 1)));
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (h < nbr) mma_16816(acc[h], a[h][kk], bf[kk]);
+}
+
+// The scale factor of column `col` of image b after step `step` (1 after
+// step 0, the start, and step 1, which the twin does not scale).
+__device__ __forceinline__ float step_factor(const StreamArgs& a, int step, int b, int col,
+                                            int MP) {
+  return step >= 2 && col < a.m
+             ? factor_of(__ldcg(a.colmax + ((long long)step * a.B + b) * MP + col))
+             : 1.0f;
+}
+
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
 cheb_stream_kernel(const __grid_constant__ CUtensorMap tS, const StreamArgs a) {
   const StreamLayout L = stream_layout(a.KW);
@@ -682,6 +709,7 @@ cheb_stream_kernel(const __grid_constant__ CUtensorMap tS, const StreamArgs a) {
   __nv_bfloat16* sT = reinterpret_cast<__nv_bfloat16*>(smem + L.sT);
   float* part = reinterpret_cast<float*>(smem + L.part);
   unsigned int* cm = reinterpret_cast<unsigned int*>(smem + L.cm);
+  float* sf = reinterpret_cast<float*>(smem + L.sf);
   const uint32_t bars = smem_u32(smem + L.bars);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
@@ -692,13 +720,13 @@ cheb_stream_kernel(const __grid_constant__ CUtensorMap tS, const StreamArgs a) {
   const int N = a.N, m = a.m, B = a.B;
   const int MP = (m + MC - 1) / MC * MC;
   const int NT = (N + KT - 1) / KT * KT;
+  const long long UB = (long long)B * MP * NT;  // one step's buffer of u
   const int nwin = (NT + a.KW - 1) / a.KW;
-  const int groups = (B + a.ipg - 1) / a.ipg;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), NWARPS);
+      mbar_init(empty(s), NWARPS / GROUPS);  // the warps of the stage's group
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -708,128 +736,218 @@ cheb_stream_kernel(const __grid_constant__ CUtensorMap tS, const StreamArgs a) {
     // ------------------------------------------------------------ producer
     if (lane == 0) {
       int it = 0;
-      for (int grp = 0; grp < groups; ++grp)
-        for (int step = 1; step <= a.degree; ++step)
-          for_each_segment(a, grp, [&](int b, int r0, int cnt, int nb) {
-            for (int gi = 0; gi < MP / MC; ++gi)
-              for (int k0 = 0; k0 < NT; k0 += KT, ++it) {
-                const int s = it % STAGES;
-                mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
-                mbar_arrive_expect_tx(full(s), nb * BOX_ROWS * 128);
-                for (int i = 0; i < nb; ++i)
-                  tma_load_3d(ring + s * STAGE_BYTES + i * BOX_ROWS * 128, &tS, full(s), k0,
-                              r0 + i * BOX_ROWS, b);
-              }
-          });
+      for (int step = 1; step <= a.degree; ++step) {
+        const bool rev = !(DSS_CHEB_ABLATE & 8) && !(step & 1);
+        for_each_segment(a, rev, [&](int b, int r0, int cnt, int nb) {
+          for (int gi = 0; gi < MP / MC; ++gi)
+            for (int kb = 0; kb < NT / KT; ++kb, ++it) {
+              const int k0 = (rev ? NT / KT - 1 - kb : kb) * KT;
+              const int s = it % STAGES;
+              const long long t_e = TL_CLOCK();
+              mbar_wait(empty(s), ((it / STAGES) & 1) ^ 1);
+              TL_ADD_PRODUCER(2 + (step - 1) * 6 + 5, TL_CLOCK() - t_e)
+              mbar_arrive_expect_tx(full(s), nb * BOX_ROWS * 128);
+              for (int i = 0; i < nb; ++i)
+                tma_load_3d(ring + s * STAGE_BYTES + i * BOX_ROWS * 128, &tS, full(s), k0,
+                            r0 + i * BOX_ROWS, b);
+            }
+        });
+      }
     }
     return;
   }
 
   // -------------------------------------------------------------- consumers
   const int g = lane >> 2, t = lane & 3;
-  const int rb = warp & 3, kh = warp >> 2;
+  // group grp takes stages it with it % GROUPS == grp, a warp row blocks rb, rb + 1
+  const int rb = (warp & 1) * 2, grp = warp >> 1;
   unsigned int nbar = 0;
-  // T_0 = bf16(X) into buffer 0 (every image; the buffers were zeroed)
+#if DSS_CHEB_ABLATE & 4
+  if (TL_ON)
+    for (int i = 0; i < 2 + 32 * TL_PHASES; ++i) dss_timeline[i] = 0;
+#endif
+  TIMELINE(0)
+  // T_0 = X, transposed, into u's buffer 0 (rows below N, columns below m)
   for (long long i = (long long)blockIdx.x * THREADS + tid; i < (long long)B * N * m;
        i += (long long)gridDim.x * THREADS) {
     const int col = (int)(i % m);
     const long long bn = i / m;
     const int b = (int)(bn / N), n = (int)(bn % N);
-    a.tb[((long long)b * MP + col) * NT + n] = __float2bfloat16_rn(a.X[i]);
+    a.u[((long long)b * MP + col) * NT + n] = a.X[i];
   }
   grid_sync(a.counter, ++nbar);
+  TIMELINE(1)
 
   int it = 0;
-  long long staged = -1;  // (step, image, group, window) of the staged block
-  for (int grp = 0; grp < groups; ++grp) {
-    for (int step = 1; step <= a.degree; ++step) {
-      const bool first = step == 1, last = step == a.degree;
-      const __nv_bfloat16* tin = a.tb + (long long)((step - 1) & 1) * B * MP * NT;
-      __nv_bfloat16* tout = a.tb + (long long)(step & 1) * B * MP * NT;
-      unsigned int* cmax = a.colmax + (long long)step * B * m;
-      for_each_segment(a, grp, [&](int b, int r0, int cnt, int nb) {
-        const float c = a.ce[2 * b];
-        const float inv_e = 1.0f / a.ce[2 * b + 1];
-        const float omc = 1.0f - c;
-        for (int gi = 0; gi < MP / MC; ++gi) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-          for (int w = 0; w < nwin; ++w) {
-            const int kw0 = w * a.KW, len = min(a.KW, NT - kw0);
-            const long long tag = (((long long)step * B + b) * (MP / MC) + gi) * nwin + w;
-            if (tag != staged) {
-              consumer_sync();  // every warp is done with the staged window
-              const __nv_bfloat16* src = tin + ((long long)b * MP + gi * MC) * NT + kw0;
-              for (int u = tid; u < MC * (len / 8); u += THREADS) {
-                const int cc = u / (len / 8), k8 = (u % (len / 8)) * 8;
-                *reinterpret_cast<uint4*>(sT + cc * L.TPs + k8) =
-                    __ldcg(reinterpret_cast<const uint4*>(src + (long long)cc * NT + k8));
+  long long staged = -1;  // (step, image, column group, window) of the staged block
+  for (int step = 1; step <= a.degree; ++step) {
+    const float* uin = a.u + (long long)((step - 1) & 1) * UB;  // T_{j-1} unscaled
+    float* uout = a.u + (long long)(step & 1) * UB;
+    unsigned int* cmax = a.colmax + (long long)step * B * MP;
+    const int tl = 2 + (step - 1) * 6;  // this step's timeline slots
+    const bool rev = !(DSS_CHEB_ABLATE & 8) && !(step & 1);
+    for_each_segment(a, rev, [&](int b, int r0, int cnt, int nb) {
+      const float c = a.ce[2 * b];
+      const float inv_e = 1.0f / a.ce[2 * b + 1];
+      const float omc = 1.0f - c;
+      for (int gi = 0; gi < MP / MC; ++gi) {
+        const float* ucol = uin + ((long long)b * MP + gi * MC) * NT;
+        // the epilogue's inputs, loaded while the products run
+        float pu[2], pt[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = tid + q * THREADS, cc = i / max(cnt, 1), r = i % max(cnt, 1);
+          const bool ok = i < cnt * MC && gi * MC + cc < m;
+          const long long idx = ((long long)b * MP + gi * MC + cc) * NT + r0 + r;
+          pu[q] = ok ? __ldcg(uin + idx) : 0.f;
+          pt[q] = ok && step > 1 ? a.t1[idx] : 0.f;
+        }
+        float acc[2][4] = {};
+        for (int wi = 0; wi < nwin; ++wi) {
+          const int w = rev ? nwin - 1 - wi : wi;
+          const int kw0 = w * a.KW, len = min(a.KW, NT - kw0), nkb = len / KT;
+          const int nch = (nkb + CHUNK - 1) / CHUNK;
+          // bf16(T_{j-1}) of the window: the previous step's unscaled rows
+          // times its column factors, in f32, then rounded (zero past N and
+          // m), a chunk of CHUNK key blocks (in the order of the traversal)
+          // at a time; each chunk's loads are issued as the products of the
+          // chunk before it start, and stored as they end
+          float4 v[2][2];
+          auto chunk_keys = [&](int q, int& lo, int& nbk) {
+            const int p0 = q * CHUNK, p1 = min(nkb, p0 + CHUNK);
+            lo = rev ? nkb - p1 : p0;
+            nbk = p1 - p0;
+          };
+          auto stage_load = [&](int q) {
+            int lo, nbk;
+            chunk_keys(q, lo, nbk);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int u = tid + h * THREADS;  // 8 keys of a column
+              if (u < MC * 8 * nbk) {
+                const float4* src = reinterpret_cast<const float4*>(
+                    ucol + (long long)(u / (8 * nbk)) * NT + kw0 + lo * KT + (u % (8 * nbk)) * 8);
+                v[h][0] = __ldcg(src);
+                v[h][1] = __ldcg(src + 1);
               }
-              consumer_sync();
-              staged = tag;
             }
-            const uint32_t tcol = smem_u32(sT + (lane & 7) * L.TPs);
-            for (int k0 = 0; k0 < len; k0 += KT, ++it) {
-              const int s = it % STAGES;
-              mbar_wait(full(s), (it / STAGES) & 1);
-              if (rb < nb) {
-                mma_kstep(acc, ring + s * STAGE_BYTES, rb, 2 * kh, tcol, k0, lane);
-                mma_kstep(acc, ring + s * STAGE_BYTES, rb, 2 * kh + 1, tcol, k0, lane);
+          };
+          auto stage_store = [&](int q) {
+            int lo, nbk;
+            chunk_keys(q, lo, nbk);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int u = tid + h * THREADS;
+              if (u < MC * 8 * nbk) {
+                const int cc = u / (8 * nbk), k = lo * KT + (u % (8 * nbk)) * 8;
+                const bool col_ok = gi * MC + cc < m;
+                const float f = sf[cc];
+                const float x[8] = {v[h][0].x, v[h][0].y, v[h][0].z, v[h][0].w,
+                                    v[h][1].x, v[h][1].y, v[h][1].z, v[h][1].w};
+                float y[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i) y[i] = col_ok && kw0 + k + i < N ? x[i] * f : 0.f;
+                *reinterpret_cast<uint4*>(sT + cc * L.TPs + k) = pack8(y);
               }
+            }
+          };
+          const long long tag = (((long long)step * B + b) * (MP / MC) + gi) * nwin + w;
+          int next = nch;  // the next chunk to stage
+          if (tag != staged) {
+            const long long t_s = TL_CLOCK();
+            consumer_sync();  // every warp is done with the staged window
+            if (tid < MC) sf[tid] = step_factor(a, step - 1, b, gi * MC + tid, MP);
+            stage_load(0);
+            consumer_sync();
+            stage_store(0);
+            consumer_sync();
+            staged = tag;
+            next = 1;
+            TL_ADD(tl, TL_CLOCK() - t_s)
+          }
+          const uint32_t tcol = smem_u32(sT + (lane & 7) * L.TPs);
+          for (int pi = 0; pi < nkb; ++pi, ++it) {
+            const bool ahead = next < nch && next == pi / CHUNK + 1;
+            if (ahead && pi % CHUNK == 0) stage_load(next);
+            if ((it % GROUPS) == grp) {
+              const int s = it % STAGES;
+              const long long t_w = TL_CLOCK();
+              mbar_wait(full(s), (it / STAGES) & 1);
+              TL_ADD(tl + 1, TL_CLOCK() - t_w)
+              const int k0 = (rev ? nkb - 1 - pi : pi) * KT;
+              if (rb < nb) mma_stage(acc, ring + s * STAGE_BYTES, rb, nb - rb, tcol, k0, lane);
               __syncwarp();
               if (lane == 0) mbar_arrive(empty(s));
             }
-          }
-          if (rb < nb) {
-            float* p = part + (kh * 64 + rb * 16) * MC;
-            p[g * MC + 2 * t] = acc[0];
-            p[g * MC + 2 * t + 1] = acc[1];
-            p[(g + 8) * MC + 2 * t] = acc[2];
-            p[(g + 8) * MC + 2 * t + 1] = acc[3];
-          }
-          if (tid < MC) cm[tid] = 0u;
-          consumer_sync();
-          for (int i = tid; i < cnt * MC; i += THREADS) {
-            const int r = i / MC, cc = i % MC, col = gi * MC + cc;
-            if (col >= m) continue;
-            const float y = part[r * MC + cc] + part[(64 + r) * MC + cc];
-            const long long idx = ((long long)b * N + r0 + r) * m + col;
-            if (first) {
-              const float t1 = a.X[idx];
-              const float wv = a_shift(omc, t1, y, inv_e);
-              a.t0[idx] = t1;
-              a.t1[idx] = wv;
-              if (last) a.out[idx] = wv;
-              else tout[((long long)b * MP + col) * NT + r0 + r] = __float2bfloat16_rn(wv);
-            } else {
-              const float av = a_shift(omc, a.t1[idx], y, inv_e);
-              const float wv = __fsub_rn(__fmul_rn(2.0f, av), a.t0[idx]);
-              a.w[idx] = wv;
-              atomicMax(cm + cc, abs_bits(wv));
+            if (ahead && (pi % CHUNK == CHUNK - 1 || pi == nkb - 1)) {
+              stage_store(next++);
+              consumer_sync();
             }
           }
-          consumer_sync();
-          if (!first && tid < MC && gi * MC + tid < m)
-            atomicMax(cmax + (long long)b * m + gi * MC + tid, cm[tid]);
         }
-      });
-      grid_sync(a.counter, ++nbar);
-      if (first) continue;
-      // the owner scales its rows and rounds T_{j+1} into the other buffer
-      for_each_segment(a, grp, [&](int b, int r0, int cnt, int nb) {
-        for (int i = tid; i < cnt * m; i += THREADS) {
-          const int r = i / m, col = i % m;
-          const long long idx = ((long long)b * N + r0 + r) * m + col;
-          const float sc = factor_of(__ldcg(cmax + (long long)b * m + col));
-          a.t0[idx] = a.t1[idx] * sc;
-          const float nt1 = a.w[idx] * sc;
-          a.t1[idx] = nt1;
-          if (last) a.out[idx] = nt1;
-          else tout[((long long)b * MP + col) * NT + r0 + r] = __float2bfloat16_rn(nt1);
+        const long long t_p = TL_CLOCK();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (rb + h >= nb) break;
+          float* p = part + (grp * 64 + (rb + h) * 16) * MC;
+          p[g * MC + 2 * t] = acc[h][0];
+          p[g * MC + 2 * t + 1] = acc[h][1];
+          p[(g + 8) * MC + 2 * t] = acc[h][2];
+          p[(g + 8) * MC + 2 * t + 1] = acc[h][3];
         }
-      });
-      if (!last) grid_sync(a.counter, ++nbar);
-    }
+        if (tid < MC) cm[tid] = 0u;
+        consumer_sync();
+        // the own rows (rows fastest): T_{j-1} and T_{j-2} scaled by the
+        // previous step's factors, T_j unscaled, its column maxima
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = tid + q * THREADS, cc = i / max(cnt, 1), r = i % max(cnt, 1);
+          const int col = gi * MC + cc;
+          const bool ok = i < cnt * MC && col < m;
+          unsigned int mx = 0u;
+          if (ok) {
+            const float y = part[r * MC + cc] + part[(64 + r) * MC + cc] +
+                            part[(128 + r) * MC + cc] + part[(192 + r) * MC + cc];
+            const long long idx = ((long long)b * MP + col) * NT + r0 + r;
+            const float f = sf[cc];
+            const float t1 = pu[q] * f;
+            const float av = a_shift(omc, t1, y, inv_e);
+            float wv = av;
+            if (step > 1) {
+              wv = __fsub_rn(__fmul_rn(2.0f, av), pt[q] * f);
+              mx = abs_bits(wv);
+            }
+            a.t1[idx] = t1;
+            uout[idx] = wv;
+          }
+          // the column maxima: the warp's lanes of a column first, then one
+          // shared-memory atomic a column a warp
+          if (step > 1) {
+            const unsigned int same = __match_any_sync(0xffffffffu, ok ? cc : MC);
+            mx = __reduce_max_sync(same, mx);
+            if (ok && lane == __ffs(same) - 1) atomicMax(cm + cc, mx);
+          }
+        }
+        consumer_sync();
+        if (step > 1 && tid < MC && gi * MC + tid < m)
+          atomicMax(cmax + (long long)b * MP + gi * MC + tid, cm[tid]);
+        TL_ADD(tl + 4, TL_CLOCK() - t_p)
+      }
+    });
+    TIMELINE(tl + 2)
+    grid_sync(a.counter, ++nbar);  // T_j and its column maxima complete
+    TIMELINE(tl + 3)
   }
+  // the result: the last step's own rows times its factors
+  const float* ulast = a.u + (long long)(a.degree & 1) * UB;
+  for_each_segment(a, false, [&](int b, int r0, int cnt, int nb) {
+    for (int i = tid; i < cnt * m; i += THREADS) {
+      const int r = i / m, col = i % m;
+      a.out[((long long)b * N + r0 + r) * m + col] =
+          __ldcg(ulast + ((long long)b * MP + col) * NT + r0 + r) *
+          step_factor(a, a.degree, b, col, MP);
+    }
+  });
 }
 
 // The 3-d map (keys, rows, image) of a bf16 operator with row stride `ld` and
@@ -954,6 +1072,15 @@ extern "C" int dss_cheb_filter_sm90_info(int build, int B, int N, int m, int a0,
   return 0;
 }
 
+// Clusters of `cluster` CTAs with `smem` shared bytes each that the card
+// holds at once (the plan's input, ops/cheb_filter.card_clusters_at_once).
+extern "C" int dss_cheb_clusters_at_once(int cluster, int smem, int* clusters) {
+  if (cluster < 1 || cluster > 16) return DSS_ERR_PLAN;
+  const cudaError_t err = resident_attributes(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(active_clusters(cluster, smem, clusters));
+}
+
 #if DSS_CHEB_ABLATE & 4
 // The timeline of the last launch (probe builds only): 2 + 32 * 6 clock64()
 // readings of CTA 0 of the first cluster.
@@ -991,38 +1118,32 @@ extern "C" int dss_cheb_filter_resident(const void* S, long long ld, long long b
   return static_cast<int>(cudaGetLastError());
 }
 
-// The streaming build: `ctas` persistent CTAs (cooperative launch), images
-// in groups of `ipg`, bf16 T staged in windows of `key_window` keys (a
-// multiple of 64). work: 3 B N m floats; tb: 2 B MP NT bf16 (MP = m rounded
-// up to 8, NT = N rounded up to 64); flags: 1 + (degree + 1) B m words.
-// tb and flags are zeroed here.
+// The streaming build: `ctas` persistent CTAs (cooperative launch), every
+// image streamed at every step, bf16 T staged in windows of `key_window` keys
+// (a multiple of 64). work: 3 B MP NT floats (MP = m rounded up to 8, NT = N
+// rounded up to 64); flags: 1 + (degree + 1) B MP words, zeroed here.
 extern "C" int dss_cheb_filter_stream(const void* S, long long ld, long long bs,
                                       const void* X, const void* ce, void* out, void* work,
-                                      void* tb, void* flags, int B, int N, int m, int degree,
-                                      int ctas, int ipg, int key_window, int smem,
-                                      void* stream) {
-  if (ctas < 1 || ipg < 1 || key_window < KT || key_window % KT != 0 || degree < 1 ||
+                                      void* flags, int B, int N, int m, int degree, int ctas,
+                                      int key_window, int smem, void* stream) {
+  if (ctas < 1 || key_window < KT || key_window % KT != 0 || degree < 1 ||
       stream_layout(key_window).total > smem)
     return DSS_ERR_PLAN;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int MP = (m + MC - 1) / MC * MC;
+  const long long MP = (m + MC - 1) / MC * MC;
   const long long NT = (N + KT - 1) / KT * KT;
-  cudaError_t err = cudaMemsetAsync(tb, 0, sizeof(__nv_bfloat16) * 2 * B * MP * NT, st);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(flags, 0, sizeof(unsigned int) * (1 + (long long)(degree + 1) * B * m),
-                          st);
+  cudaError_t err = cudaMemsetAsync(
+      flags, 0, sizeof(unsigned int) * (1 + (long long)(degree + 1) * B * MP), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
   if (!make_operator_map(&map, S, B, N, ld, bs, BOX_ROWS)) return DSS_ERR_TENSOR_MAP;
   err = stream_attributes(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   float* wk = static_cast<float*>(work);
-  const long long blk = (long long)B * N * m;
   unsigned int* fl = static_cast<unsigned int*>(flags);
   StreamArgs args{static_cast<const float*>(X), static_cast<const float*>(ce),
-                  static_cast<float*>(out), wk, wk + blk, wk + 2 * blk,
-                  static_cast<__nv_bfloat16*>(tb), fl + 1, fl, B, N, m, degree, ipg,
-                  key_window};
+                  static_cast<float*>(out), wk, wk + 2 * B * MP * NT, fl + 1, fl,
+                  B, N, m, degree, key_window};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ctas, 1, 1);
   cfg.blockDim = dim3(STREAM_THREADS, 1, 1);

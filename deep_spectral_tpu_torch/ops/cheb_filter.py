@@ -24,6 +24,7 @@ yardstick; no path calls it.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple, Union
 
@@ -33,32 +34,30 @@ Scalar = Union[float, torch.Tensor]
 
 SMEM_MAX = 232_448           # shared bytes a CTA can use (H100)
 KEYS = 64                    # keys per 128-byte swizzled operator row segment (a TMA box)
-CARD_SMS = 132               # H100 SXM; the wrapper reads the card's own count
+CARD_SMS = 132               # H100 SXM; the wrapper plans with the card's own count
 RESIDENT_UNITS = 2048        # rows x columns (m rounded up to 8) a CTA keeps in registers
 RESIDENT_MAX_CLUSTER = 16    # non-portable cluster size, admitted by the card at every
 #                              resident plan's shared memory (cudaOccupancyMaxActiveClusters)
-# Clusters of each size the H100 holds at once at one CTA an SM (its 132 SMs
-# in GPCs of 16-18; cudaOccupancyMaxActiveClusters, `probe_cheb clusters` and
-# `sizes`, H100 80GB HBM3): 4 -> 30, 5 -> 22, 6 -> 17, 7 and 8 -> 15, 9 -> 9,
-# 10-16 -> 7; sizes 1-3 not measured (one an SM's worth assumed).
-CLUSTERS_AT_ONCE = {1: 132, 2: 66, 3: 44, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9,
-                    **{k: 7 for k in range(10, 17)}}
-STREAM_STAGES = 8            # ring stages of 64 rows x 64 keys
+# Clusters of each size 1-16 (index 0 unused) that an H100 SXM holds at once
+# at one CTA an SM (its 132 SMs in GPCs of 16-18): the card's own answer,
+# cudaOccupancyMaxActiveClusters, which the wrapper asks on the card
+# (`card_clusters_at_once`); this record of it plans on the CPU, and
+# chip_smoke.py phase 3 holds it to the card's answer.
+H100_CLUSTERS_AT_ONCE = (0, 132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+STREAM_STAGES = 16           # ring stages of 64 rows x 64 keys
 STREAM_KEY_WINDOW = 4096     # keys of bf16 T staged at once
 
 
 class ChebPlan(NamedTuple):
     """How the kernel runs a (B, N, m) chain. 'resident': `cluster` CTAs an
     image, `rows` operator rows a CTA, `ctas` = B * cluster. 'streaming':
-    `ctas` persistent CTAs, images in groups of `images_per_group`, bf16 T
-    staged in windows of `key_window` keys, segments of up to `rows` rows.
-    `smem`: dynamic shared bytes a CTA."""
+    `ctas` persistent CTAs, bf16 T staged in windows of `key_window` keys,
+    segments of up to `rows` rows. `smem`: dynamic shared bytes a CTA."""
     build: str
     cluster: int
     rows: int
     smem: int
     ctas: int
-    images_per_group: int
     key_window: int
 
 
@@ -84,12 +83,13 @@ def resident_smem(N: int, m: int, rows: int, cluster: int) -> int:
 
 def stream_smem(key_window: int) -> int:
     """Shared bytes of the streaming build (`stream_layout`): the ring, one
-    column group's staged window, partial sums, maxima, mbarriers, slack."""
-    return (1024 + STREAM_STAGES * 64 * 128 + 8 * (key_window + 8) * 2 + 2 * 64 * 8 * 4
-            + 8 * 4 + 2 * STREAM_STAGES * 8)
+    column group's staged window, the four warp groups' partial sums,
+    maxima, scale factors, mbarriers, slack."""
+    return (1024 + STREAM_STAGES * 64 * 128 + 8 * (key_window + 8) * 2 + 4 * 64 * 8 * 4
+            + 8 * 4 + 8 * 4 + 2 * STREAM_STAGES * 8)
 
 
-def _resident_cost(B: int, N: int, m: int, rows: int, cluster: int) -> float:
+def _resident_cost(B: int, N: int, m: int, rows: int, cluster: int, at_once: tuple) -> float:
     """A chain's time in cycles a step, modelled on the H100's readings
     (`probe_cheb ablate` timeline, b24 N=900: ~3,000 cycles of exchange and
     bookkeeping a step, ~2,000 of products for a warp that multiplies two row
@@ -100,25 +100,21 @@ def _resident_cost(B: int, N: int, m: int, rows: int, cluster: int) -> float:
     pairs = -(-(-(-rows // 16)) // 2)           # a warp multiplies two row blocks
     ks = max(1, 8 // pairs)
     per_warp = -(-pairs * ks // 8) * 2 / ks     # row blocks x key share a warp multiplies
-    waves = -(-B // CLUSTERS_AT_ONCE[cluster])
+    waves = -(-B // at_once[cluster])
     return waves * (1500 + groups * N / 900 * (1500 + 4000 * per_warp))
 
 
 @functools.lru_cache(maxsize=256)
-def cheb_filter_plan(B: int, N: int, m: int, sms: int = CARD_SMS) -> ChebPlan:
+def cheb_filter_plan(B: int, N: int, m: int, sms: int = CARD_SMS,
+                     at_once: tuple = H100_CLUSTERS_AT_ONCE) -> ChebPlan:
     """The build, cluster size and rows per CTA for a (B, N, m) chain on a
-    card of `sms` SMs. Resident when a cluster of at most
-    RESIDENT_MAX_CLUSTER CTAs, every one with rows, holds the image's
-    operator (rows per CTA a multiple of 8, at most 256, the TMA box's limit,
-    and rows x m within what its threads keep in registers): of those, the
-    one `_resident_cost` finds fastest (ties: the larger cluster). Else
-    streaming: one CTA an SM (at most one a row block), every image streamed
-    at every step. The kernel can also stream images in groups that fit the
-    L2 (`images_per_group`), each group's chain run before the next's; at b4
-    and b2 N=3600, degree 3 and 10, groups of one image were slower than no
-    groups (the grid barriers and pipeline drains of more, smaller steps
-    cost more than re-reading S from HBM saves; `probe_cheb stream`,
-    PERF.md), so the plan does not group."""
+    card of `sms` SMs that holds `at_once[k]` clusters of k CTAs at once.
+    Resident when a cluster of at most RESIDENT_MAX_CLUSTER CTAs, every one
+    with rows, holds the image's operator (rows per CTA a multiple of 8, at
+    most 256, the TMA box's limit, and rows x m within what its threads keep
+    in registers): of those, the one `_resident_cost` finds fastest (ties:
+    the larger cluster). Else streaming: one CTA an SM (at most one a row
+    block), every image streamed at every step."""
     if min(B, N, m) < 1:
         raise ValueError(f"empty chain: B={B}, N={N}, m={m}")
     best = None
@@ -129,16 +125,16 @@ def cheb_filter_plan(B: int, N: int, m: int, sms: int = CARD_SMS) -> ChebPlan:
         if rows * _round_up(m, 8) > RESIDENT_UNITS or \
                 resident_smem(N, m, rows, cluster) > SMEM_MAX:
             continue
-        key = (_resident_cost(B, N, m, rows, cluster), -cluster)
+        key = (_resident_cost(B, N, m, rows, cluster, at_once), -cluster)
         if best is None or key < best[0]:
             best = (key, rows, cluster)
     if best is not None:
         _, rows, cluster = best
         return ChebPlan("resident", cluster, rows, resident_smem(N, m, rows, cluster),
-                        B * cluster, 1, 0)
+                        B * cluster, 0)
     ctas = min(sms, B * -(-N // 16))
     window = min(_round_up(N, KEYS), STREAM_KEY_WINDOW)
-    return ChebPlan("streaming", 1, 64, stream_smem(window), ctas, B, window)
+    return ChebPlan("streaming", 1, 64, stream_smem(window), ctas, window)
 
 
 def first_streamed_n(B: int, m: int) -> int:
@@ -147,31 +143,36 @@ def first_streamed_n(B: int, m: int) -> int:
     return next(n for n in range(8, 1 << 16, 8) if cheb_filter_plan(B, n, m).build != "resident")
 
 
-def cheb_row_ranges(plan: ChebPlan, B: int, N: int) -> list:
+def cheb_row_ranges(plan: ChebPlan, B: int, N: int, reverse: bool = False) -> list:
     """The operator rows each CTA owns, as the kernel splits them:
-    [(group, cta, image, lo, hi)]. Resident: CTA `rank` of image b's cluster
-    owns [rank rows, +rows) (group 0). Streaming: group g's images' row
-    blocks of 16, in order, split evenly over the CTAs in contiguous ranges,
-    each cut into segments at image ends and every 4 blocks."""
+    [(cta, image, lo, hi)]. Resident: CTA `rank` of image b's cluster owns
+    [rank rows, +rows). Streaming: the images' row blocks of 16, in order,
+    split evenly over the CTAs in contiguous ranges, each cut into segments
+    at image ends and every 4 blocks, from its first block or, as the kernel
+    traverses them on even steps (`reverse`), from its last."""
     out = []
     if plan.build == "resident":
         for b in range(B):
             for rank in range(plan.cluster):
                 lo = rank * plan.rows
                 if lo < N:
-                    out.append((0, b * plan.cluster + rank, b, lo, min(lo + plan.rows, N)))
+                    out.append((b * plan.cluster + rank, b, lo, min(lo + plan.rows, N)))
         return out
     rbi = -(-N // 16)
-    for grp in range(-(-B // plan.images_per_group)):
-        img0 = grp * plan.images_per_group
-        tot = min(plan.images_per_group, B - img0) * rbi
-        for cta in range(plan.ctas):
-            blk, hi = cta * tot // plan.ctas, (cta + 1) * tot // plan.ctas
-            while blk < hi:
-                bi, rb = divmod(blk, rbi)
-                nb = min(4, rbi - rb, hi - blk)
-                out.append((grp, cta, img0 + bi, rb * 16, min(rb * 16 + nb * 16, N)))
-                blk += nb
+    tot = B * rbi
+    for cta in range(plan.ctas):
+        first, end = cta * tot // plan.ctas, (cta + 1) * tot // plan.ctas
+        blk = first
+        while blk < end and not reverse:
+            b, rb = divmod(blk, rbi)
+            nb = min(4, rbi - rb, end - blk)
+            out.append((cta, b, rb * 16, min(rb * 16 + nb * 16, N)))
+            blk += nb
+        while end > first and reverse:
+            b, last = divmod(end - 1, rbi)
+            nb = min(4, last + 1, end - first)
+            out.append((cta, b, (last + 1 - nb) * 16, min((last + 1) * 16, N)))
+            end -= nb
     return out
 
 
@@ -247,14 +248,27 @@ def _checked(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar):
     return X.contiguous(), ce
 
 
-_SMS: dict = {}
+_CARDS: dict = {}
 
 
-def _sms(device: torch.device) -> int:
+def card_clusters_at_once(device: torch.device) -> tuple:
+    """(SMs, clusters of each size 1-16 held at once at one CTA an SM) of
+    the card, asked once per device (cudaOccupancyMaxActiveClusters at the
+    largest shared memory a CTA can take); the wrapper plans with it."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SMS:
-        _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SMS[index]
+    if index not in _CARDS:
+        from .. import _build
+        lib = _build.load()
+        out = ctypes.c_int(0)
+        at_once = [0]
+        with torch.cuda.device(index):
+            for cluster in range(1, RESIDENT_MAX_CLUSTER + 1):
+                err = lib.dss_cheb_clusters_at_once(cluster, SMEM_MAX, ctypes.byref(out))
+                _build.check(err, "cheb_filter clusters at once")
+                at_once.append(out.value)
+        _CARDS[index] = (torch.cuda.get_device_properties(index).multi_processor_count,
+                         tuple(at_once))
+    return _CARDS[index]
 
 
 def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
@@ -275,7 +289,7 @@ def chebyshev_filter(S: torch.Tensor, X: torch.Tensor, c: Scalar, e: Scalar,
         return chebyshev_filter_plain(S, X, c, e, degree)
     B, N, m = X.shape
     X, ce = _checked(S, X, c, e)
-    plan = cheb_filter_plan(B, N, m, _sms(X.device))
+    plan = cheb_filter_plan(B, N, m, *card_clusters_at_once(X.device))
     out = launch_plan(kernel_operator(S), X, ce, degree, plan)
     chebyshev_filter.launches += 1
     return out
@@ -301,17 +315,17 @@ def launch_plan(S: torch.Tensor, X: torch.Tensor, ce: torch.Tensor, degree: int,
                 out.data_ptr(), tg.data_ptr(), B, N, m, degree, plan.cluster, plan.rows,
                 plan.smem, stream)
         else:
-            # T_{j-1}, T_j, T_{j+1} of every row (f32), bf16 T transposed and
-            # double-buffered, and the grid barrier's counter + each step's
+            # the last two steps' unscaled T and each row's scaled T_{j-1}
+            # (f32, transposed), and the grid barrier's counter + each step's
             # column maxima
-            work = torch.empty((3, B, N, m), dtype=torch.float32, device=X.device)
-            tb = torch.empty((2, B, _round_up(m, 8), _round_up(N, KEYS)),
-                             dtype=torch.bfloat16, device=X.device)
-            flags = torch.empty(1 + (degree + 1) * B * m, dtype=torch.int32, device=X.device)
+            mp = _round_up(m, 8)
+            work = torch.empty((3, B, mp, _round_up(N, KEYS)), dtype=torch.float32,
+                               device=X.device)
+            flags = torch.empty(1 + (degree + 1) * B * mp, dtype=torch.int32, device=X.device)
             err = lib.dss_cheb_filter_stream(
                 S.data_ptr(), S.stride(1), S.stride(0), X.data_ptr(), ce.data_ptr(),
-                out.data_ptr(), work.data_ptr(), tb.data_ptr(), flags.data_ptr(), B, N, m,
-                degree, plan.ctas, plan.images_per_group, plan.key_window, plan.smem, stream)
+                out.data_ptr(), work.data_ptr(), flags.data_ptr(), B, N, m, degree, plan.ctas,
+                plan.key_window, plan.smem, stream)
     _build.check(err, "chebyshev_filter")
     return out
 

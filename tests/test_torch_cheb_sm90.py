@@ -6,9 +6,11 @@ cluster an image, each CTA multiplying its slab of operator rows by the whole
 staged bf16(T_j), the cluster-wide column maxima as the maximum of the CTAs'
 maxima, (T_j, T_{j+1}) of each CTA's rows scaled in f32 before T_{j+1} is
 rounded to bf16 for every CTA, the last step's rescale applied before the
-result leaves; and the streaming build, images in groups, each group's rows
-split over the CTAs in segments (`cheb_row_ranges`), the maxima gathered over
-the segments before the owners scale. Each performs the twin's f32
+result leaves; and the streaming build, the rows of every image split over
+the CTAs in segments (`cheb_row_ranges`, cut from the end on even steps),
+T_j leaving each step unscaled with its maxima gathered over the segments,
+every CTA staging it times the factors and each owner scaling its rows as
+it computes T_{j+1}. Each performs the twin's f32
 operations in the twin's order (a row's product is the same dot product
 whichever slab holds it; a maximum does not depend on the grouping), so it
 matches the twin bit for bit, NaNs in the same places; against the Pallas
@@ -56,7 +58,7 @@ def _resident(S, X, c, e, degree, plan):
     B, N, m = X.shape
     out = torch.empty_like(X)
     slabs = {}
-    for _, _, b, lo, hi in cf.cheb_row_ranges(plan, B, N):
+    for _, b, lo, hi in cf.cheb_row_ranges(plan, B, N):
         slabs.setdefault(b, []).append((lo, hi))
     for b in range(B):
         cb, inv_e = _window(c[b:b + 1], e[b:b + 1])
@@ -84,41 +86,36 @@ def _resident(S, X, c, e, degree, plan):
 
 
 def _streaming(S, X, c, e, degree, plan):
-    """The streaming build: images in groups of `plan.images_per_group`, each
-    group's chain before the next's; a group's rows in the CTAs' segments;
-    per step the products of every segment, the column maxima over all
-    segments of an image, then each owner scales its rows; bf16(T_j) of
-    every row lives in one (global) buffer."""
+    """The streaming build: every image's rows in the CTAs' segments (cut
+    from the end on even steps, as the kernel traverses them); a step
+    leaves T_j unscaled with its column maxima (gathered over the segments of
+    an image); after the step's grid barrier every CTA stages bf16(T_j *
+    factor) while the owner of each row scales its T_j and T_{j-1} by the
+    same factors as it computes T_{j+1}; the result is the last step's rows
+    times its factors."""
     B, N, m = X.shape
     cc, inv_e = _window(c, e)
-    out = torch.empty_like(X)
-    t0, t1, w = X.clone(), X.clone(), torch.zeros_like(X)
-    ranges = cf.cheb_row_ranges(plan, B, N)
-    for grp in range(-(-B // plan.images_per_group)):
-        segs = [(b, lo, hi) for g, _, b, lo, hi in ranges if g == grp]
-        images = sorted({b for b, _, _ in segs})
-        tb = {b: X[b:b + 1].to(torch.bfloat16).float() for b in images}
-        for step in range(1, degree + 1):
-            for b, lo, hi in segs:
-                a = _a_shift(S[b:b + 1, lo:hi], tb[b], t1[b:b + 1, lo:hi], cc[b:b + 1],
-                             inv_e[b:b + 1])
-                w[b:b + 1, lo:hi] = a if step == 1 else 2.0 * a - t0[b:b + 1, lo:hi]
-            if step == 1:
-                for b, lo, hi in segs:
-                    t1[b, lo:hi] = w[b, lo:hi]
-            else:
-                for b in images:
-                    maxima = [w[b:b + 1, lo:hi].abs().amax(dim=1, keepdim=True)
-                              for bb, lo, hi in segs if bb == b]
-                    sc = _scale(torch.stack(maxima).amax(dim=0))[0]
-                    for bb, lo, hi in segs:
-                        if bb == b:
-                            t0[b, lo:hi] = t1[b, lo:hi] * sc
-                            t1[b, lo:hi] = w[b, lo:hi] * sc
-            tb = {b: t1[b:b + 1].to(torch.bfloat16).float() for b in images}
-        for b in images:
-            out[b] = t1[b]
-    return out
+    segs_by_dir = [[(b, lo, hi) for _, b, lo, hi in cf.cheb_row_ranges(plan, B, N, reverse=r)]
+                   for r in (False, True)]
+    ones = torch.ones((B, 1, m))
+    u, f = X.clone(), ones                       # T_0; factors after steps 0 and 1: 1
+    t1 = torch.empty_like(X)                     # each owner's scaled T_{j-1}
+    for step in range(1, degree + 1):
+        segs = segs_by_dir[step % 2 == 0]        # even steps from the end
+        tb = (u * f).to(torch.bfloat16).float()  # what every CTA stages
+        new = torch.empty_like(X)
+        for b, lo, hi in segs:
+            rows = u[b:b + 1, lo:hi] * f[b:b + 1]
+            a = _a_shift(S[b:b + 1, lo:hi], tb[b:b + 1], rows, cc[b:b + 1], inv_e[b:b + 1])
+            new[b:b + 1, lo:hi] = a if step == 1 else 2.0 * a - t1[b:b + 1, lo:hi] * f[b:b + 1]
+            t1[b:b + 1, lo:hi] = rows
+        u, f = new, ones.clone()
+        if step > 1:
+            for b in range(B):
+                maxima = [u[b:b + 1, lo:hi].abs().amax(dim=1, keepdim=True)
+                          for bb, lo, hi in segs if bb == b]
+                f[b] = _scale(torch.stack(maxima).amax(dim=0))[0]
+    return u * f
 
 
 @pytest.mark.parametrize("N,m,degree,B", [(37, 5, 1, 2), (37, 13, 3, 1), (37, 23, 10, 2),
@@ -127,8 +124,8 @@ def test_cheb_sm90_schedule(N, m, degree, B):
     """Both builds' schedules against the twin (bit for bit) and the Pallas
     kernel (1e-4), N not a multiple of the slab, one NaN column when B=2:
     the resident build at its plan and at a cluster of 4 (uneven slabs),
-    the streaming build with one image a group and with every image in one
-    group over 7 CTAs (segments crossing images)."""
+    the streaming build over 7 CTAs (segments crossing images) and over 2
+    (ranges cut into segments of 4 row blocks)."""
     rng = np.random.default_rng(N * m + degree + B)
     S = _operator(rng, B, N)
     X_np = rng.standard_normal((B, N, m)).astype(np.float32)
@@ -141,9 +138,9 @@ def test_cheb_sm90_schedule(N, m, degree, B):
     assert plan.build == "resident"
     rows4 = -(-(-(-N // 4)) // 8) * 8
     plans = [plan, plan._replace(cluster=-(-N // rows4), rows=rows4)]
-    stream = cf.cheb_filter_plan(B, 4096, m)._replace(ctas=7)
+    stream = cf.cheb_filter_plan(B, 4096, m)
     renders = [_resident(S, X, c, e, degree, p) for p in plans] + \
-        [_streaming(S, X, c, e, degree, stream._replace(images_per_group=g)) for g in (1, B)]
+        [_streaming(S, X, c, e, degree, stream._replace(ctas=k)) for k in (7, 2)]
     S_j = jnp.asarray(S.float().numpy()).astype(jnp.bfloat16)
     pallas = np.stack([np.asarray(j_cheb(S_j[b], jnp.asarray(X_np[b]), float(c[b]),
                                          float(e[b]), degree=degree, interpret=True))
@@ -169,7 +166,7 @@ def test_cheb_plan_grid(N):
             plan = cf.cheb_filter_plan(B, N, m)
             assert plan.smem <= SMEM_MAX
             seen = np.zeros((B, N), np.int64)
-            for grp, cta, b, lo, hi in cf.cheb_row_ranges(plan, B, N):
+            for cta, b, lo, hi in cf.cheb_row_ranges(plan, B, N):
                 assert 0 <= cta < plan.ctas and lo < hi
                 seen[b, lo:hi] += 1
             assert (seen == 1).all(), (B, N, m, plan)
@@ -184,8 +181,27 @@ def test_cheb_plan_grid(N):
                 assert plan.build == "streaming"
                 assert 1 <= plan.ctas <= cf.CARD_SMS
                 assert plan.key_window % 64 == 0 and plan.key_window <= cf.STREAM_KEY_WINDOW
-                assert plan.images_per_group == B
                 assert plan.smem == cf.stream_smem(plan.key_window)
+
+
+@pytest.mark.parametrize("B,N", [(4, 1288), (24, 2500), (3, 130)])
+def test_cheb_stream_reverse_segments(B, N):
+    """The streaming build traverses even steps from the end: each CTA's
+    segments cut from its last row block cover the rows it owns going
+    forward (the owner of a row stays its owner), once each, in at most 4
+    blocks and within one image."""
+    plan = cf.cheb_filter_plan(B, 4096, 8)._replace(ctas=min(132, B * -(-N // 16)))
+    fwd, rev = (cf.cheb_row_ranges(plan, B, N, reverse=r) for r in (False, True))
+    owned = {}
+    for ranges in (fwd, rev):
+        rows = np.zeros((B, N), np.int64)
+        for cta, b, lo, hi in ranges:
+            assert 0 < hi - lo <= 64
+            rows[b, lo:hi] += 1
+            owned.setdefault((cta, ranges is rev), set()).update((b, r) for r in range(lo, hi))
+        assert (rows == 1).all()
+    for cta in range(plan.ctas):
+        assert owned.get((cta, False)) == owned.get((cta, True))
 
 
 def test_cheb_plan_builds():
@@ -201,6 +217,20 @@ def test_cheb_plan_builds():
     assert cf.first_streamed_n(4, 8) == 1288 and cf.first_streamed_n(24, 23) == 1096
     with pytest.raises(ValueError):
         cf.cheb_filter_plan(0, 900, 8)
+
+
+def test_cheb_plan_takes_the_cards_clusters():
+    """The plan ranks cluster sizes by the waves the card's own count of
+    clusters at once gives (the wrapper passes the card's answer): the H100's
+    record gives 15-CTA clusters at b24 N=900, a card holding one cluster of
+    10 or more CTAs at a time gives clusters of at most 9."""
+    at_once = cf.H100_CLUSTERS_AT_ONCE
+    assert len(at_once) == cf.RESIDENT_MAX_CLUSTER + 1
+    assert cf.cheb_filter_plan(24, 900, 8, cf.CARD_SMS, at_once) == \
+        cf.cheb_filter_plan(24, 900, 8)
+    few_large = at_once[:10] + (1,) * (cf.RESIDENT_MAX_CLUSTER - 9)
+    plan = cf.cheb_filter_plan(24, 900, 8, cf.CARD_SMS, few_large)
+    assert plan.build == "resident" and plan.cluster <= 9
 
 
 def test_kernel_operator_layout():
