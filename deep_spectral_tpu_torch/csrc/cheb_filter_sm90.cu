@@ -66,7 +66,7 @@
 // with two barriers a step (the owners scaled and rounded their rows between
 // them; bf16 staging), images in groups that fit the L2 (slower: more
 // barriers), bulk copies (TMA) for the staging (slower: queued behind the
-// ring's loads) and fewer CTAs (slower): PERF.md.
+// ring's loads), fewer CTAs and one warp a stage (slower): PERF.md.
 //
 // Tensor cores: mma.sync m16n8k16 (bf16 x bf16 exact, f32 sums), A fragments
 // by ldmatrix from the swizzled operator in shared memory (a warp takes two
@@ -670,10 +670,15 @@ __device__ __forceinline__ void grid_sync(unsigned int* counter, unsigned int n)
 
 // Row blocks rb and rb + 1 (the first nbr of them) of a ring stage (row
 // blocks of 16 x 64 keys): four k-steps, their fragments loaded before the
-// products, each B fragment feeding both row blocks.
+// products, each B fragment feeding both row blocks. The stage's products
+// accumulate from zero and are added to acc in f32 (rounded to nearest): a
+// tensor-core accumulation chain stays four products long (chains across
+// stages measured up to 2.9e-3 off the twin on an ill-conditioned column,
+// where the twin's f32 sums were 3.6e-6 off f64 ones; PERF.md).
 __device__ __forceinline__ void mma_stage(float (&acc)[2][4], uint32_t block, int rb, int nbr,
                                           uint32_t tcol, int key, int lane) {
   uint32_t a[2][4][4], bf[4][2];
+  float d[2][4] = {};
   const int q = lane >> 3;
   const int row = rb * 16 + (lane & 7) + 8 * (q & 1);
 #pragma unroll
@@ -687,7 +692,11 @@ __device__ __forceinline__ void mma_stage(float (&acc)[2][4], uint32_t block, in
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      if (h < nbr) mma_16816(acc[h], a[h][kk], bf[kk]);
+      if (h < nbr) mma_16816(d[h], a[h][kk], bf[kk]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[h][i] = __fadd_rn(acc[h][i], d[h][i]);
 }
 
 // The scale factor of column `col` of image b after step `step` (1 after
