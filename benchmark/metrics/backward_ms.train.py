@@ -1,0 +1,11 @@
+"""backward_ms.train (ms/step): the device time of the training step's
+`train.backward` span (`loss.backward()` and the gradients' hand-over),
+between the CUDA events the port records around it, summed over the
+traced steps and divided by them. Moves `train_step_ms`."""
+from benchmark import spans
+
+
+def read(run):
+    steps = run.counts.get("steps", 0)
+    ms = spans.device_ms("train.backward")
+    return ms / steps if steps and ms is not None else None

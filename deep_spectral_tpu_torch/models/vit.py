@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bicubic
 from ..utils.precision import exact_f32
+from ..utils.profiling import span
 from .flash_attention import (FlashAttentionFn, flash_attention_lse,
                               flash_attention_packed)
 
@@ -283,11 +284,11 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
                        token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Stage-1 features: head-merged `which_features` ('q', 'k' or 'v') of
     block `which_block`, CLS dropped (reference: extract/extract.py:96-98).
-    Runs only as far as that block's qkv projection. Returns (B, N, D) in the
-    compute dtype."""
+    Runs only as far as that block's qkv projection (a `vit.extract` span).
+    Returns (B, N, D) in the compute dtype."""
     cfg, dtype = model.cfg, model.compute_dtype
     j = "qkv".index(which_features)
-    with model.precision():
+    with span("vit.extract"), model.precision():
         tokens, token_mask = model.embed(images, token_mask)
         last = which_block % cfg.depth
         for blk in model.blocks[:last]:

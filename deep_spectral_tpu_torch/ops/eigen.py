@@ -27,9 +27,14 @@ and the color-fused graph W = W_feat / max + lambda W_color.
 Every function here is batched over a leading image dimension. The JAX
 package runs its iterative solvers as `lax.while_loop`s under `vmap`, where
 a lane that has converged keeps its carry frozen while the batch loops on;
-the port loops on the host (one device sync per iteration) and freezes
-converged lanes with `torch.where`, so an image's result does not depend on
-its batch-mates.
+the port loops on the host and freezes converged lanes with `torch.where`,
+so an image's result does not depend on its batch-mates. The host waits for
+the device at each iteration's exit test and at every `torch.linalg.eigh`
+(which reads its error flags back on a CUDA device): a Chebyshev outer
+iteration makes three such syncs, the exit test and the two small eighs of
+its Rayleigh-Ritz step; a solve adds the start block's upload, the exit
+test that ends the loop and the guard's read. Each sync is an `eigs.sync`
+span and an `eigs.syncs` count (`utils/profiling.py`).
 
 Precision: the solvers' Rayleigh-Ritz products, the residual, LOBPCG and
 A_mv run in true f32 (`exact_f32()`, no TF32), the filter chain on a bf16
@@ -44,6 +49,7 @@ from typing import Optional, Union
 import torch
 
 from ..utils.precision import exact_f32
+from ..utils.profiling import count, span
 from .affinity import degree_vector, feature_affinity, l2_normalize
 from .cheb_filter import _per_image, chebyshev_filter, kernel_operator
 from .lobpcg import eigh_finite as _eigh_finite
@@ -112,7 +118,9 @@ def _pad_aware_eigh(A: torch.Tensor, mask: Optional[torch.Tensor]):
         A = A * m[:, :, None] * m[:, None, :]
         bound = A.abs().sum(dim=-1).amax(dim=-1) + 1.0
         A = A + torch.diag_embed(torch.where(mask, 0.0, bound[:, None]))
-    return torch.linalg.eigh(A)
+    with span("eigs.sync"):
+        count("eigs.syncs")
+        return torch.linalg.eigh(A)
 
 
 def _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale=None):
@@ -204,9 +212,13 @@ def default_start_block(N: int, m: int) -> torch.Tensor:
 
 def _start_block(x0, B: int, N: int, m: int, mask, device) -> torch.Tensor:
     """The iterative solvers' (B, N, m) start block: x0 (N, m), or
-    `default_start_block`, with padded rows zeroed."""
+    `default_start_block`, with padded rows zeroed. Its copy from pageable
+    host memory is a host sync on a CUDA device."""
     X = default_start_block(N, m) if x0 is None else torch.as_tensor(x0, dtype=torch.float32)
-    X = X.to(device, torch.float32).expand(B, N, m)
+    with span("eigs.sync"):
+        count("eigs.syncs")
+        X = X.to(device, torch.float32)
+    X = X.expand(B, N, m)
     if mask is not None:
         X = X * mask.to(torch.float32)[:, :, None]
     return X
@@ -345,15 +357,23 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
 
         outers = torch.zeros(B, dtype=torch.int32, device=dev)
         for _ in range(n_outer):
-            active = res > CHEB_RESIDUAL_TOL
-            if not bool(active.any()):  # the one host sync per outer iteration
-                break
-            c, e = window(theta)
-            Xn, theta_n, res_n = rr(filt(S_fast, X, c, e, degree))
-            X = torch.where(active[:, None, None], Xn, X)
-            theta = torch.where(active[:, None], theta_n, theta)
-            res = torch.where(active, res_n, res)
-            outers += active.to(torch.int32)
+            with span("eigs.outer"):
+                active = res > CHEB_RESIDUAL_TOL
+                # the exit test, one of the outer's three host syncs (rr's
+                # two eighs are the others)
+                with span("eigs.sync"):
+                    count("eigs.syncs")
+                    n_active = int(active.sum())
+                if not n_active:
+                    break
+                count("cheb.lanes_filtered", B)
+                count("cheb.lanes_active", n_active)
+                c, e = window(theta)
+                Xn, theta_n, res_n = rr(filt(S_fast, X, c, e, degree))
+                X = torch.where(active[:, None, None], Xn, X)
+                theta = torch.where(active[:, None], theta_n, theta)
+                res = torch.where(active, res_n, res)
+                outers += active.to(torch.int32)
 
     vectors = _as_vectors(inv_sqrt_d[:, :, None] * X[:, :, :K], mask, apply_sign_fix)
     return theta[:, :K], vectors, res, outers
@@ -393,6 +413,34 @@ def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
     return (c[:, None] - theta)[:, :K], _as_vectors(V, mask, apply_sign_fix)
 
 
+def _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale, evals, vectors, res):
+    """The solvers' fallback, as the reference's ARPACK retry
+    (extract/extract.py:227-234): a lane whose residual is above
+    CHEB_RESIDUAL_TOL or whose result is not finite is re-solved with eigh.
+    One host sync reads which lanes fail and which hold a valid node; the
+    counters `eigs.images` and `eigs.resolved` take the valid lanes checked
+    and the lanes re-solved."""
+    ok = ((res <= CHEB_RESIDUAL_TOL) & torch.isfinite(evals).all(dim=1)
+          & torch.isfinite(vectors).flatten(1).all(dim=1))
+    valid = torch.ones_like(ok) if mask is None else mask.any(dim=1)
+    with span("eigs.sync"):
+        count("eigs.syncs")
+        flags = torch.stack((~ok, valid)).cpu()
+    count("eigs.images", int(flags[1].sum()))
+    bad = torch.nonzero(flags[0]).flatten()
+    if not bad.numel():
+        return evals, vectors
+    count("eigs.resolved", bad.numel())
+    bad = bad.to(W.device, non_blocking=True)
+    with exact_f32():
+        ev_d, vec_d = _dense_laplacian(
+            W[bad], d[bad], K, lapnorm, None if mask is None else mask[bad], apply_sign_fix,
+            None if w_scale is None else w_scale[bad])
+    evals, vectors = evals.clone(), vectors.clone()
+    evals[bad], vectors[bad] = ev_d, vec_d
+    return evals, vectors
+
+
 def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
                             apply_sign_fix=True, solver="auto", lobpcg_iters=None,
                             lobpcg_tol=None, lobpcg_block_extra=3, cheb_outer=4,
@@ -420,35 +468,25 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
     if solver in ("lobpcg", "chebyshev"):
         if solver == "lobpcg":
             iters = lobpcg_iters if lobpcg_iters is not None else (60 if N <= 2048 else 100)
-            evals, vectors = _lobpcg_laplacian(W, d, K, m_block, iters, lobpcg_tol, lapnorm,
-                                               mask, apply_sign_fix, w_scale=w_scale, x0=x0)
+            with span("eigs.lobpcg"):
+                evals, vectors = _lobpcg_laplacian(W, d, K, m_block, iters, lobpcg_tol,
+                                                   lapnorm, mask, apply_sign_fix,
+                                                   w_scale=w_scale, x0=x0)
             res = torch.zeros(B, dtype=torch.float32, device=W.device)
         else:
             if not lapnorm:
                 raise ValueError("solver='chebyshev' supports lapnorm=True only")
-            evals, vectors, res, _ = _chebyshev_laplacian(
-                W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
-                w_scale=w_scale, window_init=cheb_window_init, x0=x0,
-                filter_impl=cheb_filter_impl, matvec_precision=matvec_precision)
+            with span("eigs.cheb"):
+                evals, vectors, res, _ = _chebyshev_laplacian(
+                    W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
+                    w_scale=w_scale, window_init=cheb_window_init, x0=x0,
+                    filter_impl=cheb_filter_impl, matvec_precision=matvec_precision)
         if return_residual:
             return evals, vectors, res
         if cheb_guard:
-            # The solvers' fallback, as the reference's ARPACK retry
-            # (extract/extract.py:227-234): a lane whose residual is above
-            # the guard or whose result is not finite is re-solved with eigh.
-            ok = ((res <= CHEB_RESIDUAL_TOL) & torch.isfinite(evals).all(dim=1)
-                  & torch.isfinite(vectors).flatten(1).all(dim=1))
-            bad = torch.nonzero(~ok).flatten()
-            if bad.numel():
-                print(f"eigs: {solver} under-converged on {bad.numel()}/{B} image(s) "
-                      f"in a batch; re-solving those with dense eigh")
-                with exact_f32():
-                    ev_d, vec_d = _dense_laplacian(
-                        W[bad], d[bad], K, lapnorm,
-                        None if mask is None else mask[bad], apply_sign_fix,
-                        None if w_scale is None else w_scale[bad])
-                evals, vectors = evals.clone(), vectors.clone()
-                evals[bad], vectors[bad] = ev_d, vec_d
+            with span("eigs.guard"):
+                evals, vectors = _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale,
+                                        evals, vectors, res)
         return evals, vectors
     with exact_f32():
         out = _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale)
@@ -564,7 +602,7 @@ def spectral_decompose_batched(
     modes), unguarded; without it, images whose iterative solve did not
     converge (a residual above CHEB_RESIDUAL_TOL or a non-finite result) are
     re-solved with dense eigh by `_laplacian_eigs_batched`'s guard, which
-    prints how many. cheb_filter_impl: the chebyshev filter, as
+    counts them (`eigs.resolved`). cheb_filter_impl: the chebyshev filter, as
     `resolved_cheb_impl` resolves it ('auto', the port's default, is the
     kernel). eig_chunk solves the batch in sequential sub-batches (see
     resolve_eig_chunk). x0: the iterative solvers' (N, K + 3) start block.
@@ -582,9 +620,10 @@ def spectral_decompose_batched(
                       cheb_filter_impl=cheb_filter_impl,
                       cheb_window_init=cheb_window_init,
                       return_residual=return_residual, w_premasked=True, x0=x0)
-            W = feature_affinity(f, normalize=normalize,
-                                 threshold_at_zero=threshold_at_zero,
-                                 max_normalize=fuse, mask=m)
+            with span("eigs.affinity"):
+                W = feature_affinity(f, normalize=normalize,
+                                     threshold_at_zero=threshold_at_zero,
+                                     max_normalize=fuse, mask=m)
             if fuse:
                 # both terms have zero padded rows and columns
                 return _laplacian_eigs_batched(
@@ -604,14 +643,15 @@ def spectral_decompose_batched(
         return out
 
     chunk = resolve_eig_chunk(eig_chunk, B)
-    if not chunk or chunk >= B:
-        return solve(feats, masks, color_W)
-    if B % chunk:
+    if chunk and B % chunk:
         raise ValueError(f"eig_chunk={chunk} must divide the batch size {B}")
-    parts = [solve(feats[i:i + chunk], masks[i:i + chunk],
-                   None if color_W is None else color_W[i:i + chunk])
-             for i in range(0, B, chunk)]
-    return tuple(torch.cat(p) for p in zip(*parts))
+    with span("eigs.decompose"):
+        if not chunk or chunk >= B:
+            return solve(feats, masks, color_W)
+        parts = [solve(feats[i:i + chunk], masks[i:i + chunk],
+                       None if color_W is None else color_W[i:i + chunk])
+                 for i in range(0, B, chunk)]
+        return tuple(torch.cat(p) for p in zip(*parts))
 
 
 def spectral_decompose(feats: torch.Tensor, K: int, *,

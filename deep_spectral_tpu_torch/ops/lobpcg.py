@@ -13,9 +13,12 @@ convergence test), so it could not be held to the JAX iterates.
 
 Batching: every function takes a leading image dimension. JAX runs one
 `while_loop` per image under `vmap`, where a lane that has stopped keeps its
-state while the batch loops on; here the loop runs on the host (one device
-sync per iteration) and a stopped lane's state is frozen with `torch.where`,
-so an image's result does not depend on its batch-mates.
+state while the batch loops on; here the loop runs on the host and a stopped
+lane's state is frozen with `torch.where`, so an image's result does not
+depend on its batch-mates. The host waits for the device at each
+iteration's exit test, at every `eigh_finite` and (twice) at the start
+basis's SVD; each such point is an `eigs.sync` span, and each sync an
+`eigs.syncs` count (`utils/profiling.py`).
 
 Precision: every product runs in true f32 (`exact_f32`, no TF32), as JAX's
 `_mm` pins precision HIGHEST; the small eigh, QR and SVD steps are torch's.
@@ -27,6 +30,7 @@ from typing import Callable, Optional
 import torch
 
 from ..utils.precision import exact_f32
+from ..utils.profiling import count, span
 
 _EPS = float(torch.finfo(torch.float32).eps)
 
@@ -34,10 +38,14 @@ _EPS = float(torch.finfo(torch.float32).eps)
 def eigh_finite(M: torch.Tensor):
     """Batched eigh (ascending) that tolerates non-finite lanes: they are
     solved as the identity and flagged, instead of making LAPACK/cuSOLVER
-    raise. Returns (w, V, bad)."""
+    raise. Returns (w, V, bad). A host sync on a CUDA device: eigh reads its
+    error flags back."""
     bad = ~torch.isfinite(M).all(dim=-1).all(dim=-1)
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
-    w, V = torch.linalg.eigh(torch.where(bad[:, None, None], eye, M))
+    M = torch.where(bad[:, None, None], eye, M)
+    with span("eigs.sync"):
+        count("eigs.syncs")
+        w, V = torch.linalg.eigh(M)
     return w, V, bad
 
 
@@ -93,7 +101,11 @@ def _extend_basis(X: torch.Tensor, m: int) -> torch.Tensor:
     block Householder reflectors (deterministic, no random draw)."""
     B, n, k = X.shape
     upper = X[:, :k]
-    u, s, vt = torch.linalg.svd(upper)
+    # PyTorch's batched svd waits for a CUDA device twice (its sync debug
+    # mode counts two, torch 2.11 on an H100)
+    with span("eigs.sync"):
+        count("eigs.syncs", 2)
+        u, s, vt = torch.linalg.svd(upper)
     y = torch.cat([upper + u @ vt, X[:, k:]], dim=1)
     w = y @ (vt.transpose(1, 2) * ((2 * (1 + s)) ** -0.5)[:, None, :])
     # JAX's multi_dot([w, w[k:].T, other]) with other = [I_m; 0]: w[k:].T @
@@ -129,8 +141,10 @@ def lobpcg_standard(A: Callable[[torch.Tensor], torch.Tensor], X: torch.Tensor,
         converged = torch.zeros(B, dtype=torch.int64, device=dev)
         for _ in range(m):
             active = converged < k
-            if not bool(active.any()):  # the one host sync per iteration
-                break
+            with span("eigs.sync"):  # the exit test
+                count("eigs.syncs")
+                if not bool(active.any()):
+                    break
             Rn = _project_out(torch.cat([X, P], dim=2), R)
             XPR = torch.cat([X, P, Rn], dim=2)
             th, Q = _eigh_descending(XPR.transpose(1, 2) @ A(XPR))

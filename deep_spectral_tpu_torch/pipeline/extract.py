@@ -79,6 +79,7 @@ from ..utils import bucketing
 from ..utils.device import resolve_device
 from ..utils.image_io import (IMAGENET_SCALE, IMAGENET_SHIFT, load_image_resized,
                               load_image_rgb, read_image_list)
+from ..utils.profiling import span
 from ..utils.serialization import (load_pth, load_pth_meta, load_segmap_png, save_pth,
                                    save_segmap_png)
 from ..utils.sizes import get_image_sizes
@@ -154,42 +155,47 @@ def _inflight_depth(default: int = 1) -> int:
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Host array to `dev`; to CUDA from pinned memory, without blocking."""
+    """Host array to `dev`; to CUDA from pinned memory, without blocking (a
+    `stage.upload` span)."""
     t = torch.from_numpy(a)
     if dev.type != "cuda":
         return t
-    return t.pin_memory().to(dev, non_blocking=True)
+    with span("stage.upload"):
+        return t.pin_memory().to(dev, non_blocking=True)
 
 
 class _Fetch:
     """Copies of device tensors to the host, started now and waited for in
     `result()`: into pinned buffers with non-blocking copies behind an event
-    on CUDA, plain copies on the CPU."""
+    on CUDA (a `stage.fetch` span; the wait, `stage.wait`), plain copies on
+    the CPU."""
 
     def __init__(self, *tensors: torch.Tensor):
         self._event = None
         if tensors[0].is_cuda:
-            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                          for t in tensors]
-            for h, t in zip(self._host, tensors):
-                h.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with span("stage.fetch"):
+                self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                              for t in tensors]
+                for h, t in zip(self._host, tensors):
+                    h.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = [t.clone() for t in tensors]
 
     def result(self) -> list:
         if self._event is not None:
-            self._event.synchronize()
+            with span("stage.wait"):
+                self._event.synchronize()
         return [h.numpy() for h in self._host]
 
 
 class _InFlight:
     """Dispatched but unfetched batches, oldest first: `push` queues a
     batch's `_Fetch` with the host work to do on its arrays, and runs the
-    oldest batch's work while more than `_inflight_depth()` batches wait;
-    `drain` runs the rest. A batch's download so overlaps the next batch's
-    upload and compute."""
+    oldest batch's work (a `stage.callback` span) while more than
+    `_inflight_depth()` batches wait; `drain` runs the rest. A batch's
+    download so overlaps the next batch's upload and compute."""
 
     def __init__(self):
         self._queue: deque = deque()
@@ -202,7 +208,9 @@ class _InFlight:
 
     def _pop(self) -> None:
         fetch, on_result = self._queue.popleft()
-        on_result(*fetch.result())
+        arrays = fetch.result()
+        with span("stage.callback"):
+            on_result(*arrays)
 
     def drain(self) -> None:
         while self._queue:

@@ -49,6 +49,7 @@ from ..ops.resize import resize_bilinear
 from ..utils.device import resolve_device
 from ..utils.image_io import IMAGENET_MEAN, IMAGENET_STD, load_image_rgb
 from ..utils.precision import exact_f32
+from ..utils.profiling import span
 from ..utils.serialization import load_segmap_png, save_segmap_png
 
 VOC_NUM_CLASSES = 21  # 20 + background (reference: model/__init__.py:11-13)
@@ -562,30 +563,37 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     Data-parallel (`state.dp_group`): images and labels are this rank's
     block of the global batch; the gradients, the loss and the accuracy are
     averaged across ranks before the update, so every rank takes the same
-    step and agrees on the revert."""
+    step and agrees on the revert. Spans: `train.forward` (the BN snapshot,
+    the model and the loss), `train.backward` (the gradients and their
+    average across ranks), `train.optimizer` (the update, the BN revert and
+    the EMA)."""
     model = state.model
     model.train()
-    bn_before = {n: b.clone() for n, b in model.named_buffers()}
-    for p in state.opt.params.values():
-        p.grad = None
-    with exact_f32():
-        logits = model(images, generator=generator)
-        loss, acc = loss_and_accuracy(logits, labels)
-        loss.backward()
-    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-             for n, p in state.opt.params.items()}
-    if state.dp_group is not None:
-        loss, acc = loss.detach(), acc.detach()
-        _average_across_ranks([*grads.values(), loss, acc], state.dp_group)
-    ok = torch.isfinite(loss.detach())
-    state.opt.step(grads, ok)
-    with torch.no_grad():
-        for n, b in model.named_buffers():
-            b.copy_(torch.where(ok, b, bn_before[n]))
-        if use_ema and state.ema_params is not None:
-            for n, p in model.named_parameters():
-                e = state.ema_params[n]
-                e.copy_(torch.where(ok, ema_decay * e + (1 - ema_decay) * p, e))
+    with span("train.forward"):
+        bn_before = {n: b.clone() for n, b in model.named_buffers()}
+        for p in state.opt.params.values():
+            p.grad = None
+        with exact_f32():
+            logits = model(images, generator=generator)
+            loss, acc = loss_and_accuracy(logits, labels)
+    with span("train.backward"):
+        with exact_f32():
+            loss.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in state.opt.params.items()}
+        if state.dp_group is not None:
+            loss, acc = loss.detach(), acc.detach()
+            _average_across_ranks([*grads.values(), loss, acc], state.dp_group)
+    with span("train.optimizer"):
+        ok = torch.isfinite(loss.detach())
+        state.opt.step(grads, ok)
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                b.copy_(torch.where(ok, b, bn_before[n]))
+            if use_ema and state.ema_params is not None:
+                for n, p in model.named_parameters():
+                    e = state.ema_params[n]
+                    e.copy_(torch.where(ok, ema_decay * e + (1 - ema_decay) * p, e))
     state.step += 1
     return {"loss": loss.detach(), "acc": acc}
 

@@ -473,3 +473,37 @@ def test_chebyshev_above_the_admission_launches_the_kernel(cuda):
     torch.cuda.synchronize()
     assert chebyshev_filter.launches > before
     assert bool(torch.isfinite(ev).all() and torch.isfinite(vec).all())
+
+
+@pytest.mark.parametrize("solver", ["chebyshev", "lobpcg"])
+def test_spans_time_the_card_and_count_every_sync(cuda, solver):
+    """Under the profiler every span of a solve on the card has device
+    milliseconds, and the solver's `eigs.syncs` count is the number of
+    synchronizing calls PyTorch's sync debug mode sees in it."""
+    import warnings
+
+    from deep_spectral_tpu_torch.utils import profiling
+    feats = torch.from_numpy(np.stack([_smooth_features(np.random.default_rng(s), 30, 30)
+                                       for s in (7, 8, 9)])).to(cuda)
+    te.spectral_decompose_batched(feats, K=5, solver=solver)          # warm
+    torch.cuda.synchronize()
+    before = profiling.totals().get("eigs.syncs", 0)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            te.spectral_decompose_batched(feats, K=5, solver=solver)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = profiling.totals()["eigs.syncs"] - before
+    assert syncs == sum("synchronizing" in str(w.message) for w in seen) > 0
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        te.spectral_decompose_batched(feats, K=5, solver=solver)
+    recs = profiling.records()
+    profiling.clear()
+    solve = {"chebyshev": "eigs.cheb", "lobpcg": "eigs.lobpcg"}[solver]
+    assert {r["name"] for r in recs} >= {"eigs.decompose", solve, "eigs.sync"}
+    assert all(r["device_ms"] is not None and r["device_ms"] >= 0 for r in recs)
+    assert sum(r["counts"].get("eigs.syncs", 0) for r in recs) == syncs

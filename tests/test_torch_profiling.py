@@ -1,0 +1,223 @@
+"""The port's spans and counters (`deep_spectral_tpu_torch.utils.profiling`)
+on the CPU: nothing is recorded and no range is opened with the profiler
+off; under `torch.profiler` the spans nest as the solver, the stages and
+the train step run, the counters count the guard's re-solves and the
+Chebyshev lanes, the ranges land on the profiler's timeline inside the
+benchmark's window, and `trace` writes them out."""
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark.trace import Timeline
+from deep_spectral_tpu_torch.ops import affinity as ta
+from deep_spectral_tpu_torch.ops import eigen as te
+from deep_spectral_tpu_torch.pipeline import extract as stages
+from deep_spectral_tpu_torch.tasks import semantic_segmentation as TSS
+from deep_spectral_tpu_torch.utils import profiling
+from deep_spectral_tpu_torch.utils.profiling import StageTimer, span
+
+sys.path.insert(0, str(Path(__file__).parent))
+from test_solver_lobpcg import _smooth_features  # noqa: E402
+
+K, HW = 5, (24, 24)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_records():
+    """One torch thread, and no record left from another test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    profiling.clear()
+    yield
+    profiling.clear()
+    torch.set_num_threads(n)
+
+
+def _profile():
+    return torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _feats(seeds=(7, 8)):
+    feats = np.stack([_smooth_features(np.random.default_rng(s), *HW) for s in seeds])
+    mask = np.ones((len(seeds), HW[0] * HW[1]), bool)
+    mask[-1, -3 * HW[1]:] = False             # the last image padded
+    return torch.from_numpy(feats), torch.from_numpy(mask)
+
+
+def _train_state():
+    cfg = TSS.TrainConfig(backbone="test_vit_tiny", num_classes=3, crop_size=32,
+                          resize_size=40, batch_size=2, max_train_steps=10)
+    state = TSS.create_train_state(cfg, TSS.build_model(cfg), device="cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 3, (2, 32, 32)))
+    return state, x, y
+
+
+def _names(recs, parent=None):
+    return [r["name"] for r in recs if r["parent"] == parent]
+
+
+def test_off_records_nothing_and_opens_no_range(monkeypatch):
+    opened = []
+    real = torch.profiler.record_function
+
+    def spy(name, *a, **kw):
+        opened.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    f, m = _feats()
+    before = profiling.totals()
+    te.spectral_decompose_batched(f, m, K=K)
+    state, x, y = _train_state()
+    TSS.train_step(state, x, y, torch.Generator().manual_seed(0))
+    assert profiling.records() == [] and opened == []
+    # the counters are always on
+    after = profiling.totals()
+    assert after["eigs.images"] - before.get("eigs.images", 0) == 2
+    assert after["eigs.syncs"] > before.get("eigs.syncs", 0)
+
+
+def test_solver_spans_nest():
+    f, m = _feats()
+    with _profile():
+        te.spectral_decompose_batched(f, m, K=K)
+    recs = profiling.records()
+    assert _names(recs) == ["eigs.decompose"]
+    assert _names(recs, 0) == ["eigs.affinity", "eigs.cheb", "eigs.guard"]
+    cheb, guard = (next(i for i, r in enumerate(recs) if r["name"] == n)
+                   for n in ("eigs.cheb", "eigs.guard"))
+    start, *outers = [i for i, r in enumerate(recs) if r["parent"] == cheb]
+    assert recs[start]["name"] == "eigs.sync"                # the start block's upload
+    assert outers and all(recs[i]["name"] == "eigs.outer" for i in outers)
+    # every outer but a last one that finds nothing active: the exit test and rr's two eighs
+    for i in outers:
+        assert set(_names(recs, i)) == {"eigs.sync"}
+        assert len(_names(recs, i)) in (1, 3)
+    assert _names(recs, guard) == ["eigs.sync"]
+    assert all(r["device_ms"] is None for r in recs)       # no card: no events
+    syncs = sum(r["counts"].get("eigs.syncs", 0) for r in recs)
+    assert syncs == sum(r["name"] == "eigs.sync" for r in recs)
+
+
+def test_resolved_counts_the_guards_dense_resolves():
+    """Degree-1 filters cannot converge: the guard re-solves both lanes
+    (tests/test_torch_eigen.py's case), and counts them."""
+    f, m = _feats()
+    with _profile():
+        ev1, _ = te.spectral_decompose_batched(f, m, K=K, cheb_degree=1)
+        ev, _ = te.spectral_decompose_batched(f, m, K=K)
+    ev_e, _ = te.spectral_decompose_batched(f, m, K=K, solver="eigh")
+    np.testing.assert_array_equal(ev1.numpy(), ev_e.numpy())
+    recs = profiling.records()
+    guards = [r for r in recs if r["name"] == "eigs.guard"]
+    assert [g["counts"].get("eigs.resolved", 0) for g in guards] == [2, 0]
+    assert [g["counts"]["eigs.images"] for g in guards] == [2, 2]
+    # the re-solve's dense eigh is a sync of the guard too
+    resolving = recs.index(guards[0])
+    assert _names(recs, resolving) == ["eigs.sync", "eigs.sync"]
+
+
+def test_guard_counts_valid_lanes_only():
+    f, m = _feats((7, 8, 9))
+    m[1] = False                               # a padding lane: no valid node
+    with _profile():
+        te.spectral_decompose_batched(f, m, K=K)
+    guard = next(r for r in profiling.records() if r["name"] == "eigs.guard")
+    assert guard["counts"]["eigs.images"] == 2
+
+
+def test_lane_counters_match_the_outers():
+    feats = np.stack([_smooth_features(np.random.default_rng(s), *HW) for s in (3, 7, 8, 11)])
+    W = ta.feature_affinity(torch.from_numpy(feats), max_normalize=False)
+    ws = 1.0 / W.amax(dim=(-2, -1))
+    d = W.sum(-1) * ws[:, None]
+    d = torch.where(d < 1e-12, 1.0, d)
+    B = W.shape[0]
+    with _profile():
+        *_, outers = te._chebyshev_laplacian(W, d, K, K + 3, 4, 10, None, True, w_scale=ws)
+    recs = profiling.records()
+    active = sum(r["counts"].get("cheb.lanes_active", 0) for r in recs)
+    filtered = sum(r["counts"].get("cheb.lanes_filtered", 0) for r in recs)
+    assert active == int(outers.sum())
+    assert filtered == B * int(outers.max())
+    assert sum(r["name"] == "eigs.outer" for r in recs) >= int(outers.max())
+
+
+def test_train_step_spans_once_each_per_step():
+    state, x, y = _train_state()
+    gen = torch.Generator().manual_seed(0)
+    with _profile():
+        for _ in range(2):
+            TSS.train_step(state, x, y, gen)
+    assert _names(profiling.records()) == ["train.forward", "train.backward",
+                                           "train.optimizer"] * 2
+
+
+def test_stage_callback_encloses_the_hosts_work():
+    inflight = stages._InFlight()
+    seen = []
+
+    def on_result(a):
+        with span("inner"):
+            seen.append(a.sum())
+
+    with _profile():
+        for i in range(3):
+            inflight.push(stages._Fetch(torch.full((2,), float(i))), on_result)
+        inflight.drain()
+    recs = profiling.records()
+    assert _names(recs) == ["stage.callback"] * 3 and len(seen) == 3
+    for r in recs:
+        if r["name"] == "inner":
+            assert recs[r["parent"]]["name"] == "stage.callback"
+
+
+def test_ranges_land_on_the_benchmarks_timeline():
+    f, m = _feats()
+    tl = Timeline.record(lambda: te.spectral_decompose_batched(f, m, K=K))
+    lo, hi = tl.window
+    ours = [(n, s, e) for n, s, e in tl.host if n.startswith(("eigs.", "cheb."))]
+    names = {n for n, _, _ in ours}
+    assert {"eigs.decompose", "eigs.affinity", "eigs.cheb", "eigs.outer", "eigs.sync",
+            "eigs.guard"} <= names
+    assert all(lo <= s <= e <= hi for _, s, e in ours)
+    # the ranges are not device operations
+    assert not any(n.startswith("eigs.") for n, _, _ in tl.device)
+
+
+def test_trace_writes_spans_json(tmp_path):
+    f, m = _feats()
+    with profiling.trace(str(tmp_path / "tr")):
+        te.spectral_decompose_batched(f, m, K=K, cheb_degree=1)
+    out = json.loads((tmp_path / "tr" / "spans.json").read_text())
+    assert out["spans"][0]["name"] == "eigs.decompose"
+    assert sum(r["counts"].get("eigs.resolved", 0) for r in out["spans"]) == 2
+    assert out["totals"]["eigs.resolved"] >= 2
+    assert json.loads((tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+
+
+def test_stage_timer_reports_the_runs_resolves():
+    timer = StageTimer()
+    f, m = _feats()
+    with timer.stage("extract_eigs", n_items=4):
+        te.spectral_decompose_batched(f, m, K=K, cheb_degree=1)
+        te.spectral_decompose_batched(f, m, K=K)
+    assert timer.summary().splitlines()[-1].startswith("eigs: 2 of 4 image(s) re-solved")
+    assert "re-solved" not in StageTimer().summary()
+
+
+def test_vit_extract_is_one_span():
+    from deep_spectral_tpu_torch.models.vit import (VisionTransformer, extract_patch_keys,
+                                                    get_model_config)
+    model = VisionTransformer(get_model_config("test_vit_tiny"), torch.float32).eval()
+    images = torch.randn(2, 32, 48, 3)
+    with _profile():
+        k = extract_patch_keys(model, images)
+    assert k.shape == (2, 4 * 6, 32)
+    assert _names(profiling.records()) == ["vit.extract"]
