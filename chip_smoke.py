@@ -50,14 +50,19 @@ Phases, each of which must pass:
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
-     graph converges); both kernels' launch counts must be > 0, every residual
+     graph converges); the launch counts of both kernels and of the solver's
+     Jacobi eigh (`csrc/small_eigh.cu`, counted at each CUDA graph replay
+     that launches it) must be > 0, every residual
      <= CHEB_RESIDUAL_TOL, and the eigenpairs must agree with dense eigh;
      then (4b) that solve through each filter request, 'auto' (the
      kernel), 'xla' (the XLA chain) and f32 matvecs (through
      `_laplacian_eigs_batched` on the same affinity), each with the eigh
      guard held to the same dense-eigh gates, timed per batch beside the
      others with its guard's re-solves counted, the kernel launching
-     under 'auto' alone;
+     under 'auto' alone; (4c) the Jacobi eigh on the matrices the solves
+     of the first eight images hand it at K=5 (m=8) and K=20 (m=23),
+     against f64 eigh on the card (within 8 f32 eps x ||A||_2), timed
+     at b8 beside f64 eigh (its plain twin) and cuSOLVER's f32 eigh;
   5. stages 1-2 through `python -m deep_spectral_tpu_torch.pipeline` on six
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
@@ -199,12 +204,14 @@ solves, which sync the host every iteration, are 5 single calls after a
 warm-up call.
 Then it prints one JSON line with each kernel's launches, error, times, bound
 (`bound_ms`, the larger of its bytes over 3.35 TB/s and its flops over the
-card's peak: bf16 tensor cores, or for f32 three TF32 products a flop,
+card's peak: bf16 tensor cores, or for f32 three TF32 products a flop, or
+for the Jacobi eigh f64 on the CUDA cores,
 `bound_by` naming which; kernel 2 also `mma_ms`, its mma.sync build's time
 in the same call) and library time (`library_ms`: SDPA for the
 attention kernels; for the filter the XLA chain, `degree` cuBLAS calls and
 the rescale passes replayed as one CUDA graph, since no one PyTorch call
-computes it); kernels 3-5's f32 builds are entries of
+computes it; for the Jacobi eigh cuSOLVER's f32 eigh, with its m=23
+numbers under `m23`); kernels 3-5's f32 builds are entries of
 their own (`*_f32`, launches by path from the wrappers' `f32_launches`, the
 replaced FMA build's time as `fma_ms`), the card's
 name and power limit, and, last, {"ok": true, "device": {...}}.
@@ -282,6 +289,7 @@ RESNET_B, GEN_B = 16, 8    # phase 12's ResNet train batch, semantic_train's bat
 # product (split TF32, as the f32 flash kernels and f32 SDPA compute), so 165 TFLOP/s,
 # above the 67 TFLOP/s of exact f32 FMAs off the tensor cores; HBM
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 3.35e12
+PEAK_F64 = 33.5e12  # f64 FMAs on the CUDA cores (the Jacobi eigh's arithmetic)
 # phase 13's shapes and gates: SP at dino_vits8 736x736 (T = 1 + 92^2 = 8465); the
 # multi-hop merge over HOPS shards of HOP_T tokens (4 x 2117 - 3 = 8465: the 4th
 # shard ends in 3 padding rows, the 5th is padding); PP at b8 in 4 microbatches;
@@ -377,8 +385,9 @@ def _counters():
     """Every kernel wrapper of the port (each counts its own launches)."""
     from deep_spectral_tpu_torch.models import flash_attention as fa
     from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
+    from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
     return (fa.flash_attention_packed, chebyshev_filter, fa.flash_attention_lse,
-            fa.flash_bwd_dkv, fa.flash_bwd_dq)
+            fa.flash_bwd_dkv, fa.flash_bwd_dq, small_eigh)
 
 
 def _launches() -> dict:
@@ -825,6 +834,7 @@ def phase_main_path(dev) -> dict:
     from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
     from deep_spectral_tpu_torch.ops.eigen import (
         CHEB_RESIDUAL_TOL, spectral_decompose_batched)
+    from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
 
     step, base, cfg, mask, out = main_path_step(dev)
     grid = IMG // cfg.patch_size
@@ -838,7 +848,7 @@ def phase_main_path(dev) -> dict:
     end.record()
     end.synchronize()
     launches = {"flash": flash_attention_packed.launches,
-                "cheb": chebyshev_filter.launches}
+                "cheb": chebyshev_filter.launches, "eigh": small_eigh.launches}
     ms = start.elapsed_time(end) / n_steps
     k, feats, evals, vecs, res = out
     log(f"[4] main path dino_vits16 {IMG}x{IMG} b{B} bf16 K={K}: {ms:.3f} ms/step = "
@@ -862,7 +872,67 @@ def phase_main_path(dev) -> dict:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     filter_routes(feats, mask, ev_d, vec_d)
-    return launches
+    return launches, phase_small_eigh(feats, mask)
+
+
+def phase_small_eigh(feats, mask) -> dict:
+    """4c: the Jacobi kernel (`csrc/small_eigh.cu`) on the matrices the
+    main path's solves hand it, recorded from eager solves (no graphs) of
+    phase 4's first eight images at K=5 (m=8) and at the CLI's K=20 (m=23):
+    against f64 eigh on the card, eigenvalues and ||A V - V diag(w)|| within
+    8 eps ||A||_2, ||V^T V - I|| within 4 m eps (f32 eps); timed at one
+    call's shape (b8) beside its plain twin (f64 eigh on the card) and
+    cuSOLVER's f32 eigh (`torch.linalg.eigh`, which reads its error flags
+    back: a host sync a call); its bound: each matrix read once and its
+    pairs written once, or ~9 m^3 flops a matrix (a dense symmetric
+    eigendecomposition with vectors) at the f64 peak of the CUDA cores."""
+    import torch
+    from deep_spectral_tpu_torch.ops import eigen
+    from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
+    seen = {}
+
+    def record(M):
+        seen.setdefault(M.shape[-1], []).append(M.clone())
+        return small_eigh(M)
+
+    saved = eigen.small_eigh, eigen._RR_GRAPH_BYTES
+    eigen.small_eigh, eigen._RR_GRAPH_BYTES = record, 0
+    try:
+        for k in (K, 20):
+            eigen.spectral_decompose_batched(feats[:8], mask[:8], K=k)
+    finally:
+        eigen.small_eigh, eigen._RR_GRAPH_BYTES = saved
+    eps = float(np.finfo(np.float32).eps)
+    stats = {}
+    for m in sorted(seen):
+        M = torch.cat(seen[m])
+        w, V, bad = small_eigh(M)
+        w64, V64 = torch.linalg.eigh(M.double())
+        A, w, V = M.double(), w.double(), V.double()
+        norm = torch.linalg.matrix_norm(A, 2)
+        ev_err = ((w - w64).abs().amax(dim=1) / norm).max().item() / eps
+        res = ((A @ V - V * w[:, None, :]).abs().amax(dim=(1, 2)) / norm).max().item() / eps
+        eye = torch.eye(m, dtype=torch.float64, device=M.device)
+        orth = (V.transpose(1, 2) @ V - eye).abs().max().item() / eps
+        M8 = seen[m][0]
+        times = (cuda_ms(lambda: small_eigh(M8)), cuda_ms(lambda: torch.linalg.eigh(M8.double())),
+                 cuda_ms(lambda: torch.linalg.eigh(M8)))
+        b = M8.shape[0]
+        bd = bound(b * (2 * m * m + m) * 4 + b, 9 * m ** 3 * b, PEAK_F64)
+        log(f"[4c] small_eigh m={m}: {M.shape[0]} matrices from the solves' Rayleigh-Ritz "
+            f"steps, flagged {int(bad.sum())}; vs f64 eigh, in f32 eps x ||A||_2: eigenvalues "
+            f"{ev_err:.2f}, residual {res:.2f} (tol 8); ||V^T V - I|| {orth:.2f} eps (tol "
+            f"{4 * m}); b{b}: kernel {times[0]}, f64 eigh {times[1]}, cuSOLVER f32 eigh "
+            f"{times[2]} ({times[2].ms / times[0].ms:.2f}x the kernel) ({TIMING}); bound "
+            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}), the kernel "
+            f"{bd['bound_ms'] / times[0].ms:.4%} of it")
+        if bad.any() or not (ev_err <= 8 and res <= 8 and orth <= 4 * m):
+            raise AssertionError(f"small_eigh m={m} disagrees with f64 eigh")
+        stats[f"m{m}"] = {"ms": times[0].ms, "plain_ms": times[1].ms,
+                          "library_ms": times[2].ms, "max_eps_norm": max(ev_err, res), **bd}
+    if sorted(seen) != [K + 3, 23]:
+        raise AssertionError(f"the solves handed the kernel orders {sorted(seen)}")
+    return {**stats[f"m{K + 3}"], "m23": stats["m23"]}
 
 
 def filter_routes(feats, mask, ev_d, vec_d) -> None:
@@ -1253,7 +1323,7 @@ def phase_localization(tmp: Path) -> dict:
                 ("extract_eigs" + suffix, lambda: extract_eigs(
                     str(voc / "JPEGImages"), feats, eigs, K=K, batch_size=4,
                     image_color_lambda=COLOR_LAMBDA, device="cuda"),
-                 {"chebyshev_filter": None})]
+                 {"chebyshev_filter": None, "small_eigh": None})]
 
     loc = ["localization", "--dataset_root", str(voc), "--model_name", "dino_vits16",
            "--device", "cuda"]
@@ -1458,7 +1528,7 @@ def phase_segments(tmp: Path) -> dict:
          {"flash_attention_packed": (blocks - 1) * 6}),  # 3 b4 batches per image size
         ("2 extract_eigs", lambda: S.extract_eigs(
             jpegs, out["features"], out["eigs"], K=K, batch_size=4, device="cuda"),
-         {"chebyshev_filter": None}),
+         {"chebyshev_filter": None, "small_eigh": None}),
         ("3 extract_multi_region_segmentations", lambda: S.extract_multi_region_segmentations(
             out["features"], out["eigs"], out["multi"], device="cuda"), {}),
         ("4 extract_single_region_segmentations",
@@ -2149,11 +2219,11 @@ def phase_run_all(tmp: Path) -> dict:
     want = {"flash_attention_packed": (blocks - 1) * 6 + blocks * stage6}
     log(f"[12a] launches {launches}; kernel 1 expected {want['flash_attention_packed']} "
         f"(11 attending blocks x 6 stage-1 batches + 12 blocks x {stage6} stage-6 batches), "
-        f"kernel 2 at least once, no other")
+        f"kernel 2 and the Jacobi eigh at least once, no other")
     if launches["flash_attention_packed"] != want["flash_attention_packed"] or \
-            launches["chebyshev_filter"] <= 0 or \
+            launches["chebyshev_filter"] <= 0 or launches["small_eigh"] <= 0 or \
             any(c for n, c in launches.items()
-                if n not in ("flash_attention_packed", "chebyshev_filter")):
+                if n not in ("flash_attention_packed", "chebyshev_filter", "small_eigh")):
         raise AssertionError(f"run_all: launches {launches}")
     log(f"[12a] kernel shapes of run_all: {sorted(map(str, seen))}")
     if not seen <= held:
@@ -3273,7 +3343,7 @@ def main(argv: list) -> int:
         return 0
     flash = phase_flash(dev)
     cheb = phase_cheb(dev)
-    launches = phase_main_path(dev)
+    launches, eigh = phase_main_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(Path(tmp), "cuda")
     train_kernels = phase_train_kernels(dev)
@@ -3320,6 +3390,14 @@ def main(argv: list) -> int:
                               "run_all": p12["run_all"]["chebyshev_filter"],
                               "dp": par["dp"]["chebyshev_filter"]},
          **cheb},
+        {"name": "small_eigh", "route": "cuda",
+         "source": "deep_spectral_tpu_torch/csrc/small_eigh.cu",
+         "replaces": None,
+         "launches": launches["eigh"],
+         "launches_by_path": {"main": launches["eigh"],
+                              "run_all": p12["run_all"]["small_eigh"],
+                              "dp": par["dp"]["small_eigh"]},
+         **eigh},
     ] + [{"name": name, "route": "cuda", "source": f"deep_spectral_tpu_torch/csrc/{source}",
           "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
           "launches": train_launches[name],

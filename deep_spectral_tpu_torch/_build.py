@@ -78,6 +78,8 @@ _SIGNATURES = {
     "dss_flash_bwd_dq_f32_shape": [_I, _I, _I, _IP],
     "dss_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
     "dss_flash_bwd_dq_bf16_shape": [_I, _I, _I, _IP],
+    # M, w, V, bad; B, m; stream
+    "dss_small_eigh": [_P] * 4 + [_I] * 2 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -28,32 +28,42 @@ Every function here is batched over a leading image dimension. The JAX
 package runs its iterative solvers as `lax.while_loop`s under `vmap`, where
 a lane that has converged keeps its carry frozen while the batch loops on;
 the port loops on the host and freezes converged lanes with `torch.where`,
-so an image's result does not depend on its batch-mates. The host waits for
-the device at each iteration's exit test and at every `torch.linalg.eigh`
-(which reads its error flags back on a CUDA device): a Chebyshev outer
-iteration makes three such syncs, the exit test and the two small eighs of
-its Rayleigh-Ritz step; a solve adds the start block's upload, the exit
-test that ends the loop and the guard's read. Each sync is an `eigs.sync`
-span and an `eigs.syncs` count (`utils/profiling.py`).
+so an image's result does not depend on its batch-mates.
+
+Host syncs. On a CUDA device a Chebyshev solve whose block is at most
+SMALL_EIGH_MAX_M (`ops/small_eigh.py`) waits for the card once, at its
+guard's read: its small eighs are the Jacobi kernel, it runs every outer
+iteration instead of reading an exit test (converged lanes stay frozen), each
+outer's Rayleigh-Ritz step and masked update is replayed from a CUDA graph
+(`_GraphedRitzStep`), and the default start block stays on the device. On
+CPU tensors, and on the card for larger blocks, an outer iteration makes
+three syncs, its exit test and the two `torch.linalg.eigh` of its
+Rayleigh-Ritz step (cuSOLVER's error flags are read back), and the loop
+stops once no lane is active. LOBPCG waits at each iteration's exit test and
+eigh (`ops/lobpcg.py`), a dense solve at its eigh. Each sync is an
+`eigs.sync` span and an `eigs.syncs` count (`utils/profiling.py`).
 
 Precision: the solvers' Rayleigh-Ritz products, the residual, LOBPCG and
 A_mv run in true f32 (`exact_f32()`, no TF32), the filter chain on a bf16
 operator with f32 accumulation (`matvec_precision='bf16'`) or, with
 `matvec_precision='f32'`, on the f32 operator in true f32 (the XLA chain:
-the kernel takes bf16 only); the small eighs use `torch.linalg.eigh`.
+the kernel takes bf16 only); the small eighs are f32, by `small_eigh`.
 """
 from __future__ import annotations
 
+import functools
+from collections import OrderedDict
 from typing import Optional, Union
 
 import torch
 
 from ..utils.precision import exact_f32
-from ..utils.profiling import count, span
+from ..utils.profiling import count, recording, span
 from .affinity import degree_vector, feature_affinity, l2_normalize
 from .cheb_filter import _per_image, chebyshev_filter, kernel_operator
-from .lobpcg import eigh_finite as _eigh_finite
 from .lobpcg import lobpcg_standard
+from .small_eigh import small_eigh
+from .small_eigh import sync_free as _sync_free
 
 # Convergence guard for the Chebyshev subspace solver: max whitened residual
 # ||A x_k - theta_k x_k|| above which a result is rejected and the exact dense
@@ -87,6 +97,12 @@ CHEB_MAX_N = 3856
 # card the chain beats LOBPCG above 2048 too. The rule stays the JAX
 # package's.
 XLA_CHAIN_CHEB_MAX_N = 2048
+
+# Bytes of static buffers that the Chebyshev solver's Rayleigh-Ritz graphs
+# (`_GraphedRitzStep`) hold at once, over all shapes; the least recently used
+# shape goes first. A shape whose buffers alone are larger runs its steps
+# eagerly (b8 at N=3072 holds 0.30 GB, at CHEB_MAX_N 0.48 GB; b24 at 3856, 1.4).
+_RR_GRAPH_BYTES = 1 << 30
 
 _SOLVERS = ("auto", "eigh", "chebyshev", "lobpcg")
 _FILTER_IMPLS = ("auto", "xla", "pallas")
@@ -210,14 +226,27 @@ def default_start_block(N: int, m: int) -> torch.Tensor:
     return torch.randn((N, m), generator=torch.Generator().manual_seed(0))
 
 
-def _start_block(x0, B: int, N: int, m: int, mask, device) -> torch.Tensor:
-    """The iterative solvers' (B, N, m) start block: x0 (N, m), or
-    `default_start_block`, with padded rows zeroed. Its copy from pageable
-    host memory is a host sync on a CUDA device."""
-    X = default_start_block(N, m) if x0 is None else torch.as_tensor(x0, dtype=torch.float32)
+@functools.lru_cache(maxsize=32)
+def _resident_start_block(N: int, m: int, device: torch.device) -> torch.Tensor:
+    """`default_start_block` on `device`, made once per (N, m, device); its
+    copy from pageable host memory is a host sync on a CUDA device. Callers
+    share the tensor and never write it."""
     with span("eigs.sync"):
         count("eigs.syncs")
-        X = X.to(device, torch.float32)
+        return default_start_block(N, m).to(device)
+
+
+def _start_block(x0, B: int, N: int, m: int, mask, device) -> torch.Tensor:
+    """The iterative solvers' (B, N, m) start block: x0 (N, m), or
+    `default_start_block`, with padded rows zeroed. The default block stays
+    on the device (`_resident_start_block`); x0 is copied at every call, a
+    host sync on a CUDA device where it comes from host memory."""
+    if x0 is None:
+        X = _resident_start_block(N, m, torch.device(device))
+    else:
+        with span("eigs.sync"):
+            count("eigs.syncs")
+            X = torch.as_tensor(x0, dtype=torch.float32).to(device, torch.float32)
     X = X.expand(B, N, m)
     if mask is not None:
         X = X * mask.to(torch.float32)[:, :, None]
@@ -275,46 +304,59 @@ def chebyshev_filter_chain(S: torch.Tensor, X: torch.Tensor, c, e,
     return T1
 
 
-def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
-                         apply_sign_fix, w_scale=None, window_init="auto",
-                         x0=None, filter_impl="auto", matvec_precision="bf16"):
-    """Chebyshev-filtered subspace iteration for the smallest-K eigenpairs of
-    the whitened Laplacian, batched: W (B, N, N), d (B, N).
+class _RitzStep:
+    """A Chebyshev solve's state between two filters, and the steps of
+    `_chebyshev_laplacian`'s loop that are not the filter: the Rayleigh-Ritz
+    step of a filtered block and the masked update after it.
 
-    Repeats [filter of `degree` damping [lam_cut, 2] -> orthonormalize ->
-    Rayleigh-Ritz] until each lane's residual max_k ||A x_k - theta_k x_k||
-    is <= CHEB_RESIDUAL_TOL or `n_outer` filters ran; converged lanes freeze.
-    The filter is the one `resolved_cheb_impl` names: the kernel on the bf16
-    operator, or the XLA chain on the bf16 or (matvec_precision='f32') f32
-    operator. Returns (evals (B, K), vectors (B, K, N), residual (B,),
-    outers (B,)): residual is +inf where non-finite, `outers` counts each
-    lane's filter applications. x0: optional (N, m_block) start block
-    (default `default_start_block`)."""
-    B, N, _ = W.shape
-    dev = W.device
-    use_kernel = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block) == "pallas"
-    inv_sqrt_d = torch.rsqrt(d)
-    sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
-    S_fast = sc[:, :, None] * W * sc[:, None, :]
-    if matvec_precision == "bf16":
-        # the kernel's TMA map needs 16-byte aligned rows: built padded here
-        # once, not copied by the wrapper at every filter
-        S_fast = (kernel_operator(S_fast) if use_kernel and S_fast.is_cuda
-                  else S_fast.to(torch.bfloat16))
-    filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
+    State: X (B, N, m) the block, theta (B, m) its Ritz values, res (B,) the
+    largest residual of its K pairs (+inf where not finite), outers (B,)
+    int32 the filters each lane took, active (B,) res > CHEB_RESIDUAL_TOL
+    (the lanes the next outer updates) and c, e (B,) the next filter's
+    window. A step binds the state to new tensors and writes none it was
+    handed. W (B, N, N) and sc (B, N): A = I - sc W sc, applied in true f32."""
 
-    def A_mv(X):  # I - D^-1/2 W D^-1/2, true f32
-        return X - sc[:, :, None] * (W @ (sc[:, :, None] * X))
+    def __init__(self, W, sc, K):
+        self.W, self.sc, self.K = W, sc, K
 
-    X = _start_block(x0, B, N, m_block, mask, dev)
+    def start(self, X, theta, res):
+        """The 'wide' start: X the start block, theta and res the first
+        window's (every lane active)."""
+        self.X, self.theta, self.res = X, theta, res
+        self.outers = torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)
+        self._window()
 
-    def rr(X):
+    def estimate(self, F):
+        """The 'estimate' start: the Rayleigh-Ritz of the filtered start
+        block F gives the first window."""
+        self.X, self.theta, self.res = self._rr(F)
+        self.outers = torch.zeros(F.shape[0], dtype=torch.int32, device=F.device)
+        self._window()
+
+    def outer(self, F):
+        """The rest of an outer iteration after its filter's output F: the
+        active lanes take F's Rayleigh-Ritz, the others keep their state."""
+        a = self.active
+        X, theta, res = self._rr(F)
+        self.X = torch.where(a[:, None, None], X, self.X)
+        self.theta = torch.where(a[:, None], theta, self.theta)
+        self.res = torch.where(a, res, self.res)
+        self.outers = self.outers + a.to(torch.int32)
+        self._window()
+
+    def _window(self):
+        self.active = self.res > CHEB_RESIDUAL_TOL
+        lam_cut = torch.clamp(self.theta[:, self.K - 1] * 1.5 + 1e-3, 1e-3, 1.8)
+        self.c, self.e = (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
+
+    def _rr(self, X):
+        K, sc = self.K, self.sc
         X = X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
-        w, Vg, bad_g = _eigh_finite(X.transpose(1, 2) @ X)
+        w, Vg, bad_g = small_eigh(X.transpose(1, 2) @ X)
         Xo = X @ (Vg / torch.sqrt(torch.clamp_min(w, 1e-12))[:, None, :])
-        AXo = A_mv(Xo)
+        AXo = Xo - sc[:, :, None] * (self.W @ (sc[:, :, None] * Xo))
         T = Xo.transpose(1, 2) @ AXo
-        theta, Q, bad_t = _eigh_finite((T + T.transpose(1, 2)) / 2)
+        theta, Q, bad_t = small_eigh((T + T.transpose(1, 2)) / 2)
         Xr, AXr = Xo @ Q, AXo @ Q
         R = AXr[:, :, :K] - Xr[:, :, :K] * theta[:, None, :K]
         res = torch.sqrt((R * R).sum(dim=1)).amax(dim=-1)
@@ -325,13 +367,147 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
         theta = torch.where(bad[:, None], torch.nan, theta)
         return Xr, theta, res
 
-    def window(theta):
-        lam_cut = torch.clamp(theta[:, K - 1] * 1.5 + 1e-3, 1e-3, 1.8)
-        return (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
 
+class _GraphedRitzStep(_RitzStep):
+    """`_RitzStep` on static buffers, for a sync-free solve on the card: the
+    solve copies W and sc in once (`load`) and each filter's output into F,
+    and each kind of step ('estimate', 'outer') is replayed from a CUDA graph,
+    captured at its first use after one eager run on a side stream (the
+    warm-up the capture needs, which does that step's work). Between steps
+    the state is the static buffers, which the next solve of the shape
+    overwrites: the solver hands back copies."""
+
+    def __init__(self, key, B, N, m, K, device):
+        f32 = dict(dtype=torch.float32, device=device)
+        super().__init__(torch.empty((B, N, N), **f32), torch.empty((B, N), **f32), K)
+        self.key = key
+        self.F = torch.empty((B, N, m), **f32)
+        self.static = dict(
+            X=torch.empty((B, N, m), **f32), theta=torch.empty((B, m), **f32),
+            res=torch.empty(B, **f32), outers=torch.empty(B, dtype=torch.int32, device=device),
+            active=torch.empty(B, dtype=torch.bool, device=device),
+            c=torch.empty(B, **f32), e=torch.empty(B, **f32))
+        self.__dict__.update(self.static)
+        self.graphs = {}
+        self.nbytes = self.static_bytes(B, N, m)
+
+    @staticmethod
+    def static_bytes(B, N, m) -> int:
+        """The static buffers' bytes (each graph's own pool holds a few (B,
+        N, m) intermediates more)."""
+        return 4 * B * (N * N + N + 2 * N * m + m + 5) + B
+
+    def load(self, W, sc):
+        self.W.copy_(W)
+        self.sc.copy_(sc)
+
+    def start(self, X, theta, res):
+        self._staged(_RitzStep.start, X, theta, res)
+
+    def estimate(self, F):
+        self._replay(_RitzStep.estimate, F)
+
+    def outer(self, F):
+        self._replay(_RitzStep.outer, F)
+
+    def _staged(self, step, *args):
+        """`step`, then its state copied into the static buffers."""
+        step(self, *args)
+        for name, buf in self.static.items():
+            buf.copy_(getattr(self, name))
+        self.__dict__.update(self.static)
+
+    def _replay(self, step, F):
+        self.F.copy_(F)
+        if step in self.graphs:
+            graph, eighs = self.graphs[step]
+            graph.replay()
+            small_eigh.launches += eighs
+            count("eigs.rr_graph_replays")
+            return
+        dev = self.F.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._staged(step, self.F)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        captured = small_eigh.captured
+        with span("eigs.sync"):  # the capture starts with a device-wide synchronize
+            count("eigs.syncs")
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._staged(step, self.F)
+        self.graphs[step] = (graph, small_eigh.captured - captured)
+        count("eigs.rr_graph_captures")
+
+
+_rr_graphs: "OrderedDict[tuple, _GraphedRitzStep]" = OrderedDict()
+
+
+def _take_graphed_step(B, N, m, K, device):
+    """The cached `_GraphedRitzStep` of (device, current stream, B, N, m,
+    K), taken out of the cache while its solve runs (`_return_graphed_step`
+    puts it back), or a new one; None where its static buffers alone exceed
+    _RR_GRAPH_BYTES."""
+    if _GraphedRitzStep.static_bytes(B, N, m) > _RR_GRAPH_BYTES:
+        return None
+    key = (device, torch.cuda.current_stream(device).cuda_stream, B, N, m, K)
+    step = _rr_graphs.pop(key, None)
+    return step if step is not None else _GraphedRitzStep(key, B, N, m, K, device)
+
+
+def _return_graphed_step(step):
+    _rr_graphs[step.key] = step
+    while sum(s.nbytes for s in _rr_graphs.values()) > _RR_GRAPH_BYTES:
+        _rr_graphs.popitem(last=False)
+
+
+def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
+                         apply_sign_fix, w_scale=None, window_init="auto",
+                         x0=None, filter_impl="auto", matvec_precision="bf16"):
+    """Chebyshev-filtered subspace iteration for the smallest-K eigenpairs of
+    the whitened Laplacian, batched: W (B, N, N), d (B, N).
+
+    Repeats [filter of `degree` damping [lam_cut, 2] -> orthonormalize ->
+    Rayleigh-Ritz] on each lane whose residual max_k ||A x_k - theta_k x_k||
+    is above CHEB_RESIDUAL_TOL, at most `n_outer` times; converged lanes
+    freeze. On CPU tensors, and on the card for blocks above
+    SMALL_EIGH_MAX_M, the loop reads an exit test each outer and stops once
+    no lane is active. On a CUDA device otherwise (`small_eigh`'s sync-free
+    route) it reads none and runs all `n_outer` outers, the filter on the
+    whole batch each time, with frozen lanes unchanged: the results, `outers`
+    included, are those of the loop that stops; each outer's Rayleigh-Ritz
+    step and update is a CUDA graph's replay where the shape's buffers fit
+    _RR_GRAPH_BYTES (`_GraphedRitzStep`), else run eagerly. The filter is
+    the one `resolved_cheb_impl` names, launched eagerly through this
+    module's `chebyshev_filter` or `chebyshev_filter_chain`: the kernel on
+    the bf16 operator, or the XLA chain on the bf16 or (matvec_precision=
+    'f32') f32 operator. Returns (evals (B, K), vectors (B, K, N), residual
+    (B,), outers (B,)): residual is +inf where non-finite, `outers` counts
+    each lane's filter applications that updated it. x0: optional (N,
+    m_block) start block (default `default_start_block`)."""
+    B, N, _ = W.shape
+    dev = W.device
     validate_cheb_window_init(window_init)
     if window_init == "auto":
         window_init = "wide" if N <= _WIDE_INIT_MAX_N else "estimate"
+    use_kernel = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block) == "pallas"
+    inv_sqrt_d = torch.rsqrt(d)
+    sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
+    S_fast = sc[:, :, None] * W * sc[:, None, :]
+    if matvec_precision == "bf16":
+        # the kernel's TMA map needs 16-byte aligned rows: built padded here
+        # once, not copied by the wrapper at every filter
+        S_fast = (kernel_operator(S_fast) if use_kernel and S_fast.is_cuda
+                  else S_fast.to(torch.bfloat16))
+    filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
+    X = _start_block(x0, B, N, m_block, mask, dev)
+    sync_free = _sync_free(dev, m_block)
+    step = _take_graphed_step(B, N, m_block, K, dev) if sync_free else None
+    if step is None:
+        step = _RitzStep(W, sc, K)
+    else:
+        step.load(W, sc)
     with exact_f32():
         if window_init == "estimate":
             if use_kernel:
@@ -345,38 +521,34 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
                     X = 2.0 * X - (X - _chain_product(S_fast, X))
                     X = X / torch.clamp_min(
                         torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
-            X, theta, res = rr(X)
+            step.estimate(X)
         else:
             # 'wide' / 'wide@<lam_cut>': the first outer filters with the
             # fixed window [lam_cut0, 2]; res = inf makes every lane run it.
             lam_cut0 = (_WIDE_INIT_LAM_CUT if window_init == "wide"
                         else float(window_init.split("@", 1)[1]))
-            theta = torch.full((B, m_block), (lam_cut0 - 1e-3) / 1.5,
-                               dtype=torch.float32, device=dev)
-            res = torch.full((B,), torch.inf, dtype=torch.float32, device=dev)
+            step.start(X, torch.full((B, m_block), (lam_cut0 - 1e-3) / 1.5,
+                                     dtype=torch.float32, device=dev),
+                       torch.full((B,), torch.inf, dtype=torch.float32, device=dev))
 
-        outers = torch.zeros(B, dtype=torch.int32, device=dev)
         for _ in range(n_outer):
             with span("eigs.outer"):
-                active = res > CHEB_RESIDUAL_TOL
-                # the exit test, one of the outer's three host syncs (rr's
-                # two eighs are the others)
-                with span("eigs.sync"):
-                    count("eigs.syncs")
-                    n_active = int(active.sum())
-                if not n_active:
-                    break
+                if not sync_free:
+                    # the exit test, one of the outer's three host syncs on
+                    # a CUDA device (rr's two eighs are the others)
+                    with span("eigs.sync"):
+                        count("eigs.syncs")
+                        n_active = int(step.active.sum())
+                    if not n_active:
+                        break
                 count("cheb.lanes_filtered", B)
-                count("cheb.lanes_active", n_active)
-                c, e = window(theta)
-                Xn, theta_n, res_n = rr(filt(S_fast, X, c, e, degree))
-                X = torch.where(active[:, None, None], Xn, X)
-                theta = torch.where(active[:, None], theta_n, theta)
-                res = torch.where(active, res_n, res)
-                outers += active.to(torch.int32)
+                step.outer(filt(S_fast, step.X, step.c, step.e, degree))
 
-    vectors = _as_vectors(inv_sqrt_d[:, :, None] * X[:, :, :K], mask, apply_sign_fix)
-    return theta[:, :K], vectors, res, outers
+    theta, res, outers = (t.clone() for t in (step.theta[:, :K], step.res, step.outers))
+    vectors = _as_vectors(inv_sqrt_d[:, :, None] * step.X[:, :, :K], mask, apply_sign_fix)
+    if isinstance(step, _GraphedRitzStep):
+        _return_graphed_step(step)
+    return theta, vectors, res, outers
 
 
 def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
@@ -413,21 +585,29 @@ def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
     return (c[:, None] - theta)[:, :K], _as_vectors(V, mask, apply_sign_fix)
 
 
-def _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale, evals, vectors, res):
+def _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale, evals, vectors, res,
+           lanes=None):
     """The solvers' fallback, as the reference's ARPACK retry
     (extract/extract.py:227-234): a lane whose residual is above
     CHEB_RESIDUAL_TOL or whose result is not finite is re-solved with eigh.
-    One host sync reads which lanes fail and which hold a valid node; the
-    counters `eigs.images` and `eigs.resolved` take the valid lanes checked
-    and the lanes re-solved."""
+    One host sync reads which lanes fail, which hold a valid node and the
+    device count `lanes` (a Chebyshev solve's `cheb.lanes_active`);
+    the counters `eigs.images` and `eigs.resolved` take the valid lanes
+    checked and the lanes re-solved."""
+    B = res.shape[0]
     ok = ((res <= CHEB_RESIDUAL_TOL) & torch.isfinite(evals).all(dim=1)
           & torch.isfinite(vectors).flatten(1).all(dim=1))
     valid = torch.ones_like(ok) if mask is None else mask.any(dim=1)
+    parts = [(~ok).to(torch.int32), valid.to(torch.int32)]
+    if lanes is not None:
+        parts.append(lanes.reshape(1).to(torch.int32))
     with span("eigs.sync"):
         count("eigs.syncs")
-        flags = torch.stack((~ok, valid)).cpu()
-    count("eigs.images", int(flags[1].sum()))
-    bad = torch.nonzero(flags[0]).flatten()
+        read = torch.cat(parts).cpu()
+    if lanes is not None:
+        count("cheb.lanes_active", int(read[2 * B]))
+    count("eigs.images", int(read[B:2 * B].sum()))
+    bad = torch.nonzero(read[:B]).flatten()
     if not bad.numel():
         return evals, vectors
     count("eigs.resolved", bad.numel())
@@ -466,6 +646,7 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
     solver = _resolve_solver(N, m_block, lapnorm, solver, cheb_filter_impl,
                              matvec_precision)
     if solver in ("lobpcg", "chebyshev"):
+        lanes = None
         if solver == "lobpcg":
             iters = lobpcg_iters if lobpcg_iters is not None else (60 if N <= 2048 else 100)
             with span("eigs.lobpcg"):
@@ -477,17 +658,21 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
             if not lapnorm:
                 raise ValueError("solver='chebyshev' supports lapnorm=True only")
             with span("eigs.cheb"):
-                evals, vectors, res, _ = _chebyshev_laplacian(
+                evals, vectors, res, outers = _chebyshev_laplacian(
                     W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
                     w_scale=w_scale, window_init=cheb_window_init, x0=x0,
                     filter_impl=cheb_filter_impl, matvec_precision=matvec_precision)
-        if return_residual:
-            return evals, vectors, res
-        if cheb_guard:
+            lanes = outers.sum()  # `cheb.lanes_active`, read at the guard's sync
+        if cheb_guard and not return_residual:
             with span("eigs.guard"):
                 evals, vectors = _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale,
-                                        evals, vectors, res)
-        return evals, vectors
+                                        evals, vectors, res, lanes)
+            return evals, vectors
+        if lanes is not None and recording():
+            with span("eigs.sync"):  # made only while tracing: no guard reads the count
+                count("eigs.syncs")
+                count("cheb.lanes_active", int(lanes))
+        return (evals, vectors, res) if return_residual else (evals, vectors)
     with exact_f32():
         out = _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale)
     if return_residual:

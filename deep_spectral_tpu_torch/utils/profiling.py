@@ -33,8 +33,12 @@ The spans and counters the port opens and counts:
     check and the dense re-solve), `eigs.sync` (each point where the solver
     waits for the device); counters `eigs.images` (valid lanes the guard
     checked), `eigs.resolved` (lanes it re-solved densely), `eigs.syncs`,
-    `cheb.lanes_filtered` (lanes each outer's filter ran on) and
-    `cheb.lanes_active` (lanes still above the residual tolerance there);
+    `cheb.lanes_filtered` (lanes each outer's filter ran on),
+    `cheb.lanes_active` (lanes still above the residual tolerance there,
+    the solve's `outers` summed: counted at the guard's read, or, without a
+    guard, at a read made only while tracing),
+    `eigs.rr_graph_captures` and `eigs.rr_graph_replays` (the Rayleigh-Ritz
+    steps captured into a CUDA graph and replayed from one);
   * train step (`tasks/semantic_segmentation.py`): `train.forward`,
     `train.backward`, `train.optimizer`.
 """
@@ -64,11 +68,16 @@ _totals: Counter = Counter()  # counter name -> process total
 _open = _OpenSpans()
 
 
+def recording() -> bool:
+    """Whether `torch.profiler` is recording (spans are traced)."""
+    return torch.autograd._profiler_enabled()
+
+
 def span(name: str):
     """A named range of the port's work (see the module docstring); a no-op
     unless `torch.profiler` is recording. Not to be opened inside a CUDA
     graph capture (no events are recorded there)."""
-    if not torch.autograd._profiler_enabled():
+    if not recording():
         return _OFF
     return _traced_span(name)
 

@@ -5,7 +5,11 @@ runs where JAX is not installed:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: flash outputs are bf16 of magnitude <~2 (ulp 2^-7) and the
+Tolerances: the Jacobi eigh (`ops/small_eigh.py`, f64 inside, f32 out)
+against f64 eigh: eigenvalues and ||A V - V diag(w)|| within 8 eps ||A||_2,
+||V^T V - I|| within 4 m eps (f32 eps; the rounding of m entries a column,
+with room). The solver's CUDA graphs replay the eager step's kernels:
+bitwise equal. Flash outputs are bf16 of magnitude <~2 (ulp 2^-7) and the
 kernel rounds p to bf16 at running maxima where the twin uses the row max:
 1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (the
 twins are true f32; the three kernels run split-TF32 products, ~21
@@ -19,6 +23,9 @@ both builds:
 order differs and a last-bit change can flip one bf16(T_j) rounding
 downstream: 1e-3. Solver results: eigenvalues 1e-4, |cosine| >= 0.999.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +40,9 @@ from deep_spectral_tpu_torch.ops.cheb_filter import (cheb_filter_plan, chebyshev
                                                      chebyshev_filter_mma,
                                                      chebyshev_filter_plain,
                                                      first_streamed_n)
+
+sys.path.insert(0, str(Path(__file__).parent))
+from test_torch_small_eigh import _matrix  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -497,6 +507,8 @@ def test_spans_time_the_card_and_count_every_sync(cuda, solver):
         torch.cuda.set_sync_debug_mode(0)
     syncs = profiling.totals()["eigs.syncs"] - before
     assert syncs == sum("synchronizing" in str(w.message) for w in seen) > 0
+    if solver == "chebyshev":
+        assert syncs == 1       # the guard's read: the rest of the solve is sync-free
     profiling.clear()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]):
@@ -507,3 +519,107 @@ def test_spans_time_the_card_and_count_every_sync(cuda, solver):
     assert {r["name"] for r in recs} >= {"eigs.decompose", solve, "eigs.sync"}
     assert all(r["device_ms"] is not None and r["device_ms"] >= 0 for r in recs)
     assert sum(r["counts"].get("eigs.syncs", 0) for r in recs) == syncs
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "degenerate", "gram"])
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 23, 32])
+def test_small_eigh_kernel_matches_f64_eigh(cuda, m, kind):
+    """The Jacobi kernel against f64 eigh on random, clustered, exactly
+    degenerate and Gram matrices of every order class it takes (odd orders
+    pad a row); beside each, the same matrix with its upper triangle
+    overwritten (the kernel reads the lower: the same bits back) and one
+    with a NaN, which comes back flagged as the identity's pairs, with no
+    host read inside. One launch a call."""
+    from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
+    rng = np.random.default_rng(m)
+    A = _matrix(kind, m, rng)
+    upper = A + np.triu(rng.standard_normal((m, m)).astype(np.float32), 1)
+    nan = A.copy()
+    nan[m - 1, 0] = np.nan
+    before = small_eigh.launches
+    w, V, bad = small_eigh(torch.from_numpy(np.stack([A, upper, nan])).to(cuda))
+    torch.cuda.synchronize()
+    assert small_eigh.launches == before + 1
+    w, V, bad = w.cpu().numpy(), V.cpu().numpy(), bad.cpu().numpy()
+    assert bad.tolist() == [False, False, True]
+    np.testing.assert_array_equal(w[1], w[0])
+    np.testing.assert_array_equal(V[1], V[0])
+    np.testing.assert_array_equal(w[2], np.ones(m, np.float32))
+    np.testing.assert_array_equal(V[2], np.eye(m, dtype=np.float32))
+    eps = float(np.finfo(np.float32).eps)
+    A64 = A.astype(np.float64)
+    norm = np.linalg.norm(A64, 2)
+    assert np.all(np.diff(w[0]) >= 0)
+    assert np.abs(w[0] - np.linalg.eigvalsh(A64)).max() <= 8 * eps * norm
+    assert np.abs(V[0].T.astype(np.float64) @ V[0] - np.eye(m)).max() <= 4 * m * eps
+    assert np.abs(A64 @ V[0] - V[0] * w[0]).max() <= 8 * eps * norm
+
+
+def _ragged_graph(seed0=3):
+    """A b4 bucket of 32 x 32 patches holding four images of other sizes."""
+    sizes = [(30, 30), (28, 32), (32, 24), (20, 20)]
+    feats = np.zeros((4, 32, 32, 64), np.float32)
+    mask = np.zeros((4, 32, 32), bool)
+    for b, (h, w) in enumerate(sizes):
+        feats[b, :h, :w] = _smooth_features(np.random.default_rng(seed0 + b), h, w).reshape(h, w, -1)
+        mask[b, :h, :w] = True
+    feats, mask = torch.from_numpy(feats.reshape(4, 1024, -1)), torch.from_numpy(mask.reshape(4, -1))
+    W = ta.feature_affinity(feats, mask=mask, max_normalize=False)
+    ws = 1.0 / W.amax(dim=(-2, -1))
+    d = W.sum(-1) * ws[:, None]
+    return W, torch.where(d < 1e-12, 1.0, d), mask, ws
+
+
+@pytest.mark.parametrize("window_init", ["wide", "estimate"])
+def test_graphed_solve_matches_the_eager_solve(cuda, monkeypatch, window_init):
+    """Each outer's Rayleigh-Ritz step replayed from a CUDA graph against
+    the same solve run eagerly on the card (a budget of 0 bytes for the
+    graphs' buffers): bitwise equal eigenvalues, vectors, residuals and
+    outers, on a ragged masked batch whose degree-4 filters leave lanes
+    needing all four outers; the first solve of the shape captures, the
+    second replays. Either way the Jacobi kernel's count is two launches a
+    Rayleigh-Ritz step: the captures launch nothing, each replay two."""
+    from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
+    from deep_spectral_tpu_torch.utils import profiling
+    W, d, mask, ws = (t.to(cuda) for t in _ragged_graph())
+    args = (W, d, 5, 8, 4, 4, mask, True)
+    kw = dict(w_scale=ws, window_init=window_init)
+    kinds = 2 if window_init == "estimate" else 1      # 'estimate' has its own graph
+    with monkeypatch.context() as mp:
+        mp.setattr(te, "_RR_GRAPH_BYTES", 0)
+        before, launches = profiling.totals(), small_eigh.launches
+        eager = te._chebyshev_laplacian(*args, **kw)
+        assert profiling.totals().get("eigs.rr_graph_captures", 0) == \
+            before.get("eigs.rr_graph_captures", 0)
+        assert small_eigh.launches - launches == 2 * (3 + kinds)
+    te._rr_graphs.clear()
+    for captures, replays in ((kinds, 3), (0, 3 + kinds)):
+        before, launches = profiling.totals(), small_eigh.launches
+        graphed = te._chebyshev_laplacian(*args, **kw)
+        after = profiling.totals()
+        assert [after.get(n, 0) - before.get(n, 0) for n in
+                ("eigs.rr_graph_captures", "eigs.rr_graph_replays")] == [captures, replays]
+        assert small_eigh.launches - launches == 2 * (3 + kinds)
+        for e, g in zip(eager, graphed):
+            assert torch.equal(e, g)
+    assert int(eager[3].max()) == 4
+
+
+def test_graphed_solve_hands_back_copies(cuda):
+    """A second solve of the same shape (the same graphs and static
+    buffers) leaves the first solve's results as they were."""
+    first_in = [t.to(cuda) for t in _ragged_graph(3)]
+    second_in = [t.to(cuda) for t in _ragged_graph(11)]
+    te._rr_graphs.clear()
+
+    def solve(W, d, mask, ws):
+        return te._chebyshev_laplacian(W, d, 5, 8, 4, 10, mask, True, w_scale=ws)
+
+    first = solve(*first_in)
+    kept = [t.clone() for t in first]
+    second = solve(*second_in)
+    torch.cuda.synchronize()
+    assert len(te._rr_graphs) == 1
+    assert not torch.equal(first[0], second[0])
+    for t, k in zip(first, kept):
+        assert torch.equal(t, k)

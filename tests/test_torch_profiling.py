@@ -85,10 +85,17 @@ def test_off_records_nothing_and_opens_no_range(monkeypatch):
 
 def test_solver_spans_nest():
     f, m = _feats()
+    te._resident_start_block.cache_clear()
     with _profile():
         te.spectral_decompose_batched(f, m, K=K)
+        te.spectral_decompose_batched(f, m, K=K)
     recs = profiling.records()
-    assert _names(recs) == ["eigs.decompose"]
+    assert _names(recs) == ["eigs.decompose"] * 2
+    # the default start block is copied to the device once per (N, m, device)
+    second = [i for i, r in enumerate(recs) if r["parent"] is None][1]
+    again = next(i for i, r in enumerate(recs) if r["name"] == "eigs.cheb" and i > second)
+    assert set(_names(recs, again)) == {"eigs.outer"}
+    recs = recs[:second]
     assert _names(recs, 0) == ["eigs.affinity", "eigs.cheb", "eigs.guard"]
     cheb, guard = (next(i for i, r in enumerate(recs) if r["name"] == n)
                    for n in ("eigs.cheb", "eigs.guard"))
@@ -139,14 +146,55 @@ def test_lane_counters_match_the_outers():
     d = W.sum(-1) * ws[:, None]
     d = torch.where(d < 1e-12, 1.0, d)
     B = W.shape[0]
-    with _profile():
-        *_, outers = te._chebyshev_laplacian(W, d, K, K + 3, 4, 10, None, True, w_scale=ws)
+    *_, outers = te._chebyshev_laplacian(W, d, K, K + 3, 4, 10, None, True, w_scale=ws)
+    with _profile():   # the same solve, guarded: the guard's read counts the active lanes
+        te._laplacian_eigs_batched(W, K, w_scale=ws, solver="chebyshev", cheb_outer=4,
+                                   cheb_degree=10)
     recs = profiling.records()
     active = sum(r["counts"].get("cheb.lanes_active", 0) for r in recs)
     filtered = sum(r["counts"].get("cheb.lanes_filtered", 0) for r in recs)
     assert active == int(outers.sum())
     assert filtered == B * int(outers.max())
     assert sum(r["name"] == "eigs.outer" for r in recs) >= int(outers.max())
+
+
+@pytest.mark.parametrize("window_init", ["wide", "estimate"])
+def test_fixed_schedule_matches_the_exit_test(monkeypatch, window_init):
+    """The card's sync-free schedule, emulated on the CPU (every outer runs,
+    no exit test is read, the lane count is read at the guard, no graph),
+    against the loop that reads the exit test: bit-identical results and
+    `outers`; `cheb.lanes_active` is outers.sum() under both schedules, and
+    `cheb.lanes_filtered` B x cheb_outer under the fixed one. Degree 6 leaves
+    the lanes converging at different outers, all before the fourth."""
+    feats = np.stack([_smooth_features(np.random.default_rng(s), *HW) for s in (3, 7, 8, 11)])
+    W = ta.feature_affinity(torch.from_numpy(feats), max_normalize=False)
+    ws = 1.0 / W.amax(dim=(-2, -1))
+    d = W.sum(-1) * ws[:, None]
+    d = torch.where(d < 1e-12, 1.0, d)
+    B, n_outer, degree = W.shape[0], 4, 6
+    results, counts = [], []
+    for fixed in (False, True):
+        with monkeypatch.context() as mp:
+            if fixed:
+                mp.setattr(te, "_sync_free", lambda device, m: True)
+                mp.setattr(te, "_RR_GRAPH_BYTES", 0)
+            results.append(te._chebyshev_laplacian(W, d, K, K + 3, n_outer, degree, None,
+                                                   True, w_scale=ws, window_init=window_init))
+            profiling.clear()
+            kw = dict(w_scale=ws, solver="chebyshev", cheb_outer=n_outer, cheb_degree=degree,
+                      cheb_window_init=window_init)
+            with _profile():
+                te._laplacian_eigs_batched(W, K, **kw)                          # guarded
+                te._laplacian_eigs_batched(W, K, return_residual=True, **kw)
+            recs = profiling.records()
+            counts.append([sum(r["counts"].get(n, 0) for r in recs)
+                           for n in ("cheb.lanes_active", "cheb.lanes_filtered")])
+    for exit_test, fixed in zip(*results):
+        assert torch.equal(exit_test, fixed)
+    outers = results[0][3]
+    assert len(set(outers.tolist())) > 1 and int(outers.max()) < n_outer
+    assert counts[0] == [2 * int(outers.sum()), 2 * B * int(outers.max())]
+    assert counts[1] == [2 * int(outers.sum()), 2 * B * n_outer]
 
 
 def test_train_step_spans_once_each_per_step():
