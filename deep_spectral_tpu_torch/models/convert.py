@@ -4,8 +4,9 @@ a seeded random init.
 The reference loads its backbone with `torch.hub.load('facebookresearch/dino:main',
 name)` (extract/extract_utils.py:40-50). There is no network here, so a local
 DINO state dict is used when one is found (`ckpt_dir`, or
-`$DSS_TPU_DINO_CKPT_DIR/<model_name>.pth`, the JAX package's lookup); since the
-port keeps DINO's parameter names it loads that file as it is. Without a
+`$DSS_TPU_DINO_CKPT_DIR/<model_name>.pth`, the JAX package's lookup, or the
+published file name of a DINOv2 model, `CHECKPOINT_FILES`); since the port
+keeps DINO's and DINOv2's parameter names it loads that file as it is. Without a
 checkpoint the weights are a seeded random init from a `torch.Generator`
 (different numbers from the JAX package's flax init of the same seed).
 `flax_to_torch_state_dict` carries the JAX package's ViT params over, and
@@ -24,7 +25,11 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .vit import ViTConfig, VisionTransformer, get_model_config
+from .vit import LayerScale, ViTConfig, VisionTransformer, get_model_config
+
+# Published checkpoint files whose names are not `<model_name>.pth`
+# (facebookresearch/dinov2's hub downloads).
+CHECKPOINT_FILES = {"dinov2_vitg14_reg": "dinov2_vitg14_reg4_pretrain.pth"}
 
 
 def flax_to_torch_state_dict(params: dict, cfg: ViTConfig) -> dict:
@@ -179,23 +184,29 @@ def flax_vgg16_to_torch_state_dict(params: dict) -> dict:
 
 def find_local_checkpoint(model_name: str,
                           ckpt_dir: Optional[str] = None) -> Optional[Path]:
-    """Look for `<model_name>.pth` under `ckpt_dir` or $DSS_TPU_DINO_CKPT_DIR."""
+    """Look for `<model_name>.pth` (or the published file name,
+    `CHECKPOINT_FILES`) under `ckpt_dir` or $DSS_TPU_DINO_CKPT_DIR."""
     roots = []
     if ckpt_dir:
         roots.append(Path(ckpt_dir))
     env = os.environ.get("DSS_TPU_DINO_CKPT_DIR")
     if env:
         roots.append(Path(env))
+    names = [f"{model_name}.pth", f"{model_name}.pt"]
+    if model_name in CHECKPOINT_FILES:
+        names.append(CHECKPOINT_FILES[model_name])
     for root in roots:
-        for cand in (root / f"{model_name}.pth", root / f"{model_name}.pt"):
+        for cand in (root / n for n in names):
             if cand.is_file():
                 return cand
     return None
 
 
 def load_dino_state_dict(path: str | Path) -> dict:
-    """A DINO checkpoint's backbone state dict: unwraps 'state_dict', strips
-    DDP's 'module.' prefix and drops the projection head."""
+    """A DINO or DINOv2 checkpoint's backbone state dict: unwraps
+    'state_dict', strips DDP's 'module.' prefix and drops the projection
+    head (a DINOv2 file is the backbone's own state dict, `mask_token`
+    and `register_tokens` included)."""
     sd = torch.load(str(path), map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
@@ -207,7 +218,8 @@ def load_dino_state_dict(path: str | Path) -> dict:
 def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
     """Seeded random weights: linear and conv weights ~ N(0, 1/fan_in)
     (flax's lecun-normal scale), zero biases and CLS token, pos_embed ~
-    N(0, 0.02^2), LayerNorms at identity."""
+    N(0, 0.02^2), LayerNorms at identity; DINOv2's LayerScales at 1 (the
+    hub's init_values), register tokens ~ N(0, 0.02^2), its mask token 0."""
     g = torch.Generator().manual_seed(seed)
     for module in model.modules():
         if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
@@ -218,8 +230,14 @@ def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
         elif isinstance(module, torch.nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
+        elif isinstance(module, LayerScale):
+            module.gamma.fill_(1.0)
     model.cls_token.zero_()
     model.pos_embed.copy_(torch.randn(model.pos_embed.shape, generator=g) * 0.02)
+    if model.cfg.num_registers:
+        model.register_tokens.copy_(torch.randn(model.register_tokens.shape, generator=g) * 0.02)
+    if model.cfg.family == "dinov2":
+        model.mask_token.zero_()
     return model
 
 

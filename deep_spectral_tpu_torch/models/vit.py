@@ -1,9 +1,21 @@
-"""DINO Vision Transformer as a PyTorch `nn.Module`.
+"""DINO and DINOv2 Vision Transformers as a PyTorch `nn.Module`.
 
 The port of `deep_spectral_tpu.models.vit`. Parameter names are DINO's own
 (`patch_embed.proj`, `blocks.{i}.norm1`, `attn.qkv`, `attn.proj`, `mlp.fc1`,
 `mlp.fc2`, `norm`, `cls_token`, `pos_embed`), so a DINO checkpoint loads with
 `load_state_dict`. The public input is NHWC (B, H, W, 3), the JAX layout.
+
+The DINOv2 family (`ViTConfig.family == "dinov2"`; Oquab et al. 2023, and
+Darcet et al. 2023 for the registers; facebookresearch/dinov2's
+`vision_transformer.py`) adds, under DINOv2's own names so its checkpoints
+load as they are: `num_registers` register tokens (`register_tokens`,
+inserted after CLS with no positional embedding), LayerScale after both
+branches of every block (`blocks.{i}.ls1.gamma`, `ls2.gamma`), the fused
+SwiGLU FFN when `ffn == "swiglufused"` (`mlp.w12`, `mlp.w3`), the unused
+`mask_token`, and positional embeddings resampled by torch's antialiased
+bicubic to each image's own patch grid (`grids`), placed at its valid
+positions of a padded bucket. DINO v1 keeps the JAX package's resample to
+the input's whole (bucket) grid and reads no grids.
 
 Numerics follow the JAX model:
   * LayerNorm in f32 with eps 1e-6; linear layers and the patch conv in the
@@ -34,6 +46,7 @@ from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -41,11 +54,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import resize_bicubic
 from ..utils.precision import exact_f32
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .flash_attention import (FlashAttentionFn, flash_attention_lse,
                               flash_attention_packed)
 
 ATTENTION_IMPLS = ("auto", "einsum", "flash")
+FAMILIES = ("dino", "dinov2")
+FFNS = ("mlp", "swiglufused")
 
 
 @dataclass(frozen=True)
@@ -56,10 +71,18 @@ class ViTConfig:
     num_heads: int
     mlp_ratio: float = 4.0
     img_size: int = 224  # pretraining resolution (defines stored pos_embed grid)
+    family: str = "dino"     # "dinov2": LayerScale, mask token, per-image antialiased positions
+    num_registers: int = 0   # register tokens after CLS
+    ffn: str = "mlp"         # "mlp" (GELU) or "swiglufused" (DINOv2's fused SwiGLU)
 
     @property
     def pos_grid(self) -> int:
         return self.img_size // self.patch_size
+
+    @property
+    def num_prefix(self) -> int:
+        """Tokens before the patches: CLS and the registers."""
+        return 1 + self.num_registers
 
 
 VIT_CONFIGS: dict[str, ViTConfig] = {
@@ -70,6 +93,14 @@ VIT_CONFIGS: dict[str, ViTConfig] = {
     "dino_vitb8": ViTConfig(8, 768, 12, 12),
     # tiny config for tests/CI smoke only — not a reference model
     "test_vit_tiny": ViTConfig(8, 32, 2, 2, img_size=32),
+    # DINOv2 ViT-g/14 with 4 registers (torch.hub facebookresearch/dinov2
+    # `dinov2_vitg14_reg`: vit_giant2, img_size 518, init_values 1.0,
+    # ffn_layer "swiglufused", interpolate_antialias, interpolate_offset 0)
+    "dinov2_vitg14_reg": ViTConfig(14, 1536, 40, 24, img_size=518, family="dinov2",
+                                   num_registers=4, ffn="swiglufused"),
+    # its tiny sibling for tests/CI smoke only — not a reference model
+    "test_dinov2_tiny": ViTConfig(14, 128, 2, 2, img_size=70, family="dinov2",
+                                  num_registers=4, ffn="swiglufused"),
 }
 
 
@@ -149,20 +180,68 @@ class Mlp(nn.Module):
         return _linear(h, self.fc2, dtype)
 
 
+def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
+    """DINOv2's `SwiGLUFFNFused` hidden width: 2/3 of the MLP's, rounded up
+    to a multiple of 8 (4096 at width 1536)."""
+    return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+class SwiGLUFFN(nn.Module):
+    """w3(silu(a) * b) with [a, b] = chunk(w12(x), 2), one `vit.swiglu` span."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype=torch.float32):
+        with span("vit.swiglu"):
+            a, b = _linear(x, self.w12, dtype).chunk(2, dim=-1)
+            return _linear(F.silu(a) * b, self.w3, dtype)
+
+
+class LayerScale(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(dim))
+
+    def add(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """x + gamma * h in h's dtype."""
+        return torch.addcmul(x, h, self.gamma.to(h.dtype))
+
+
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", ffn: str = "mlp"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, attention_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = (Mlp(dim, int(dim * mlp_ratio)) if ffn == "mlp"
+                    else SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio)))
 
     def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
         h, qkv, attn = self.attn(_layer_norm(x, self.norm1), token_mask,
                                  want_attn, dtype)
         x = x + h
         x = x + self.mlp(_layer_norm(x, self.norm2), dtype)
+        return x, qkv, attn
+
+
+class LayerScaleBlock(Block):
+    """DINOv2's block: each branch scaled by its LayerScale before the add."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 attention_impl: str = "auto", ffn: str = "mlp"):
+        super().__init__(dim, num_heads, mlp_ratio, attention_impl, ffn)
+        self.ls1 = LayerScale(dim)
+        self.ls2 = LayerScale(dim)
+
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+        h, qkv, attn = self.attn(_layer_norm(x, self.norm1), token_mask,
+                                 want_attn, dtype)
+        x = self.ls1.add(x, h)
+        x = self.ls2.add(x, self.mlp(_layer_norm(x, self.norm2), dtype))
         return x, qkv, attn
 
 
@@ -173,11 +252,13 @@ class PatchEmbed(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """DINO ViT. Input: (B, H, W, 3) normalized images, H and W multiples of
-    the patch size. `compute_dtype` is torch.float32 or torch.bfloat16.
+    """DINO or DINOv2 ViT. Input: (B, H, W, 3) normalized images, H and W
+    multiples of the patch size. `compute_dtype` is torch.float32 or
+    torch.bfloat16.
 
-    forward returns a dict with 'x_norm' (B, 1+N, D), 'cls' (B, D), 'qkv'
-    ({'q','k','v'}: head-merged (B, 1+N, D) of block `qkv_block`),
+    forward returns a dict with 'x_norm' (B, 1+R+N, D; R registers after
+    CLS), 'cls' (B, D), 'qkv' ({'q','k','v'}: head-merged (B, 1+R+N, D) of
+    block `qkv_block`),
     'intermediates' (the last `n_intermediates` blocks' outputs, normed) and,
     with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block.
     `attention_impl`: 'auto', 'einsum' or 'flash'; `remat`: recompute each
@@ -186,6 +267,9 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ViTConfig, compute_dtype: torch.dtype = torch.float32,
                  attention_impl: str = "auto", remat: bool = False):
         super().__init__()
+        if cfg.family not in FAMILIES or cfg.ffn not in FFNS:
+            raise ValueError(f"family must be one of {FAMILIES} and ffn one of {FFNS}; "
+                             f"got {cfg.family!r}, {cfg.ffn!r}")
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.attention_impl = attention_impl
@@ -194,8 +278,13 @@ class VisionTransformer(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, D)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid ** 2, D))
+        if cfg.num_registers:
+            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_registers, D))
+        if cfg.family == "dinov2":
+            self.mask_token = nn.Parameter(torch.zeros(1, D))   # DINOv2's iBOT mask; unused
+        block = LayerScaleBlock if cfg.family == "dinov2" else Block
         self.blocks = nn.ModuleList(
-            [Block(D, cfg.num_heads, cfg.mlp_ratio, attention_impl)
+            [block(D, cfg.num_heads, cfg.mlp_ratio, attention_impl, cfg.ffn)
              for _ in range(cfg.depth)])
         self.norm = nn.LayerNorm(D, eps=1e-6)
 
@@ -204,12 +293,17 @@ class VisionTransformer(nn.Module):
         return exact_f32() if self.compute_dtype == torch.float32 else nullcontext()
 
     def embed(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None,
-              pos_embed_override: Optional[torch.Tensor] = None):
-        """Patch tokens + CLS + positional embeddings, in the compute dtype,
-        and the token mask extended by the (always valid) CLS token.
+              pos_embed_override: Optional[torch.Tensor] = None,
+              grids: Optional[np.ndarray] = None):
+        """Patch tokens + CLS + positional embeddings, then the register
+        tokens after CLS, in the compute dtype, and the token mask extended
+        by the (always valid) CLS and register tokens.
         `pos_embed_override` ((B or 1, 1+N, D)) replaces the interpolated
         positional embeddings: bucket-padded evaluation passes each image's
-        own-grid embeddings placed at its valid token positions."""
+        own-grid embeddings placed at its valid token positions. `grids`
+        ((B, 2) host ints, each image's patch grid inside the input's) gives
+        the DINOv2 family those per image (`dinov2_pos_embed`); DINO v1
+        does not read it."""
         cfg, dtype = self.cfg, self.compute_dtype
         B, H, W, _ = x.shape
         P = cfg.patch_size
@@ -222,24 +316,31 @@ class VisionTransformer(nn.Module):
         tokens = patches.flatten(2).transpose(1, 2)
         if pos_embed_override is not None:
             pos = pos_embed_override
+        elif cfg.family == "dinov2":
+            pos = dinov2_pos_embed(self.pos_embed, cfg.pos_grid, h, w, grids)
         else:
             pos = interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
         tokens = torch.cat([self.cls_token.expand(B, -1, -1).float(),
                             tokens.float()], dim=1)
         tokens = (tokens + pos).to(dtype)
+        R = cfg.num_registers
+        if R:
+            tokens = torch.cat([tokens[:, :1], self.register_tokens.to(dtype).expand(B, -1, -1),
+                                tokens[:, 1:]], dim=1)
         if token_mask is not None:
             token_mask = torch.cat(
-                [torch.ones((B, 1), dtype=torch.bool, device=token_mask.device),
+                [torch.ones((B, 1 + R), dtype=torch.bool, device=token_mask.device),
                  token_mask.to(torch.bool)], dim=1)
         return tokens, token_mask
 
     def forward(self, x: torch.Tensor, *, qkv_block: int = -1,
                 n_intermediates: int = 1, want_attn: bool = False,
                 token_mask: Optional[torch.Tensor] = None,
-                pos_embed_override: Optional[torch.Tensor] = None):
+                pos_embed_override: Optional[torch.Tensor] = None,
+                grids: Optional[np.ndarray] = None):
         cfg, dtype = self.cfg, self.compute_dtype
         with self.precision():
-            tokens, token_mask = self.embed(x, token_mask, pos_embed_override)
+            tokens, token_mask = self.embed(x, token_mask, pos_embed_override, grids)
             qkv_block = qkv_block % cfg.depth
             qkv_out, attn_out, intermediates = None, None, []
             remat = self.remat and torch.is_grad_enabled()
@@ -278,22 +379,72 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, grid: int, h: int,
     return torch.cat([cls_pos, patch_pos.reshape(1, h * w, -1)], dim=1)
 
 
+def antialias_pos_embed(pos_embed: torch.Tensor, grid: int, h: int, w: int) -> torch.Tensor:
+    """DINOv2's resample of stored (1, 1+grid^2, D) positional embeddings to
+    an (h, w) patch grid: torch's antialiased bicubic to an exact size, in
+    f32 (`interpolate_antialias=True`, `interpolate_offset=0`)."""
+    pos_embed = pos_embed.float()
+    if h == grid and w == grid:
+        return pos_embed
+    patch_pos = pos_embed[:, 1:].reshape(1, grid, grid, -1).permute(0, 3, 1, 2)
+    patch_pos = F.interpolate(patch_pos, size=(h, w), mode="bicubic", antialias=True)
+    return torch.cat([pos_embed[:, :1], patch_pos.flatten(2).transpose(1, 2)], dim=1)
+
+
+def dinov2_pos_embed(pos_embed: torch.Tensor, grid: int, h: int, w: int,
+                     grids: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Positional embeddings of an (h, w)-patch input: with `grids` ((B, 2)
+    host ints), each image's own (h_i, w_i) resample at its valid positions
+    and zeros elsewhere, (B, 1+h*w, D), or (1, 1+h*w, D) when every image
+    has one grid; without, the whole (h, w) grid's, as an unpadded input
+    takes it. A grid of zero patches (a batch's padding row) gets zeros."""
+    if grids is None:
+        return antialias_pos_embed(pos_embed, grid, h, w)
+    keys = [(int(gh), int(gw)) for gh, gw in np.asarray(grids).reshape(-1, 2)]
+    if any(gh > h or gw > w for gh, gw in keys):
+        raise ValueError(f"image grids {sorted(set(keys))} do not fit the {h}x{w} input")
+    tables = {}
+    for gh, gw in dict.fromkeys(keys):
+        if gh * gw == 0:
+            tables[gh, gw] = pos_embed.new_zeros((1, 1 + h * w, pos_embed.shape[-1]),
+                                                 dtype=torch.float32)
+            continue
+        own = antialias_pos_embed(pos_embed, grid, gh, gw)
+        patch = own[:, 1:].transpose(1, 2).reshape(1, -1, gh, gw)
+        patch = F.pad(patch, (0, w - gw, 0, h - gh)).flatten(2).transpose(1, 2)
+        tables[gh, gw] = torch.cat([own[:, :1], patch], dim=1)
+    if len(tables) == 1:
+        return next(iter(tables.values()))
+    return torch.cat([tables[k] for k in keys])
+
+
 @torch.no_grad()
 def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
                        which_block: int = -1, which_features: str = "k",
-                       token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       token_mask: Optional[torch.Tensor] = None,
+                       grids: Optional[np.ndarray] = None) -> torch.Tensor:
     """Stage-1 features: head-merged `which_features` ('q', 'k' or 'v') of
-    block `which_block`, CLS dropped (reference: extract/extract.py:96-98).
-    Runs only as far as that block's qkv projection (a `vit.extract` span).
+    block `which_block`, CLS and registers dropped (reference:
+    extract/extract.py:96-98, which has no registers). Runs only as far as
+    that block's qkv projection (a `vit.extract` span, which counts
+    `vit.tokens`, the B x T tokens run, and, given `grids` ((B, 2) host
+    ints, each image's patch grid; see `VisionTransformer.embed`),
+    `vit.tokens_valid`, the prefix and grid tokens of the images with any).
     Returns (B, N, D) in the compute dtype."""
     cfg, dtype = model.cfg, model.compute_dtype
     j = "qkv".index(which_features)
     with span("vit.extract"), model.precision():
-        tokens, token_mask = model.embed(images, token_mask)
+        tokens, token_mask = model.embed(images, token_mask, grids=grids)
+        count("vit.tokens", tokens.shape[0] * tokens.shape[1])
+        if grids is not None:
+            count("vit.tokens_valid", sum(cfg.num_prefix + int(gh) * int(gw)
+                                          for gh, gw in np.asarray(grids).reshape(-1, 2)
+                                          if gh * gw))
         last = which_block % cfg.depth
         for blk in model.blocks[:last]:
             tokens = blk(tokens, token_mask, False, dtype)[0]
         blk = model.blocks[last]
         qkv = blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype)
     B, T = qkv.shape[:2]
-    return qkv[:, 1:, j].reshape(B, T - 1, -1)
+    n = cfg.num_prefix
+    return qkv[:, n:, j].reshape(B, T - n, -1)

@@ -314,7 +314,7 @@ def extract_features(
         padded, masks, extents, metas = prepared
         images = _to_device(padded, dev).float() * scale - shift
         k = extract_patch_keys(model, images, which_block=which_block,
-                               token_mask=_to_device(masks, dev))
+                               token_mask=_to_device(masks, dev), grids=extents // P)
         inflight.push(_Fetch(k.to(torch.float16)), partial(save, bucket, extents, metas))
 
     bucketing.run_bucketed_prefetched(
@@ -698,8 +698,8 @@ def extract_bbox_features(
             masks = bucketing.token_masks(extents, bucket, P)
             images = _to_device(padded, dev).float() * scale - shift
             with torch.no_grad():
-                cls = model(images, n_intermediates=1,
-                            token_mask=_to_device(masks, dev))["cls"]
+                cls = model(images, n_intermediates=1, token_mask=_to_device(masks, dev),
+                            grids=extents // P)["cls"]
             inflight.push(_Fetch(cls.float()), partial(keep, batch_items))
     inflight.drain()
 

@@ -26,7 +26,12 @@ The spans and counters the port opens and counts:
     card), `stage.fetch` (pinned buffers and the copies back), `stage.wait`
     (the host waiting for a fetch), `stage.callback` (the host's work on a
     fetched batch);
-  * ViT (`models/vit.py`): `vit.extract`;
+  * ViT (`models/vit.py`): `vit.extract` (`extract_patch_keys`), with its
+    counters `vit.tokens` (the batch's B x T tokens run, prefix and padding
+    included, from shapes) and `vit.tokens_valid` (each image's CLS,
+    registers and valid patches, from the grids the caller gives, counted
+    only where it gives them); `vit.swiglu` (a block's SwiGLU FFN: w12, the
+    gate and w3);
   * eigensolve (`ops/eigen.py`, `ops/lobpcg.py`): `eigs.decompose`,
     `eigs.affinity`, `eigs.cheb` and `eigs.lobpcg` (one iterative solve),
     `eigs.outer` (one Chebyshev outer iteration), `eigs.guard` (the residual

@@ -153,6 +153,60 @@ def test_fp32_vit_on_cuda_matches_cpu(cuda):
     assert load_model("test_vit_tiny", precision="fp32", device=cuda).compute_dtype == torch.float32
 
 
+def test_dinov2_vitg14_reg_through_kernel_1(cuda):
+    """dinov2_vitg14_reg at its published widths and depth, on seeded weights
+    drawn as the benchmark draws them: b2 476x476 images padded into a 40x40
+    bucket (T = 1605, 1161 valid), bf16, each image handed its 34x34 grid,
+    through kernel 1 (one launch a block before the last) against the f32
+    reference run on each unpadded image (TF32 off). Tolerance: 5e-2 of the
+    keys' norm an image, the benchmark cell's limit (bf16 keys over 40
+    residual blocks against true f32 read 1.9-2.1e-2 there, 2.8e-2 on these
+    N(0, 1) pixels; its fp8 control reads 0.15). The same modules in f32
+    (true f32 products, kernel 3's split-TF32 build): 1e-4 (2.9e-5 read),
+    and the reference without its registers over 100 times further."""
+    import json
+
+    from benchmark import checks, weights
+    from benchmark.drivers.extract_dinov2 import build_vit, dinov2_shapes, port_config
+    from benchmark.reference import dinov2 as ref_dinov2
+    from benchmark.reference.lowp import tf32_enabled
+    from benchmark.reference.vit import Numerics
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                      / "dinov2_vitg14_reg.json").read_text())
+    sd = weights.seeded_weights(dinov2_shapes(cfg), 2**31 + 3, cuda)
+    model = build_vit(port_config(cfg), sd, cuda)
+    images = torch.randn((2, 476, 476, 3), generator=torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    x = torch.zeros((2, 560, 560, 3), device=cuda)
+    x[:, :476, :476] = images
+    mask = torch.zeros((2, 40, 40), dtype=torch.bool, device=cuda)
+    mask[:, :34, :34] = True
+    before = flash_attention_packed.launches
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1),
+                           grids=np.array([[34, 34], [34, 34]]))
+    assert flash_attention_packed.launches == before + 39
+    k = k.float().reshape(2, 40, 40, -1)[:, :34, :34].reshape(2, 34 * 34, -1)
+    del model
+    with tf32_enabled(False):
+        ref = ref_dinov2.patch_keys(sd, cfg, list(images), Numerics(torch.float32))
+    gap = checks.keys_gap(list(k), ref)
+    print(f"dinov2_vitg14_reg keys_rel_err {gap:.4e}")
+    assert gap <= 5e-2
+    model = build_vit(port_config(cfg), sd, cuda, torch.float32)
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1),
+                           grids=np.array([[34, 34], [34, 34]]))
+    k = k.reshape(2, 40, 40, -1)[:, :34, :34].reshape(2, 34 * 34, -1)
+    del model
+    gap32 = checks.keys_gap(list(k), ref)
+    with tf32_enabled(False):
+        no_reg = ref_dinov2.patch_keys(sd, cfg, list(images), Numerics(torch.float32),
+                                       registers=False)
+    print(f"f32 keys_rel_err {gap32:.4e}, without registers {checks.keys_gap(no_reg, ref):.4e}")
+    assert gap32 <= 1e-4
+    assert checks.keys_gap(no_reg, ref) > 100 * gap32
+
+
 def _train_inputs(B, T, dtype, device, seed):
     """A fused (B, T, 3, 6, 64) qkv, a grad of o, and a mask with a ragged
     end, an all-masked batch row and a masked start."""

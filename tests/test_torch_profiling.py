@@ -269,3 +269,38 @@ def test_vit_extract_is_one_span():
         k = extract_patch_keys(model, images)
     assert k.shape == (2, 4 * 6, 32)
     assert _names(profiling.records()) == ["vit.extract"]
+
+
+def test_swiglu_spans_and_token_counters():
+    """`vit.swiglu` opens once a block that runs its FFN (the forward's every
+    block, stage 1's all but the last), inside `vit.extract`; `vit.tokens`
+    counts B x T and `vit.tokens_valid` each image's CLS, 4 registers and
+    grid patches, only where grids are given; the benchmark's readers read
+    them (no device time on the CPU)."""
+    from benchmark import harness
+    from deep_spectral_tpu_torch.models.vit import (VisionTransformer, extract_patch_keys,
+                                                    get_model_config)
+    cfg = get_model_config("test_dinov2_tiny")
+    model = VisionTransformer(cfg, torch.float32).eval()
+    images = torch.randn(2, 5 * 14, 6 * 14, 3)
+    mask = torch.zeros(2, 5, 6, dtype=torch.bool)
+    mask[0, :4, :6] = True
+    mask[1, :5, :3] = True
+    with _profile():
+        extract_patch_keys(model, images, token_mask=mask.reshape(2, -1),
+                           grids=np.array([[4, 6], [5, 3]]))
+    recs = profiling.records()
+    assert [r["name"] for r in recs] == ["vit.extract"] + ["vit.swiglu"] * (cfg.depth - 1)
+    assert all(r["parent"] == 0 for r in recs[1:])
+    assert recs[0]["counts"] == {"vit.tokens": 2 * 35, "vit.tokens_valid": (5 + 24) + (5 + 15)}
+    assert harness.metric_reader("vit_pad_share.extract").read(None) == pytest.approx(30.0)
+    assert harness.metric_reader("swiglu_ms.extract").read(None) is None
+    profiling.clear()
+    with _profile(), torch.no_grad():
+        model(images)
+        extract_patch_keys(model, images)
+    recs = profiling.records()
+    assert [r["name"] for r in recs] == ["vit.swiglu"] * cfg.depth + ["vit.extract"] + \
+        ["vit.swiglu"] * (cfg.depth - 1)
+    assert recs[cfg.depth]["counts"] == {"vit.tokens": 2 * 35}
+    assert harness.metric_reader("vit_pad_share.extract").read(None) is None
