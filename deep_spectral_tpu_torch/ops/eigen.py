@@ -30,18 +30,22 @@ a lane that has converged keeps its carry frozen while the batch loops on;
 the port loops on the host and freezes converged lanes with `torch.where`,
 so an image's result does not depend on its batch-mates.
 
-Host syncs. On a CUDA device a Chebyshev solve whose block is at most
-SMALL_EIGH_MAX_M (`ops/small_eigh.py`) waits for the card once, at its
-guard's read: its small eighs are the Jacobi kernel, it runs every outer
-iteration instead of reading an exit test (converged lanes stay frozen), each
-outer's Rayleigh-Ritz step and masked update is replayed from a CUDA graph
-(`_GraphedRitzStep`), and the default start block stays on the device. On
-CPU tensors, and on the card for larger blocks, an outer iteration makes
-three syncs, its exit test and the two `torch.linalg.eigh` of its
-Rayleigh-Ritz step (cuSOLVER's error flags are read back), and the loop
-stops once no lane is active. LOBPCG waits at each iteration's exit test and
-eigh (`ops/lobpcg.py`), a dense solve at its eigh. Each sync is an
-`eigs.sync` span and an `eigs.syncs` count (`utils/profiling.py`).
+Host syncs. A guarded Chebyshev solve runs in rounds of `cheb_outer` outer
+iterations: after each, its guard reads which lanes fail, resumes the finite
+ones above the tolerance for another round (at most CHEB_ROUNDS in all) and
+re-solves what is left with dense eigh. On a CUDA device a solve whose block
+is at most SMALL_EIGH_MAX_M (`ops/small_eigh.py`) waits for the card once a
+round, at the guard's read: its small eighs are the Jacobi kernel, it runs
+every outer iteration of a round instead of reading an exit test (converged
+lanes stay frozen), each outer's Rayleigh-Ritz step and masked update is
+replayed from a CUDA graph (`_GraphedRitzStep`, the same graphs in every
+round), and the default start block stays on the device. On CPU tensors,
+and on the card for larger blocks, an outer iteration makes three syncs, its
+exit test and the two `torch.linalg.eigh` of its Rayleigh-Ritz step
+(cuSOLVER's error flags are read back), and a round stops once no lane is
+active. LOBPCG waits at each iteration's exit test and eigh
+(`ops/lobpcg.py`), a dense solve at its eigh. Each sync is an `eigs.sync`
+span and an `eigs.syncs` count (`utils/profiling.py`).
 
 Precision: the solvers' Rayleigh-Ritz products, the residual, LOBPCG and
 A_mv run in true f32 (`exact_f32()`, no TF32), the filter chain on a bf16
@@ -69,6 +73,29 @@ from .small_eigh import sync_free as _sync_free
 # ||A x_k - theta_k x_k|| above which a result is rejected and the exact dense
 # path used instead (the JAX package's value, calibrated on CPU oracles).
 CHEB_RESIDUAL_TOL = 2e-3
+
+# Rounds of `cheb_outer` outer iterations a guarded Chebyshev solve may take:
+# after each, the guard's read finds the finite lanes still above their
+# tolerance and resumes them (the others frozen); dense eigh takes what is
+# left after the last. At the CLI's K=20 (a 23-wide block) on voc480-like
+# 30x30 graphs the first 4 outers pass ~7% of lanes; with CHEB_CONTINUE_TOL
+# 4 rounds leave ~11% to dense eigh, 3 rounds ~25% (the CPU twin, 640 lanes).
+# At K=5 the first round passes nearly every lane, so the later rounds cost
+# nothing there.
+CHEB_ROUNDS = 4
+
+# The residual a lane the guard resumed must reach. Such a lane is slow
+# because its K-th eigenvalue sits in a near-degenerate bulk (at K=20 on
+# image graphs, lambda_20 ~ 0.92-0.98 with neighbours 1e-3 apart), and there a
+# small residual does not make an accurate eigenvalue: a Ritz vector a v_K +
+# b v_K+1 has residual |a b| delta and eigenvalue error b^2 delta (delta =
+# lambda_K+1 - lambda_K), up to about the residual itself where delta is twice
+# it, against ~residual^2 / delta where the spectrum is separated. Held to
+# CHEB_RESIDUAL_TOL, resumed lanes lay up to 8.5e-4 off the dense eigenvalue
+# (an H100, 38 batches of 24 voc480-like graphs at K=20), and held to half
+# of it up to 3.7e-4 (the CPU twin, 640 lanes), where lanes that pass in the
+# first round lie under 1e-4; a quarter keeps them there too.
+CHEB_CONTINUE_TOL = CHEB_RESIDUAL_TOL / 4
 
 # First-outer filter window upper edge for window_init='wide'.
 _WIDE_INIT_LAM_CUT = 1.0
@@ -311,10 +338,13 @@ class _RitzStep:
 
     State: X (B, N, m) the block, theta (B, m) its Ritz values, res (B,) the
     largest residual of its K pairs (+inf where not finite), outers (B,)
-    int32 the filters each lane took, active (B,) res > CHEB_RESIDUAL_TOL
-    (the lanes the next outer updates) and c, e (B,) the next filter's
-    window. A step binds the state to new tensors and writes none it was
-    handed. W (B, N, N) and sc (B, N): A = I - sc W sc, applied in true f32."""
+    int32 the filters each lane took, tol (B,) each lane's residual
+    tolerance (CHEB_RESIDUAL_TOL until `resume` sets it), active (B,) the
+    lanes the next outer updates (res > tol among those not frozen: a lane
+    once inactive stays so, and `resume` freezes more) and c, e (B,) the
+    next filter's window. A step binds the state to new tensors and writes
+    none it was handed but `active` and `tol`, which `resume` sets in
+    place. W (B, N, N) and sc (B, N): A = I - sc W sc, applied in true f32."""
 
     def __init__(self, W, sc, K):
         self.W, self.sc, self.K = W, sc, K
@@ -323,15 +353,13 @@ class _RitzStep:
         """The 'wide' start: X the start block, theta and res the first
         window's (every lane active)."""
         self.X, self.theta, self.res = X, theta, res
-        self.outers = torch.zeros(X.shape[0], dtype=torch.int32, device=X.device)
-        self._window()
+        self._first_window()
 
     def estimate(self, F):
         """The 'estimate' start: the Rayleigh-Ritz of the filtered start
         block F gives the first window."""
         self.X, self.theta, self.res = self._rr(F)
-        self.outers = torch.zeros(F.shape[0], dtype=torch.int32, device=F.device)
-        self._window()
+        self._first_window()
 
     def outer(self, F):
         """The rest of an outer iteration after its filter's output F: the
@@ -344,8 +372,21 @@ class _RitzStep:
         self.outers = self.outers + a.to(torch.int32)
         self._window()
 
+    def resume(self, lanes, tol):
+        """Keep only `lanes` (B,) bool active, the others frozen, and hold
+        each lane to its residual tolerance `tol` (B,) from now on."""
+        self.active &= lanes
+        self.tol.copy_(tol)
+
+    def _first_window(self):
+        B, dev = self.X.shape[0], self.X.device
+        self.outers = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.active = torch.ones(B, dtype=torch.bool, device=dev)
+        self.tol = torch.full((B,), CHEB_RESIDUAL_TOL, dtype=torch.float32, device=dev)
+        self._window()
+
     def _window(self):
-        self.active = self.res > CHEB_RESIDUAL_TOL
+        self.active = self.active & (self.res > self.tol)
         lam_cut = torch.clamp(self.theta[:, self.K - 1] * 1.5 + 1e-3, 1e-3, 1.8)
         self.c, self.e = (lam_cut + 2.0) / 2.0, (2.0 - lam_cut) / 2.0
 
@@ -385,7 +426,7 @@ class _GraphedRitzStep(_RitzStep):
         self.static = dict(
             X=torch.empty((B, N, m), **f32), theta=torch.empty((B, m), **f32),
             res=torch.empty(B, **f32), outers=torch.empty(B, dtype=torch.int32, device=device),
-            active=torch.empty(B, dtype=torch.bool, device=device),
+            active=torch.empty(B, dtype=torch.bool, device=device), tol=torch.empty(B, **f32),
             c=torch.empty(B, **f32), e=torch.empty(B, **f32))
         self.__dict__.update(self.static)
         self.graphs = {}
@@ -395,7 +436,7 @@ class _GraphedRitzStep(_RitzStep):
     def static_bytes(B, N, m) -> int:
         """The static buffers' bytes (each graph's own pool holds a few (B,
         N, m) intermediates more)."""
-        return 4 * B * (N * N + N + 2 * N * m + m + 5) + B
+        return 4 * B * (N * N + N + 2 * N * m + m + 6) + B
 
     def load(self, W, sc):
         self.W.copy_(W)
@@ -470,85 +511,120 @@ def _chebyshev_laplacian(W, d, K, m_block, n_outer, degree, mask,
 
     Repeats [filter of `degree` damping [lam_cut, 2] -> orthonormalize ->
     Rayleigh-Ritz] on each lane whose residual max_k ||A x_k - theta_k x_k||
-    is above CHEB_RESIDUAL_TOL, at most `n_outer` times; converged lanes
-    freeze. On CPU tensors, and on the card for blocks above
-    SMALL_EIGH_MAX_M, the loop reads an exit test each outer and stops once
-    no lane is active. On a CUDA device otherwise (`small_eigh`'s sync-free
-    route) it reads none and runs all `n_outer` outers, the filter on the
-    whole batch each time, with frozen lanes unchanged: the results, `outers`
-    included, are those of the loop that stops; each outer's Rayleigh-Ritz
-    step and update is a CUDA graph's replay where the shape's buffers fit
-    _RR_GRAPH_BYTES (`_GraphedRitzStep`), else run eagerly. The filter is
-    the one `resolved_cheb_impl` names, launched eagerly through this
-    module's `chebyshev_filter` or `chebyshev_filter_chain`: the kernel on
-    the bf16 operator, or the XLA chain on the bf16 or (matvec_precision=
-    'f32') f32 operator. Returns (evals (B, K), vectors (B, K, N), residual
-    (B,), outers (B,)): residual is +inf where non-finite, `outers` counts
-    each lane's filter applications that updated it. x0: optional (N,
-    m_block) start block (default `default_start_block`)."""
-    B, N, _ = W.shape
-    dev = W.device
-    validate_cheb_window_init(window_init)
-    if window_init == "auto":
-        window_init = "wide" if N <= _WIDE_INIT_MAX_N else "estimate"
-    use_kernel = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block) == "pallas"
-    inv_sqrt_d = torch.rsqrt(d)
-    sc = inv_sqrt_d if w_scale is None else inv_sqrt_d * torch.sqrt(w_scale)[:, None]
-    S_fast = sc[:, :, None] * W * sc[:, None, :]
-    if matvec_precision == "bf16":
-        # the kernel's TMA map needs 16-byte aligned rows: built padded here
-        # once, not copied by the wrapper at every filter
-        S_fast = (kernel_operator(S_fast) if use_kernel and S_fast.is_cuda
-                  else S_fast.to(torch.bfloat16))
-    filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
-    X = _start_block(x0, B, N, m_block, mask, dev)
-    sync_free = _sync_free(dev, m_block)
-    step = _take_graphed_step(B, N, m_block, K, dev) if sync_free else None
-    if step is None:
-        step = _RitzStep(W, sc, K)
-    else:
-        step.load(W, sc)
-    with exact_f32():
-        if window_init == "estimate":
-            if use_kernel:
-                # T_3(A - 2I) magnifies the bottom of [0, 2] (|T_3|: 26 at 0
-                # -> 0 at 2), then one Rayleigh-Ritz gives the first window.
-                X = chebyshev_filter(S_fast, X, 2.0, 1.0, 3)
-            else:
-                # the XLA chain's pre-loop: three normalized power steps of
-                # 2I - A
-                for _ in range(3):
-                    X = 2.0 * X - (X - _chain_product(S_fast, X))
-                    X = X / torch.clamp_min(
-                        torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
-            step.estimate(X)
+    is above CHEB_RESIDUAL_TOL, at most `n_outer` times (one round; the
+    guard of `_laplacian_eigs_batched` may resume a solve for more rounds of
+    `n_outer`, `_ChebyshevSolve`); converged lanes freeze. On CPU tensors,
+    and on the card for blocks above SMALL_EIGH_MAX_M, the loop reads an
+    exit test each outer and stops once no lane is active. On a CUDA device
+    otherwise (`small_eigh`'s sync-free route) it reads none and runs all
+    `n_outer` outers, the filter on the whole batch each time, with frozen
+    lanes unchanged: the results, `outers` included, are those of the loop
+    that stops; each outer's Rayleigh-Ritz step and update is a CUDA
+    graph's replay where the shape's buffers fit _RR_GRAPH_BYTES
+    (`_GraphedRitzStep`), else run eagerly. The filter is the one
+    `resolved_cheb_impl` names, launched eagerly through this module's
+    `chebyshev_filter` or `chebyshev_filter_chain`: the kernel on the bf16
+    operator, or the XLA chain on the bf16 or (matvec_precision='f32') f32
+    operator. Returns (evals (B, K), vectors (B, K, N), residual (B,),
+    outers (B,)): residual is +inf where non-finite, `outers` counts each
+    lane's filter applications that updated it. x0: optional (N, m_block)
+    start block (default `default_start_block`)."""
+    solve = _ChebyshevSolve(W, d, K, m_block, degree, mask, apply_sign_fix, w_scale,
+                            window_init, x0, filter_impl, matvec_precision)
+    out = solve.run(n_outer)
+    solve.close()
+    return out
+
+
+class _ChebyshevSolve:
+    """A Chebyshev solve (`_chebyshev_laplacian`) held between its rounds:
+    `run` takes a round of outer iterations and returns the solve's results
+    so far, `resume` narrows the active lanes and runs another round on the
+    same step (on the card the same CUDA graphs), `close` hands a graphed
+    step back to its cache."""
+
+    def __init__(self, W, d, K, m_block, degree, mask, apply_sign_fix, w_scale=None,
+                 window_init="auto", x0=None, filter_impl="auto", matvec_precision="bf16"):
+        B, N, _ = W.shape
+        dev = W.device
+        validate_cheb_window_init(window_init)
+        if window_init == "auto":
+            window_init = "wide" if N <= _WIDE_INIT_MAX_N else "estimate"
+        use_kernel = resolved_cheb_impl(N, filter_impl, matvec_precision, m_block) == "pallas"
+        self.inv_sqrt_d = torch.rsqrt(d)
+        sc = self.inv_sqrt_d if w_scale is None else self.inv_sqrt_d * torch.sqrt(w_scale)[:, None]
+        S_fast = sc[:, :, None] * W * sc[:, None, :]
+        if matvec_precision == "bf16":
+            # the kernel's TMA map needs 16-byte aligned rows: built padded here
+            # once, not copied by the wrapper at every filter
+            S_fast = (kernel_operator(S_fast) if use_kernel and S_fast.is_cuda
+                      else S_fast.to(torch.bfloat16))
+        self.S_fast, self.degree = S_fast, degree
+        self.filt = chebyshev_filter if use_kernel else chebyshev_filter_chain
+        self.K, self.mask, self.apply_sign_fix = K, mask, apply_sign_fix
+        X = _start_block(x0, B, N, m_block, mask, dev)
+        self.sync_free = _sync_free(dev, m_block)
+        step = _take_graphed_step(B, N, m_block, K, dev) if self.sync_free else None
+        if step is None:
+            step = _RitzStep(W, sc, K)
         else:
-            # 'wide' / 'wide@<lam_cut>': the first outer filters with the
-            # fixed window [lam_cut0, 2]; res = inf makes every lane run it.
-            lam_cut0 = (_WIDE_INIT_LAM_CUT if window_init == "wide"
-                        else float(window_init.split("@", 1)[1]))
-            step.start(X, torch.full((B, m_block), (lam_cut0 - 1e-3) / 1.5,
-                                     dtype=torch.float32, device=dev),
-                       torch.full((B,), torch.inf, dtype=torch.float32, device=dev))
+            step.load(W, sc)
+        self.step = step
+        with exact_f32():
+            if window_init == "estimate":
+                if use_kernel:
+                    # T_3(A - 2I) magnifies the bottom of [0, 2] (|T_3|: 26 at 0
+                    # -> 0 at 2), then one Rayleigh-Ritz gives the first window.
+                    X = chebyshev_filter(S_fast, X, 2.0, 1.0, 3)
+                else:
+                    # the XLA chain's pre-loop: three normalized power steps of
+                    # 2I - A
+                    for _ in range(3):
+                        X = 2.0 * X - (X - _chain_product(S_fast, X))
+                        X = X / torch.clamp_min(
+                            torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-20)
+                step.estimate(X)
+            else:
+                # 'wide' / 'wide@<lam_cut>': the first outer filters with the
+                # fixed window [lam_cut0, 2]; res = inf makes every lane run it.
+                lam_cut0 = (_WIDE_INIT_LAM_CUT if window_init == "wide"
+                            else float(window_init.split("@", 1)[1]))
+                step.start(X, torch.full((B, m_block), (lam_cut0 - 1e-3) / 1.5,
+                                         dtype=torch.float32, device=dev),
+                           torch.full((B,), torch.inf, dtype=torch.float32, device=dev))
 
-        for _ in range(n_outer):
-            with span("eigs.outer"):
-                if not sync_free:
-                    # the exit test, one of the outer's three host syncs on
-                    # a CUDA device (rr's two eighs are the others)
-                    with span("eigs.sync"):
-                        count("eigs.syncs")
-                        n_active = int(step.active.sum())
-                    if not n_active:
-                        break
-                count("cheb.lanes_filtered", B)
-                step.outer(filt(S_fast, step.X, step.c, step.e, degree))
+    def run(self, n_outer):
+        """A round of at most `n_outer` outer iterations; returns (evals,
+        vectors, residual, outers), copies (`_chebyshev_laplacian`)."""
+        step, B = self.step, self.step.X.shape[0]
+        with exact_f32():
+            for _ in range(n_outer):
+                with span("eigs.outer"):
+                    if not self.sync_free:
+                        # the exit test, one of the outer's three host syncs
+                        # on a CUDA device (rr's two eighs are the others)
+                        with span("eigs.sync"):
+                            count("eigs.syncs")
+                            n_active = int(step.active.sum())
+                        if not n_active:
+                            break
+                    count("cheb.lanes_filtered", B)
+                    step.outer(self.filt(self.S_fast, step.X, step.c, step.e, self.degree))
+        K = self.K
+        theta, res, outers = (t.clone() for t in (step.theta[:, :K], step.res, step.outers))
+        vectors = _as_vectors(self.inv_sqrt_d[:, :, None] * step.X[:, :, :K], self.mask,
+                              self.apply_sign_fix)
+        return theta, vectors, res, outers
 
-    theta, res, outers = (t.clone() for t in (step.theta[:, :K], step.res, step.outers))
-    vectors = _as_vectors(inv_sqrt_d[:, :, None] * step.X[:, :, :K], mask, apply_sign_fix)
-    if isinstance(step, _GraphedRitzStep):
-        _return_graphed_step(step)
-    return theta, vectors, res, outers
+    def resume(self, lanes, tol, n_outer):
+        """Another round on `lanes` (B,) bool, every other lane frozen, each
+        lane held to its tolerance `tol` (B,)."""
+        self.step.resume(lanes, tol)
+        return self.run(n_outer)
+
+    def close(self):
+        if isinstance(self.step, _GraphedRitzStep):
+            _return_graphed_step(self.step)
 
 
 def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
@@ -586,27 +662,50 @@ def _lobpcg_laplacian(W, d, K, m_block, iters, tol, lapnorm, mask,
 
 
 def _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale, evals, vectors, res,
-           lanes=None):
+           outers=None, resume=None):
     """The solvers' fallback, as the reference's ARPACK retry
     (extract/extract.py:227-234): a lane whose residual is above
     CHEB_RESIDUAL_TOL or whose result is not finite is re-solved with eigh.
-    One host sync reads which lanes fail, which hold a valid node and the
-    device count `lanes` (a Chebyshev solve's `cheb.lanes_active`);
-    the counters `eigs.images` and `eigs.resolved` take the valid lanes
-    checked and the lanes re-solved."""
+    A Chebyshev solve hands `resume(lanes, tol)`, which runs another round
+    of its outers on `lanes` with the others frozen, each lane held to its
+    tolerance `tol`, and returns its new (evals, vectors, res, outers): the
+    finite lanes above the tolerance are resumed so, held to
+    CHEB_CONTINUE_TOL from then on, up to CHEB_ROUNDS rounds in all, and
+    eigh takes only what is left.
+    One host sync a round reads which lanes fail, which hold a valid node
+    (the first round) and the device count `outers` summed (the solve's
+    `cheb.lanes_active`, counted as it grows). The counters `eigs.images`,
+    `eigs.continued` (a Chebyshev solve's) and `eigs.resolved` take the
+    valid lanes checked, the lanes resumed and the lanes re-solved."""
     B = res.shape[0]
-    ok = ((res <= CHEB_RESIDUAL_TOL) & torch.isfinite(evals).all(dim=1)
-          & torch.isfinite(vectors).flatten(1).all(dim=1))
-    valid = torch.ones_like(ok) if mask is None else mask.any(dim=1)
-    parts = [(~ok).to(torch.int32), valid.to(torch.int32)]
-    if lanes is not None:
-        parts.append(lanes.reshape(1).to(torch.int32))
-    with span("eigs.sync"):
-        count("eigs.syncs")
-        read = torch.cat(parts).cpu()
-    if lanes is not None:
-        count("cheb.lanes_active", int(read[2 * B]))
-    count("eigs.images", int(read[B:2 * B].sum()))
+    valid = torch.ones_like(res, dtype=torch.bool) if mask is None else mask.any(dim=1)
+    rounds = lanes = 0
+    tol = CHEB_RESIDUAL_TOL
+    while True:
+        finite = (torch.isfinite(res) & torch.isfinite(evals).all(dim=1)
+                  & torch.isfinite(vectors).flatten(1).all(dim=1))
+        # 0 passes, 1 finite above its tolerance (resumable), 2 not finite
+        fails = torch.where(finite, (res > tol).to(torch.int32), 2)
+        parts = [fails] + ([] if rounds else [valid])
+        if outers is not None:
+            parts.append(outers.sum().reshape(1))
+        with span("eigs.sync"):
+            count("eigs.syncs")
+            read = torch.cat([t.to(torch.int32) for t in parts]).cpu()
+        if outers is not None:
+            count("cheb.lanes_active", int(read[-1]) - lanes)
+            lanes = int(read[-1])
+        resumable = int((read[:B] == 1).sum())
+        if not rounds:
+            count("eigs.images", int(read[B:2 * B].sum()))
+            if resume is not None:
+                count("eigs.continued", resumable)
+        rounds += 1
+        if resume is None or not resumable or rounds == CHEB_ROUNDS:
+            break
+        with span("eigs.continue"):
+            tol = torch.where(fails == 1, CHEB_CONTINUE_TOL, tol)
+            evals, vectors, res, outers = resume(fails == 1, tol)
     bad = torch.nonzero(read[:B]).flatten()
     if not bad.numel():
         return evals, vectors
@@ -628,7 +727,10 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
                             cheb_filter_impl="auto", cheb_window_init="auto",
                             matvec_precision="bf16", return_residual=False,
                             w_scale=None, w_premasked=False, x0=None):
-    """`laplacian_eigs` over a batch: W (B, N, N), mask (B, N), w_scale (B,)."""
+    """`laplacian_eigs` over a batch: W (B, N, N), mask (B, N), w_scale (B,).
+    A Chebyshev solve takes rounds of `cheb_outer` outers: one unguarded
+    (`return_residual` or not `cheb_guard`), else as many as its guard
+    resumes it for (`_guard`, at most CHEB_ROUNDS)."""
     W = W.float()
     B, N, _ = W.shape
     if mask is not None and not w_premasked:
@@ -646,7 +748,7 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
     solver = _resolve_solver(N, m_block, lapnorm, solver, cheb_filter_impl,
                              matvec_precision)
     if solver in ("lobpcg", "chebyshev"):
-        lanes = None
+        solve = outers = None
         if solver == "lobpcg":
             iters = lobpcg_iters if lobpcg_iters is not None else (60 if N <= 2048 else 100)
             with span("eigs.lobpcg"):
@@ -658,20 +760,23 @@ def _laplacian_eigs_batched(W, K, *, lapnorm=True, mask=None,
             if not lapnorm:
                 raise ValueError("solver='chebyshev' supports lapnorm=True only")
             with span("eigs.cheb"):
-                evals, vectors, res, outers = _chebyshev_laplacian(
-                    W, d, K, m_block, cheb_outer, cheb_degree, mask, apply_sign_fix,
-                    w_scale=w_scale, window_init=cheb_window_init, x0=x0,
-                    filter_impl=cheb_filter_impl, matvec_precision=matvec_precision)
-            lanes = outers.sum()  # `cheb.lanes_active`, read at the guard's sync
+                solve = _ChebyshevSolve(
+                    W, d, K, m_block, cheb_degree, mask, apply_sign_fix, w_scale=w_scale,
+                    window_init=cheb_window_init, x0=x0, filter_impl=cheb_filter_impl,
+                    matvec_precision=matvec_precision)
+                evals, vectors, res, outers = solve.run(cheb_outer)
         if cheb_guard and not return_residual:
             with span("eigs.guard"):
-                evals, vectors = _guard(W, d, K, lapnorm, mask, apply_sign_fix, w_scale,
-                                        evals, vectors, res, lanes)
-            return evals, vectors
-        if lanes is not None and recording():
+                evals, vectors = _guard(
+                    W, d, K, lapnorm, mask, apply_sign_fix, w_scale, evals, vectors, res,
+                    outers, None if solve is None
+                    else functools.partial(solve.resume, n_outer=cheb_outer))
+        elif outers is not None and recording():
             with span("eigs.sync"):  # made only while tracing: no guard reads the count
                 count("eigs.syncs")
-                count("cheb.lanes_active", int(lanes))
+                count("cheb.lanes_active", int(outers.sum()))
+        if solve is not None:
+            solve.close()
         return (evals, vectors, res) if return_residual else (evals, vectors)
     with exact_f32():
         out = _dense_laplacian(W, d, K, lapnorm, mask, apply_sign_fix, w_scale)
@@ -698,10 +803,13 @@ def laplacian_eigs(W: torch.Tensor, K: int, *, lapnorm: bool = True,
     'chebyshev', 'lobpcg' or 'auto' (see `_resolve_solver`). lobpcg_iters
     caps LOBPCG's iterations (None: 60 up to N = 2048, 100 above),
     lobpcg_tol is its exit tolerance (None: f32 epsilon), and its block is
-    K + lobpcg_block_extra (also the chebyshev block). With cheb_guard an
-    iterative result that is not finite, or a chebyshev result whose
-    residual exceeds CHEB_RESIDUAL_TOL, is replaced by the dense solve;
-    return_residual returns (evals, vectors, residual) unguarded.
+    K + lobpcg_block_extra (also the chebyshev block). cheb_outer and
+    cheb_degree: the chebyshev solve's outer iterations a round and its
+    filter's degree. With cheb_guard an iterative result that is not finite
+    is replaced by the dense solve, and a chebyshev lane whose residual
+    exceeds CHEB_RESIDUAL_TOL is resumed for more rounds first (at most
+    CHEB_ROUNDS in all), then replaced; return_residual returns (evals,
+    vectors, residual) of the first round, unguarded.
     cheb_filter_impl ('auto' | 'xla' | 'pallas') and matvec_precision
     ('bf16' | 'f32') choose the chebyshev filter (`resolved_cheb_impl`) and
     with it the 'auto' solver's regime. w_scale: solve w_scale * W without materializing it;

@@ -35,9 +35,12 @@ The spans and counters the port opens and counts:
   * eigensolve (`ops/eigen.py`, `ops/lobpcg.py`): `eigs.decompose`,
     `eigs.affinity`, `eigs.cheb` and `eigs.lobpcg` (one iterative solve),
     `eigs.outer` (one Chebyshev outer iteration), `eigs.guard` (the residual
-    check and the dense re-solve), `eigs.sync` (each point where the solver
-    waits for the device); counters `eigs.images` (valid lanes the guard
-    checked), `eigs.resolved` (lanes it re-solved densely), `eigs.syncs`,
+    check, the continuation and the dense re-solve), `eigs.continue` (a
+    round of outers the guard resumed a Chebyshev solve for), `eigs.sync`
+    (each point where the solver waits for the device); counters
+    `eigs.images` (valid lanes the guard checked), `eigs.continued` (lanes
+    a Chebyshev solve's guard resumed at least once, counted with every
+    such guard), `eigs.resolved` (lanes it re-solved densely), `eigs.syncs`,
     `cheb.lanes_filtered` (lanes each outer's filter ran on),
     `cheb.lanes_active` (lanes still above the residual tolerance there,
     the solve's `outers` summed: counted at the guard's read, or, without a

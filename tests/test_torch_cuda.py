@@ -677,3 +677,51 @@ def test_graphed_solve_hands_back_copies(cuda):
     assert not torch.equal(first[0], second[0])
     for t, k in zip(first, kept):
         assert torch.equal(t, k)
+
+
+def test_graphed_continuation_matches_the_eager_one(cuda, monkeypatch):
+    """The ragged batch at the CLI's K=20 (a 23-wide block), whose first
+    round of 4 outers leaves lanes above the tolerance, through the guard:
+    the graphed solve, continuation rounds included, bitwise equal to the
+    eager one (a budget of 0 bytes for the graphs' buffers); it waits for
+    the card once a round (the guard's reads) before any dense eigh, and
+    only its first round captures a graph, the continuation replaying it."""
+    from deep_spectral_tpu_torch.utils import profiling
+    W, d, mask, ws = (t.to(cuda) for t in _ragged_graph())
+    kw = dict(mask=mask, w_scale=ws, w_premasked=True, solver="chebyshev")
+    with monkeypatch.context() as mp:
+        mp.setattr(te, "_RR_GRAPH_BYTES", 0)
+        eager = te._laplacian_eigs_batched(W, 20, **kw)
+    te._rr_graphs.clear()
+    for captures in (1, 0):
+        profiling.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            graphed = te._laplacian_eigs_batched(W, 20, **kw)
+        recs = profiling.records()
+        profiling.clear()
+        for e, g in zip(eager, graphed):
+            assert torch.equal(e, g)
+
+        def inside(i, name):
+            while i is not None:
+                if recs[i]["name"] == name:
+                    return True
+                i = recs[i]["parent"]
+            return False
+
+        def total(counter, within):
+            return sum(r["counts"].get(counter, 0) for i, r in enumerate(recs)
+                       if inside(i, within))
+
+        guard = next(i for i, r in enumerate(recs) if r["name"] == "eigs.guard")
+        children = [r["name"] for r in recs if r["parent"] == guard]
+        rounds = 1 + children.count("eigs.continue")
+        resolved = total("eigs.resolved", "eigs.guard")
+        assert total("eigs.continued", "eigs.guard") > 0 and rounds > 1
+        assert children == (["eigs.sync"] + ["eigs.continue", "eigs.sync"] * (rounds - 1)
+                            + ["eigs.sync"] * bool(resolved))
+        assert total("eigs.syncs", "eigs.continue") == 0
+        assert total("eigs.syncs", "eigs.cheb") == captures     # a capture's synchronize
+        assert total("eigs.rr_graph_captures", "eigs.cheb") == captures
+        assert total("eigs.rr_graph_captures", "eigs.continue") == 0
+        assert total("eigs.rr_graph_replays", "eigs.continue") == 4 * (rounds - 1)

@@ -441,3 +441,56 @@ def test_laplacian_eigs_single_image_guard():
     ev_c, vec_c, res_c = te.laplacian_eigs(W[0], K, w_scale=ws[0], return_residual=True)
     assert res_c.item() <= te.CHEB_RESIDUAL_TOL
     np.testing.assert_allclose(ev_c.numpy(), ev_e.numpy(), atol=1e-4)
+
+
+def _f64_check(W, ws, evals, vectors):
+    """Each lane's largest residual ||A v - theta v|| (v the whitened,
+    unit-norm vector) and largest eigenvalue gap against the f64 dense
+    solve of the same graph."""
+    W64 = W.double() * ws.double()[:, None, None]
+    sd = torch.sqrt(W64.sum(-1))
+    A = torch.eye(W.shape[-1], dtype=torch.float64) - W64 / sd[:, :, None] / sd[:, None, :]
+    lam = torch.linalg.eigvalsh(A)[:, :evals.shape[1]]
+    v = sd[:, None, :] * vectors.double()
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    res = torch.linalg.vector_norm(v @ A - evals.double()[:, :, None] * v, dim=-1).amax(-1)
+    return res, (evals.double() - lam).abs().amax(-1)
+
+
+@pytest.mark.parametrize("K_", [5, 20])
+def test_guard_resumes_lanes_above_the_tolerance(K_):
+    """Three 30x30 graphs at K=5 and at the CLI's K=20 (a 23-wide block).
+    At K=20 the first round of 4 outers leaves two lanes above the
+    tolerance: the guard resumes them (one reaches CHEB_CONTINUE_TOL in the
+    second round, one in the third) and re-solves none densely; the lane
+    that converged in round 1 keeps its bits. At K=5 every lane converges
+    in round 1 and the guarded solve is that round's, bit for bit, after
+    one read. Every lane ends under its tolerance against the f64 dense
+    solve."""
+    from deep_spectral_tpu_torch.utils import profiling
+    _, W, d, ws = _graphs([10, 7, 0], (30, 30))
+    kw = dict(w_scale=ws, solver="chebyshev")
+    ev1, vec1, res1 = te._laplacian_eigs_batched(W, K_, return_residual=True, **kw)
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        ev, vec = te._laplacian_eigs_batched(W, K_, **kw)
+    recs = profiling.records()
+    profiling.clear()
+    total = {n: sum(r["counts"].get(n, 0) for r in recs)
+             for n in ("eigs.continued", "eigs.resolved", "eigs.images")}
+    guard = next(i for i, r in enumerate(recs) if r["name"] == "eigs.guard")
+    children = [r["name"] for r in recs if r["parent"] == guard]
+    first = res1 <= te.CHEB_RESIDUAL_TOL
+    if K_ == 5:
+        assert first.all() and children == ["eigs.sync"]
+        assert total == {"eigs.continued": 0, "eigs.resolved": 0, "eigs.images": 3}
+    else:
+        assert first.tolist() == [True, False, False]
+        assert children == ["eigs.sync", "eigs.continue", "eigs.sync", "eigs.continue",
+                            "eigs.sync"]
+        assert total == {"eigs.continued": 2, "eigs.resolved": 0, "eigs.images": 3}
+        assert not torch.equal(ev[1:], ev1[1:])
+    assert torch.equal(ev[first], ev1[first]) and torch.equal(vec[first], vec1[first])
+    res, gap = _f64_check(W, ws, ev, vec)
+    assert res[first].max() <= te.CHEB_RESIDUAL_TOL and gap.max() <= 1e-3
+    assert first.all() or res[~first].max() <= te.CHEB_CONTINUE_TOL

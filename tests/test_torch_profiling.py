@@ -125,9 +125,12 @@ def test_resolved_counts_the_guards_dense_resolves():
     guards = [r for r in recs if r["name"] == "eigs.guard"]
     assert [g["counts"].get("eigs.resolved", 0) for g in guards] == [2, 0]
     assert [g["counts"]["eigs.images"] for g in guards] == [2, 2]
-    # the re-solve's dense eigh is a sync of the guard too
+    # both lanes are first resumed for the rounds left (a read after each),
+    # then re-solved: the dense eigh is a sync of the guard too
     resolving = recs.index(guards[0])
-    assert _names(recs, resolving) == ["eigs.sync", "eigs.sync"]
+    assert _names(recs, resolving) == (["eigs.sync"] + ["eigs.continue", "eigs.sync"]
+                                       * (te.CHEB_ROUNDS - 1) + ["eigs.sync"])
+    assert [g["counts"]["eigs.continued"] for g in guards] == [2, 0]
 
 
 def test_guard_counts_valid_lanes_only():
@@ -195,6 +198,67 @@ def test_fixed_schedule_matches_the_exit_test(monkeypatch, window_init):
     assert len(set(outers.tolist())) > 1 and int(outers.max()) < n_outer
     assert counts[0] == [2 * int(outers.sum()), 2 * B * int(outers.max())]
     assert counts[1] == [2 * int(outers.sum()), 2 * B * n_outer]
+
+
+def test_fixed_schedule_matches_the_exit_test_with_continuation(monkeypatch):
+    """The two schedules of `test_fixed_schedule_matches_the_exit_test`
+    through the guard's continuation rounds, at the CLI's K=20 on five
+    graphs whose lanes pass in the first, second, third and fourth round of
+    4 outers and in none (the last ends under CHEB_RESIDUAL_TOL but above
+    CHEB_CONTINUE_TOL, so dense eigh takes it at the cap): each round's
+    results and `outers` bit-identical under both, and so the guarded
+    solve's; the guard's counters exact under both (`eigs.continued` the
+    four lanes resumed, `eigs.resolved` the last, `cheb.lanes_active` the
+    outers summed, `cheb.lanes_filtered` B a round's outer, every one under
+    the fixed schedule)."""
+    feats = np.stack([_smooth_features(np.random.default_rng(s), *HW)
+                      for s in (15, 3, 0, 17, 5)])
+    W = ta.feature_affinity(torch.from_numpy(feats), max_normalize=False)
+    ws = 1.0 / W.amax(dim=(-2, -1))
+    d = W.sum(-1) * ws[:, None]
+    d = torch.where(d < 1e-12, 1.0, d)
+    B, k, n_outer = W.shape[0], 20, 4
+    names = ("eigs.continued", "eigs.resolved", "eigs.images", "cheb.lanes_active",
+             "cheb.lanes_filtered")
+    rounds, results, counts = [], [], []
+    for fixed in (False, True):
+        with monkeypatch.context() as mp:
+            if fixed:
+                mp.setattr(te, "_sync_free", lambda device, m: True)
+                mp.setattr(te, "_RR_GRAPH_BYTES", 0)
+            solve = te._ChebyshevSolve(W, d, k, k + 3, 10, None, True, ws)
+            outs = [solve.run(n_outer)]
+            tol = torch.where(outs[0][2] > te.CHEB_RESIDUAL_TOL, te.CHEB_CONTINUE_TOL,
+                              te.CHEB_RESIDUAL_TOL)
+            for _ in range(te.CHEB_ROUNDS - 1):
+                outs.append(solve.resume(outs[-1][2] > tol, tol, n_outer))
+            solve.close()
+            rounds.append(outs)
+            profiling.clear()
+            with _profile():
+                results.append(te._laplacian_eigs_batched(
+                    W, k, w_scale=ws, solver="chebyshev", cheb_outer=n_outer))
+            recs = profiling.records()
+            counts.append({n: sum(r["counts"].get(n, 0) for r in recs) for n in names})
+    for exit_test, fixed in zip(*rounds):
+        for a, b in zip(exit_test, fixed):
+            assert torch.equal(a, b)
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+    outers = [o[3] for o in rounds[0]]
+    passed = [(o[2] <= tol).tolist() for o in rounds[0]]
+    assert passed == [[True] * r + [False] * (B - r) for r in range(1, te.CHEB_ROUNDS + 1)]
+    assert outers[-1][-1] == te.CHEB_ROUNDS * n_outer
+    assert rounds[0][-1][2][-1] <= te.CHEB_RESIDUAL_TOL
+    ev, vec, *_ = rounds[0][-1]
+    assert torch.equal(results[0][0][:-1], ev[:-1])
+    assert torch.equal(results[0][1][:-1], vec[:-1])
+    assert not torch.equal(results[0][0][-1], ev[-1])               # the dense re-solve
+    steps = [int(outers[0].max())] + [int((b - a).max()) for a, b in zip(outers, outers[1:])]
+    expect = {"eigs.continued": B - 1, "eigs.resolved": 1, "eigs.images": B,
+              "cheb.lanes_active": int(outers[-1].sum())}
+    assert counts[0] == {**expect, "cheb.lanes_filtered": B * sum(steps)}
+    assert counts[1] == {**expect, "cheb.lanes_filtered": B * n_outer * te.CHEB_ROUNDS}
 
 
 def test_train_step_spans_once_each_per_step():
