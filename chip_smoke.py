@@ -1,106 +1,88 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (`deep_spectral_tpu_torch`) on one GPU.
+"""Correctness smoke of the PyTorch/CUDA port (`deep_spectral_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
 
-Phases, each of which must pass:
+It times nothing: the benchmark (`python -m benchmark.run`, with `--trace 1`
+for the device timeline) is the port's timing harness. Phases, each of
+which must pass:
   1. print the card's name and power limit; build the CUDA kernels from
-     `deep_spectral_tpu_torch/csrc/` (nvcc) and print the build time and
-     each kernel's registers and spills (`-Xptxas -v`; the wgmma kernels
-     must not spill); count the tensor-core instructions in the SASS
-     (`cuobjdump -sass` on the built library) of the seven wgmma kernels:
-     HGMMA in the packed flash forward, its lse-writing build, the bf16 dKV
-     and dQ kernels, and TF32 HGMMA or HMMA in the split-TF32 f32 builds of
-     kernel 3 (`flash_fwd_f32.cu`), kernel 4 (`flash_bwd_dkv_f32.cu`) and
-     kernel 5 (`flash_bwd_dq_f32.cu`), each count > 0;
+     `deep_spectral_tpu_torch/csrc/` (nvcc) and read the ptxas log: the
+     wgmma kernels and the filter's two must not spill registers; count the
+     tensor-core instructions in the SASS (`cuobjdump -sass` on the built
+     library) of the seven wgmma kernels: HGMMA in the packed flash
+     forward, its lse-writing build, the bf16 dKV and dQ kernels, and TF32
+     HGMMA or HMMA in the split-TF32 f32 builds of kernel 3
+     (`flash_fwd_f32.cu`), kernel 4 (`flash_bwd_dkv_f32.cu`) and kernel 5
+     (`flash_bwd_dq_f32.cu`), each count > 0; and the TMA loads (UTMALDG)
+     and HMMA of the filter's two kernels, each > 0;
   2. flash-attention kernel vs its plain twin: at the main path's shape (b24,
      T=901, H=6, hd=64, q/k/v read from the fused qkv layout), at T=3601, at
      phase 9's dino_vits8 512x512 shape (b4, T=4097), at the train path's
      frozen-block shape (b144, T=197) and b4 T=197, at phase 13's PP
-     microbatch (b2, T=901), and at phase 10's stage-1
-     buckets (b4, T=1025 and 769), with a ragged mask and one all-masked
-     batch row, with the kernel's grid and shared memory, its bound and
-     `F.scaled_dot_product_attention` on the same views as its library
-     yardstick; at phase 11's stage-6 buckets (b16, T=65, 257 and 1025)
-     with crop masks (mostly masked: a 5x30-patch crop keeps 151 of 1025
-     keys; 3 padding rows with the CLS key alone), held on the valid rows
-     and on every CLS row, with its bound over the valid keys and SDPA with
-     the key mask; and the fp32 no-grad route (the f32 build of the
-     residual-saving forward, split-TF32 wgmma) at b24 T=901 (ragged) and at
-     phase 10's localization forwards (b1, T=901 and 601, no mask), with the
-     CUDA-core FMA build it replaced timed beside it;
+     microbatch (b2, T=901), and at phase 10's stage-1 buckets (b4, T=1025
+     and 769), with a ragged mask and one all-masked batch row; at phase
+     11's stage-6 buckets (b16, T=65, 257 and 1025) with crop masks (mostly
+     masked: a 5x30-patch crop keeps 151 of 1025 keys; 3 padding rows with
+     the CLS key alone), held on the valid rows and on every CLS row; and
+     the fp32 no-grad route (the f32 build of the residual-saving forward,
+     split-TF32 wgmma) at b24 T=901 (ragged) and at phase 10's localization
+     forwards (b1, T=901 and 601, no mask);
   3. Chebyshev-filter kernel vs its plain twin: b24 N=900 m=8 at degree 10
      with per-image (c, e) and at degree 3 with (2, 1), b2 N=3600, phase 9's
      b4 N=3600 first filter (degree 3) and K=20 block (b24 N=900 m=23),
      phase 10's stage-2 buckets (b4, N=1024 and 640), a late outer's b1
-     N=900, and b4 at the first N past the resident build's limit, with the
-     build its plan picks (resident: one thread-block cluster an image,
-     which must hold N=900, 640 and 1024; streaming above), the cluster size,
-     the clusters the card holds at once and the waves, the shared memory
-     and the chain's bound (3c, after every timed phase: one launch a chain
-     at each shape, torch.profiler); beside it
-     the mma.sync build it replaced (`chebyshev_filter_mma`, one launch a
-     step), held to the twin too; at each shape the JAX package's XLA chain (`degree` cuBLAS
-     products of bf16 operands with an f32 result, and the rescale passes;
-     `ops.eigen.chebyshev_filter_chain`) held to the twin and timed as a
-     CUDA graph (its device work; the eager time, bound by the host's
-     enqueue of ~100 launches, is logged beside it), the graph's time at
-     b24 N=900 m=8 degree 10 the kernel's `library_ms`, and recorded, the
-     chain on the f32 operator at b24 N=900 and b2 N=3600;
+     N=900, and b4 at the first N past the resident build's limit; the build
+     its plan picks must be the resident one (one thread-block cluster an
+     image) at N=900, 640 and 1024, the plan's shared memory (the Python
+     model, `resident_smem` / `stream_smem`) must equal the kernel's layout
+     (`dss_cheb_layout_bytes`), and on an H100 the card's count of
+     clusters at once by size must equal H100_CLUSTERS_AT_ONCE; the mma.sync
+     build (`chebyshev_filter_mma`, one launch a step) and the JAX package's
+     XLA chain (`ops.eigen.chebyshev_filter_chain`, the 'xla' filter) are
+     held to the twin at every shape too (3c, last: one launch a chain at
+     each shape, torch.profiler);
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
-     graph converges); the launch counts of both kernels and of the solver's
-     Jacobi eigh (`csrc/small_eigh.cu`, counted at each CUDA graph replay
-     that launches it) must be > 0, every residual
-     <= CHEB_RESIDUAL_TOL, and the eigenpairs must agree with dense eigh;
-     then (4b) that solve through each filter request, 'auto' (the
-     kernel), 'xla' (the XLA chain) and f32 matvecs (through
-     `_laplacian_eigs_batched` on the same affinity), each with the eigh
-     guard held to the same dense-eigh gates, timed per batch beside the
-     others with its guard's re-solves counted, the kernel launching
-     under 'auto' alone; (4c) the Jacobi eigh on the matrices the solves
-     of the first eight images hand it at K=5 (m=8) and K=20 (m=23),
-     against f64 eigh on the card (within 8 f32 eps x ||A||_2), timed
-     at b8 beside f64 eigh (its plain twin) and cuSOLVER's f32 eigh;
+     graph converges), 5 steps; the launch counts of both kernels and of the
+     solver's Jacobi eigh (`csrc/small_eigh.cu`, counted at each CUDA graph
+     replay that launches it) must be > 0, every residual <=
+     CHEB_RESIDUAL_TOL, and the eigenpairs must agree with dense eigh; then
+     (4b) that solve through each filter request, 'auto' (the kernel), 'xla'
+     (the XLA chain) and f32 matvecs (through `_laplacian_eigs_batched` on
+     the same affinity), each held to the same dense-eigh gates, the kernel
+     launching under 'auto' alone; (4c) the Jacobi eigh on the matrices the
+     solves of the first eight images hand it at K=5 (m=8) and K=20 (m=23),
+     against f64 eigh on the card (within 8 f32 eps x ||A||_2);
   5. stages 1-2 through `python -m deep_spectral_tpu_torch.pipeline` on six
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
   6. the trainable flash kernels (forward with lse, dKV, dQ) vs their twins:
      the train shape (b144, T=197, H=6, fused-qkv views) in bf16 and f32, b4
      T=901 with a ragged mask and an all-masked row in bf16 and f32, and b2
-     T=3601 f32; each f32 shape with the FMA builds of kernels 3-5 timed
-     beside the split-TF32 ones;
-     in bf16 also the dKV and dQ kernels' hi/lo precision (`hi_lo_reading`:
-     the share of dk and dv entries on valid keys, and of dq entries in
-     batch rows with a valid key, not bit-equal to the twin, at most
-     DKV_SHARE_MAX and DQ_SHARE_MAX); at the train shape also the dKV and dQ
-     kernels' grids and shared memory (in f32 also the split-TF32
-     forward's), their bounds and SDPA's forward (inputs that need a
-     gradient) and backward (dq, dk and dv together) as yardsticks, in each
-     dtype;
+     T=3601 f32; in bf16 also the dKV and dQ kernels' hi/lo precision
+     (`hi_lo_reading`: the share of dk and dv entries on valid keys, and of
+     dq entries in batch rows with a valid key, not bit-equal to the twin, at
+     most DKV_SHARE_MAX and DQ_SHARE_MAX);
   7. the train path: a seeded random-weight DeepLabV3+ over dino_vits16
      (bf16 backbone, flash attention, 21 classes) at crop 224, b144, one
      unfrozen block, lr 5e-3, on synthetic blob images: (a) one step through
      kernels 3-5, with kernel 3's o and lse in the trained block held against
      its twin on the q/k/v the step gave it (o tol 1e-2 scaled by max |o| / 2
-     above 2, lse tol 1e-4), and
-     its trained-param gradients against the same step with the backward
-     kernels 4-5 twinned (tol 2e-2); (b)
-     10 steps on one batch, loss finite and falling, kernels 3-5 launched every
-     step and the packed kernel in the frozen blocks, with ms/step, img/s and
-     peak memory; (c) the whole backbone unfrozen (every block runs kernels
-     3-5): ms/step over 3 steps after a warm-up step; (d) the fp32 recipe
-     (`semantic_train`'s default precision, `build_model`'s 'auto'
+     above 2, lse tol 1e-4), and its trained-param gradients against the
+     same step with the backward kernels 4-5 twinned (tol 2e-2); (b) 10
+     steps on one batch, loss finite and falling, kernels 3-5 launched every
+     step and the packed kernel in the frozen blocks; (c) the whole backbone
+     unfrozen: 3 steps, every block launching kernels 3-5; (d) the fp32
+     recipe (`semantic_train`'s default precision, `build_model`'s 'auto'
      attention), each route one step from the same state under
      deterministic algorithms: kernel 3's o and lse at its 12 launches held
      against its twin (F32_TOL), the gradients against the step with
      kernels 4-5 twinned behind kernel 3's own o and lse (F32_GRAD_REL);
-     recorded, the gradients against the step with every f32 kernel twinned
-     beside the same reading for the CUDA-core FMA builds (the head
-     amplifies any f32 rounding change); then 10 steps' ms/step and peak
-     memory through the f32 kernels (kernel 3 12 times a step, kernels 4-5
-     once) and through einsum attention;
+     then 10 steps through the f32 kernels (kernel 3 12 times a step,
+     kernels 4-5 once) and through einsum attention (no kernel), loss
+     finite and falling in both;
   8. `python -m deep_spectral_tpu_torch.tasks.cli semantic_train` (the yaml's
      defaults: fp32 through the f32 flash kernels, `build_model`'s 'auto'
      attention on the card) on a synthetic VOC tree: 4 steps with evals at 2
@@ -111,11 +93,8 @@ Phases, each of which must pass:
      results finite and, on 2 images, within the dense-eigh gates; (b) the
      color-fused graph, phase 4's model's features upsampled to a 60x60 grid
      (`image_downsample_factor` 8, N=3600) plus lambda times `knn_affinity`
-     of blob images, through the filter kernel, within the same gates;
-     (c) recorded, not gated: the guard's re-solves at K=20 on phase 4's
-     features, and the N=3600 solve through 'chebyshev' (the kernel, and
-     the XLA chain, which the 'auto' solver would not take above N=2048)
-     and 'lobpcg';
+     of blob images: the filter kernel against its twin on its whitened
+     operator, and the solve through the filter kernel within the same gates;
  10. localization on a synthetic VOC tree (480x480 and 320x480 blob images,
      the blob as the GT box), in this process: stages 1-2
      (`extract_features`, `extract_eigs` with the color-fused graph), then
@@ -136,31 +115,29 @@ Phases, each of which must pass:
      stage 8's segmaps and object_segmentation on stage 4's masks. Each run
      with the launch counts zeroed before and checked after (stage 6: kernel
      1 once per block and batch), every kernel shape among those phases 2-3
-     hold, each stage's wall time printed, every output with the JAX schema,
-     mIoU and IoU finite (random weights: a smoke of the path); stages 3 and
-     6 again with no batch in flight must write the same bytes; stage 6 once
-     more under torch.profiler for its device time;
+     hold, every output with the JAX schema, mIoU and IoU finite (random
+     weights: a smoke of the path); stages 3 and 6 again with no batch in
+     flight must write the same bytes;
  12. the rest of the single-host system, in this process, on phase 11's tree:
      (a) `pipeline.run_all` on the card (dino_vits16 bf16, stage 1 b4, stage
      2 K=5 b4) through both CRF passes, its launches (kernel 1 per block and
      batch in stages 1 and 6, kernel 2 in stage 2) at shapes phases 2-3 hold,
-     every output with the JAX schema, each stage's wall from its
-     StageTimer, stage 9 again with no batch in flight writing the same
-     bytes; (b) the CRF on the card against the CPU: stage 9's batches at the
-     default parameters (label agreement >= CRF_AGREEMENT_MIN per image),
-     `bilateral_filter` in both regimes (CRF_FILTER_REL), the grid regime
-     twice on the card with the same bytes, the verification recipe's blob
-     probe (IoU > BLOB_IOU_MIN), and the mean field's time and memory at
-     480x480; (c) stage 10 (where matplotlib is installed) and `vis_server`
-     in a thread; (d) `semantic_train` (bf16, 2 steps, crop 224 b8) on (a)'s
-     CRF segmaps and `semantic_generate` from its checkpoint through
+     every output with the JAX schema, stage 9 again with no batch in flight
+     writing the same bytes; (b) the CRF on the card against the CPU: stage
+     9's batches at the default parameters (label agreement >=
+     CRF_AGREEMENT_MIN per image), `bilateral_filter` in both regimes
+     (CRF_FILTER_REL), the grid regime twice on the card with the same
+     bytes, and the verification recipe's blob probe (IoU > BLOB_IOU_MIN);
+     (c) stage 10 (where matplotlib is installed) and `vis_server` in a
+     thread; (d) `semantic_train` (bf16, 2 steps, crop 224 b8) on (a)'s CRF
+     segmaps and `semantic_generate` from its checkpoint through
      `tasks.cli.main`, kernel 1 launching in the dump's eval forward; (e)
      DeepLabResNet-50 (output stride 8): its f32 forward on the card against
-     the CPU (RESNET_REL), 3 train steps at b16, and semantic_generate's
-     per-image path; (f) one 7b and one 7c step with remat=True and without,
-     from the same state, under torch.use_deterministic_algorithms:
-     gradients and loss bit-equal, kernel 3 twice per trained block; then
-     both variants in turns, each one's ms/step and peak memory.
+     the CPU (RESNET_REL), 3 train steps at b16 with a finite loss, and
+     semantic_generate's per-image path; (f) one 7b and one 7c step with
+     remat=True and without, from the same state, under
+     torch.use_deterministic_algorithms: gradients and loss bit-equal,
+     kernel 3 twice per trained block.
  13. the parallel paths (`deep_spectral_tpu_torch.parallel`) at world 1 in one
      NCCL group (the host has one card; NCCL takes one rank per card; an
      all_reduce, all_gather and broadcast on the card first), each output
@@ -182,7 +159,7 @@ Phases, each of which must pass:
      (kernels 3-5) against the plain step from the same state under
      deterministic algorithms (GRAD_REL_TOL). Kernel 3 at each ring-hop
      shape (T=8465 bf16 and f32, b1 T=2117) is held against its twin (o
-     and lse) and timed, with its bound and SDPA, for the kernels line.
+     and lse).
 `python3 chip_smoke.py 12` (or 13) runs the build and that phase alone, with
 no result line. `python3 chip_smoke.py 13 --world N` runs phase 13 at world
 N, one process a card (a host with N cards): (a) with the ranks' rows
@@ -190,33 +167,18 @@ gathered, (b) as `ring_attention` over N ranks at T=8465 (random q/k/v,
 the K/V shards rotating by P2P) against kernel 1, (c) over N stages, (d)
 DP over N ranks and TP x DP on an (N / 2, 2) mesh, (e) b144 over N ranks
 (loss within 1e-3, every rank's state the same bits), bf16 outputs by the
-least per-token cosine (PAR_COS_MIN), each path timed on the slowest rank
-beside the single-card path, and (f) `train()`'s steps per second over a
-tree of 500x375 JPEGs, data-parallel (`loop_rate`). `python3 chip_smoke.py
-loop` runs (f) alone: at world 1 with no mesh (which a `train()` without
-the `mesh` argument runs too), or with `--world N` at world N.
+least per-token cosine (PAR_COS_MIN); and (f) `train()` data-parallel over
+N ranks for LOOP_STEPS steps of the 7b configuration on a JPEG tree
+(finite losses, every rank's state the same bits, kernels 3-5 once a
+step).
 `python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
-library the full run built (the full run starts it so, after its timed
-phases).
-Kernel and yardstick times are CUDA events over 5 windows of 20 back-to-back
-calls: the median window, with the min-max printed beside it; phase 9's
-solves, which sync the host every iteration, are 5 single calls after a
-warm-up call.
-Then it prints one JSON line with each kernel's launches, error, times, bound
-(`bound_ms`, the larger of its bytes over 3.35 TB/s and its flops over the
-card's peak: bf16 tensor cores, or for f32 three TF32 products a flop, or
-for the Jacobi eigh f64 on the CUDA cores,
-`bound_by` naming which; kernel 2 also `mma_ms`, its mma.sync build's time
-in the same call) and library time (`library_ms`: SDPA for the
-attention kernels; for the filter the XLA chain, `degree` cuBLAS calls and
-the rescale passes replayed as one CUDA graph, since no one PyTorch call
-computes it; for the Jacobi eigh cuSOLVER's f32 eigh, with its m=23
-numbers under `m23`); kernels 3-5's f32 builds are entries of
-their own (`*_f32`, launches by path from the wrappers' `f32_launches`, the
-replaced FMA build's time as `fma_ms`), the card's
-name and power limit, and, last, {"ok": true, "device": {...}}.
-It exits non-zero, without that last line, if CUDA is missing or any phase
-fails. It imports nothing of JAX.
+library the full run built (the full run starts it so, last).
+The last line is one JSON object: {"ok": true, "device": {...}, "kernels":
+{name: {"launches": ..., "max_abs_err": ...}}}, each kernel's launches on
+the main path (phase 4) or the train path (phase 7) and its largest error
+against its twin in phases 2, 3, 4c and 6 (kernels 3-5's f32 builds are
+entries of their own, `*_f32`). It exits non-zero, without that line, if
+CUDA is missing or any phase fails. It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -229,9 +191,7 @@ import re
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 
@@ -251,11 +211,14 @@ F32_GRAD_REL = 1e-4  # 7d's fp32 step, f32 kernels vs kernels 4-5 twinned behind
 #                      gradients linearly, and the kernels keep them within ~2e-5 of the twin
 DKV_SHARE_MAX = 0.03  # bf16 dk/dv entries not bit-equal to the twin (`hi_lo_reading`):
 #                       0.0024-0.0028 with p and ds as hi/lo pairs, 0.416-0.424 for the
-#                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
+#                       single-rounding control build (-DDSS_DKV_SINGLE_ROUNDING;
+#                       H100, phase 6's inputs)
 DQ_SHARE_MAX = 0.03   # bf16 dq entries not bit-equal to the twin (the same reading):
 #                       0.0024-0.0027 with ds as a hi/lo pair, 0.419-0.424 for the
-#                       single-rounding control (`probe_dkv`, H100, phase 6's inputs)
+#                       single-rounding control build (-DDSS_DQ_SINGLE_ROUNDING;
+#                       H100, phase 6's inputs)
 TRAIN_B, CROP, CLASSES = 144, 224, 21
+LOOP_STEPS = 3  # 13f: train()'s data-parallel steps at world > 1
 LOBPCG_B, LOBPCG_IMG = 4, 512   # dino_vits8: T=4097, N=4096, above CHEB_MAX_N
 COLOR_LAMBDA = 1.0
 # phase 10's kernel shapes: stage 1 buckets its 480x480 and 320x480 images to
@@ -284,12 +247,6 @@ RESNET_REL = 1e-4          # DeepLabResNet f32 logits on the card vs the CPU, re
 #                            orders through 53 convolutions
 RESNET_B, GEN_B = 16, 8    # phase 12's ResNet train batch, semantic_train's batch before the
 #                            prediction dump
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 tensor cores; f32-accurate work, the
-# least time for which is three TF32 tensor-core products (495 TFLOP/s dense) per f32
-# product (split TF32, as the f32 flash kernels and f32 SDPA compute), so 165 TFLOP/s,
-# above the 67 TFLOP/s of exact f32 FMAs off the tensor cores; HBM
-PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 495e12 / 3, 3.35e12
-PEAK_F64 = 33.5e12  # f64 FMAs on the CUDA cores (the Jacobi eigh's arithmetic)
 # phase 13's shapes and gates: SP at dino_vits8 736x736 (T = 1 + 92^2 = 8465); the
 # multi-hop merge over HOPS shards of HOP_T tokens (4 x 2117 - 3 = 8465: the 4th
 # shard ends in 3 padding rows, the 5th is padding); PP at b8 in 4 microbatches;
@@ -300,7 +257,6 @@ PAR_COS_MIN = 0.9999  # world > 1: bf16 paths whose GEMMs run at other shapes th
 #                       single-card path's and whose all-reduces and hop merges add in another
 #                       order: least per-token cosine (0.999910 TP x DP, 0.999914 SP measured
 #                       at world 4 on four H100s; world 1 is held by max |diff| instead)
-LOOP_IMAGES, LOOP_WARM, LOOP_STEPS = 96, 3, 12  # `loop_rate`'s tree and runs
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
                        (4, 901, "float32", True), (2, 3601, "float32", True),
@@ -309,76 +265,6 @@ TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", T
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-class Timing(NamedTuple):
-    """ms per call: the median of the windows, and the fastest and slowest."""
-    ms: float
-    lo: float
-    hi: float
-
-    def __str__(self) -> str:
-        return f"{self.ms:.4f} ms [{self.lo:.4f}-{self.hi:.4f}]"
-
-
-def cuda_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> Timing:
-    """CUDA events around `windows` runs of `iters` back-to-back calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / iters)
-    return Timing(float(np.median(per_call)), min(per_call), max(per_call))
-
-
-TIMING = "CUDA events, median [min-max] of 5 windows of 20 calls"
-
-
-def bound(nbytes: float, flops: float, peak: float) -> dict:
-    """The least time the card could take: bytes (each input read once, each
-    output written once) over HBM's rate, or flops over `peak`."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def attention_work(q, mask, products: int, io_tensors: int, kv_tensors: int = 0,
-                   stats: int = 0) -> dict:
-    """Bound of a flash kernel over (B, T, H, 64) tensors: `products` T x T x 64
-    matrix products per (b, h), over the valid keys only (2 flops per MAC);
-    `io_tensors` (B, T, H, 64) tensors read or written at every row,
-    `kv_tensors` such tensors read at the valid keys only (a masked key's K
-    and V rows are never needed), `stats` (B, H, T) f32 rows, and the mask."""
-    import torch
-    b, T, H, hd = q.shape
-    keys = mask.sum(dim=1).double() if mask is not None else torch.full((b,), float(T))
-    flops = products * 2 * hd * H * T * keys.sum().item()
-    row_bytes = H * hd * q.element_size()
-    nbytes = io_tensors * q.numel() * q.element_size() \
-        + kv_tensors * keys.sum().item() * row_bytes + stats * b * H * T * 4 \
-        + (mask.numel() if mask is not None else 0)
-    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
-    return bound(nbytes, flops, peak)
-
-
-def launch_shape(fn: str, *args, n: int = 5) -> list:
-    """(grid x, y, z, threads, shared bytes) of a kernel, from its C library
-    (`n` ints: the filter's `dss_cheb_filter_sm90_info` writes six)."""
-    import ctypes
-    from deep_spectral_tpu_torch import _build
-    out = (ctypes.c_int * n)()
-    err = getattr(_build.load(), fn)(*args, out)
-    _build.check(err, fn)
-    return list(out)
 
 
 def _counters():
@@ -453,21 +339,19 @@ def _kernel_label(line: str) -> str:
 
 def phase_build():
     from deep_spectral_tpu_torch import _build
-    t0 = time.perf_counter()
     _build.build(force=True)
     _build.load()
     log(f"[1] built {_build.last_build['path']} from "
-        f"{[p.name for p in _build._sources()]} in "
-        f"{time.perf_counter() - t0:.1f} s (nvcc {_build.last_build['seconds']:.1f} s)")
+        f"{[p.name for p in _build._sources()]}")
     func, spills = "", {}
     for line in _build.last_build["log"].splitlines():
         if "Compiling entry function" in line:
             func = _kernel_label(line)
-        elif "registers" in line or "spill" in line or "wgmma" in line:
-            log(f"    ptxas {func}: {line.strip()}")
-            if func in WGMMA_KERNELS.values() or func in TMA_KERNELS.values():
-                spills[func] = spills.get(func, 0) + sum(
-                    int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif "spill" in line and (func in WGMMA_KERNELS.values() or func in TMA_KERNELS.values()):
+            spills[func] = spills.get(func, 0) + sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    log(f"[1] bytes of register spills by the wgmma and filter kernels (ptxas -v; none "
+        f"allowed): {spills}")
     if any(spills.values()):
         raise AssertionError(f"a wgmma or filter kernel spills registers (bytes): {spills}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -498,13 +382,14 @@ def phase_build():
         raise AssertionError(f"a filter kernel has no TMA load or no HMMA: {tma}")
 
 
-def phase_flash(dev) -> dict:
+def phase_flash(dev) -> float:
+    """Phase 2; returns the packed kernel's largest error against its twin."""
     import torch
     from deep_spectral_tpu_torch.models.flash_attention import (
-        flash_attention_packed, flash_attention_packed_plain)
-    import torch.nn.functional as F
+        flash_attention_lse, flash_attention_lse_plain, flash_attention_packed,
+        flash_attention_packed_plain)
     g = torch.Generator().manual_seed(1)
-    worst, main = 0.0, None
+    worst = 0.0
     for (b, T, ragged) in [(B, 901, False), (B, 901, True), (PP_B // PP_M, 901, False),
                            (4, 3601, True),
                            (LOBPCG_B, 4097, False), (TRAIN_B, 197, False), (4, 197, True),
@@ -526,22 +411,8 @@ def phase_flash(dev) -> dict:
         if not np.isfinite(err) or err > FLASH_TOL:
             raise AssertionError(f"flash kernel disagrees with its twin: {err}")
         worst = max(worst, err)
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        times = (cuda_ms(lambda: flash_attention_packed(q, k, v, mask)),
-                 cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)),
-                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)))
-        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2)
         log(f"[2] flash b{b} T={T} H=6 hd=64 bf16 ragged={ragged}: max |kernel - twin| "
-            f"on valid rows {err:.3e} (tol {FLASH_TOL}); kernel {times[0]}, twin {times[1]}, "
-            f"SDPA (unmasked) {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
-        if (b, T, ragged) == (B, 901, False):
-            gx, gy, gz, threads, smem = launch_shape("dss_flash_fwd_packed_shape", b, T, 6)
-            log(f"[2] flash grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of {threads} "
-                f"threads, {smem} B of dynamic shared memory")
-            main = {"ms": times[0].ms, "plain_ms": times[1].ms, "library_ms": times[2].ms,
-                    **bd}
-    stage6 = []
+            f"on valid rows {err:.3e} (tol {FLASH_TOL})")
     for T in STAGE6_T:
         qkv = torch.randn((STAGE6_B, T, 3, 6, 64), generator=g).to(dev, torch.bfloat16)
         q, k, v = qkv.unbind(2)
@@ -555,28 +426,11 @@ def phase_flash(dev) -> dict:
             raise AssertionError(f"flash kernel disagrees with its twin at stage 6's "
                                  f"b{STAGE6_B} T={T}: {err}, CLS rows {cls_err}")
         worst = max(worst, err, cls_err)
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        key_mask = mask[:, None, None, :]
-        times = (cuda_ms(lambda: flash_attention_packed(q, k, v, mask)),
-                 cuda_ms(lambda: flash_attention_packed_plain(q, k, v, mask)),
-                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh,
-                                                                attn_mask=key_mask)))
-        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2)
         log(f"[2] flash at stage 6's bucket b{STAGE6_B} T={T} bf16, {int(mask.sum())} of "
             f"{mask.numel()} keys valid: max |kernel - twin| on valid rows {err:.3e}, on the "
-            f"CLS rows {cls_err:.3e} (tol {FLASH_TOL}); kernel {times[0]}, twin {times[1]}, "
-            f"SDPA (key mask) {times[2]} ({TIMING}); bound over the valid keys "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} "
-            f"of it")
-        stage6.append({"b": STAGE6_B, "T": T, "valid_keys": int(mask.sum()),
-                       "max_abs_err": max(err, cls_err), "ms": times[0].ms,
-                       "plain_ms": times[1].ms, "library_ms": times[2].ms, **bd})
-    from deep_spectral_tpu_torch.models.flash_attention import (
-        flash_attention_lse, flash_attention_lse_plain)
-    from deep_spectral_tpu_torch.probe_f32 import fma_calls
+            f"CLS rows {cls_err:.3e} (tol {FLASH_TOL})")
     # the fp32 no-grad route (kernel 3's f32 build, split-TF32 wgmma): a ragged
-    # b24 batch, and phase 10's localization forwards; beside it the CUDA-core
-    # FMA build it replaced
+    # b24 batch, and phase 10's localization forwards
     for (b, T, masked) in [(B, 901, True), *((1, t, False) for t in LOC_LSE_T)]:
         qkv = torch.randn((b, T, 3, 6, 64), generator=g).to(dev)
         q, k, v = qkv.unbind(2)
@@ -589,18 +443,9 @@ def phase_flash(dev) -> dict:
         err = (out - ref).abs().max().item()
         if not np.isfinite(err) or err > F32_TOL:
             raise AssertionError(f"fp32 flash route disagrees with its twin: {err}")
-        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
-                 cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
-                 cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
-                 cuda_ms(fma_calls(q, k, v, mask, None, None, None)[0]))
-        bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2, stats=1)
         log(f"[2] fp32 no-grad route (kernel 3's f32 build) b{b} T={T} masked={masked}: max "
-            f"|kernel - twin| {err:.3e} (tol {F32_TOL}); kernel {times[0]}, the FMA build "
-            f"{times[3]}, twin {times[1]}, SDPA (unmasked, f32) {times[2]} ({TIMING}); bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of "
-            f"the kernel, {bd['bound_ms'] / times[3].ms:.1%} of the FMA build")
-    return {"max_abs_err": worst, **main, "stage6": stage6}
+            f"|kernel - twin| {err:.3e} (tol {F32_TOL})")
+    return worst
 
 
 def crop_token_masks(side: int, g):
@@ -655,13 +500,26 @@ def cheb_shapes() -> list:
             (1, 900, 10, "per-image", 8), (4, first_streamed_n(4, 8), 10, "per-image", 8)]
 
 
-def phase_cheb(dev) -> dict:
+def kernel_layout_smem(plan, N: int, m: int) -> int:
+    """Shared bytes a CTA of the plan's build takes in the kernel's own
+    layout (`res_layout` / `stream_layout`), which the plan's model
+    (`resident_smem` / `stream_smem`) must equal."""
+    import ctypes
+    from deep_spectral_tpu_torch import _build
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.load().dss_cheb_layout_bytes(N, m, plan.rows, plan.cluster,
+                                                     plan.key_window, out),
+                 "dss_cheb_layout_bytes")
+    return out[0 if plan.build == "resident" else 1]
+
+
+def phase_cheb(dev) -> float:
+    """Phase 3; returns the kernel's largest error against its twin."""
     import torch
     from deep_spectral_tpu_torch.ops.cheb_filter import (
         CARD_SMS, H100_CLUSTERS_AT_ONCE, card_clusters_at_once, cheb_filter_plan,
         chebyshev_filter, chebyshev_filter_mma, chebyshev_filter_plain, kernel_operator)
     from deep_spectral_tpu_torch.ops.eigen import chebyshev_filter_chain
-    from deep_spectral_tpu_torch.utils.precision import exact_f32
     g = torch.Generator().manual_seed(2)
     # the plan's card: its SMs and the clusters of each size it holds at
     # once, asked of the card; on an H100 SXM the CPU's record must agree
@@ -672,7 +530,7 @@ def phase_cheb(dev) -> dict:
             card[1] != H100_CLUSTERS_AT_ONCE:
         raise AssertionError(f"H100_CLUSTERS_AT_ONCE {H100_CLUSTERS_AT_ONCE} is not this "
                              f"card's answer {card[1]}")
-    worst, main = 0.0, None
+    worst = 0.0
     for (b, N, degree, window, m) in cheb_shapes():
         S = whitened_operators(b, N, dev, g)
         Sk = kernel_operator(S)  # the solver's layout: rows padded to 16 bytes
@@ -689,73 +547,26 @@ def phase_cheb(dev) -> dict:
         ref = chebyshev_filter_plain(S, X, c, e, degree)
         err = (out - ref).abs().max().item()
         err_mma = (mma - ref).abs().max().item()
+        # the JAX package's XLA chain: degree cuBLAS products (bf16 operands,
+        # f32 result) and the rescale passes, the solver's 'xla' filter
+        chain_err = (chebyshev_filter_chain(S, X, c, e, degree) - ref).abs().max().item()
         if not np.isfinite(err) or err > CHEB_TOL:
             raise AssertionError(f"cheb kernel disagrees with its twin: {err}")
         if not np.isfinite(err_mma) or err_mma > CHEB_TOL:
             raise AssertionError(f"the mma.sync build disagrees with the twin: {err_mma}")
+        if not np.isfinite(chain_err) or chain_err > CHEB_TOL:
+            raise AssertionError(f"the XLA chain disagrees with the twin: {chain_err}")
         worst = max(worst, err)
         if N in (900, *LOC_CHEB_N) and m == 8 and plan.build != "resident":
             raise AssertionError(f"N={N} m={m} takes the {plan.build} build")
-        # the JAX package's XLA chain: degree cuBLAS products (bf16 operands,
-        # f32 result) and the rescale passes; not a kernel of the port. Its
-        # ~100 small launches a call queue slower on the host than the card
-        # runs them, so it is timed as a CUDA graph (the library's device
-        # work), and eagerly as a note.
-        chain_err = (chebyshev_filter_chain(S, X, c, e, degree) - ref).abs().max().item()
-        cg, eg = (torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1).expand(b)
-                  for v in (c, e))
-        graph, g_out = graphed(lambda: chebyshev_filter_chain(S, X, cg, eg, degree))
-        graph.replay()
-        chain_err = max(chain_err, (g_out - ref).abs().max().item())
-        if not np.isfinite(chain_err) or chain_err > CHEB_TOL:
-            raise AssertionError(f"the XLA chain disagrees with the twin: {chain_err}")
-        times = (cuda_ms(lambda: chebyshev_filter(Sk, X, c, e, degree)),
-                 cuda_ms(lambda: chebyshev_filter_mma(S, X, c, e, degree)),
-                 cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, degree)),
-                 cuda_ms(graph.replay),
-                 cuda_ms(lambda: chebyshev_filter_chain(S, X, c, e, degree)))
-        del graph, g_out
-        # S read once, X read and the result written once; degree products
-        # of 2 N^2 m flops each on the bf16 tensor cores
-        bd = bound(S.numel() * 2 + 2 * X.numel() * 4, degree * 2 * b * N * N * m, PEAK_BF16)
-        resident = plan.build == "resident"
-        _, _, threads, smem, at_once, waves = launch_shape(
-            "dss_cheb_filter_sm90_info", 0 if resident else 1, b, N, m,
-            plan.cluster if resident else plan.ctas, plan.rows if resident else plan.key_window,
-            n=6)
+        smem = kernel_layout_smem(plan, N, m)
         if smem != plan.smem:
             raise AssertionError(f"the plan's shared memory {plan.smem} != the kernel's {smem}")
-        layout = (f"resident: clusters of {plan.cluster} CTAs ({plan.rows} rows each), "
-                  f"{at_once} clusters at once, {waves} wave(s)" if resident else
-                  f"streaming: {plan.ctas} persistent CTAs ({at_once} fit at once), "
-                  f"key window {plan.key_window}")
-        log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}: {layout}, {threads} "
-            f"threads and {smem} B of shared memory a CTA; max |kernel - "
-            f"twin| {err:.3e}, mma.sync build {err_mma:.3e} (tol {CHEB_TOL}); kernel "
-            f"{times[0]}, mma.sync build {times[1]} ({times[1].ms / times[0].ms:.2f}x the "
-            f"kernel), twin {times[2]} ({TIMING}); bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']}), kernel {bd['bound_ms'] / times[0].ms:.1%} of it, mma.sync "
-            f"{bd['bound_ms'] / times[1].ms:.1%}; XLA chain (cuBLAS bf16 products) as a CUDA "
-            f"graph {times[3]} ({GRAPH_TIMING}), {times[3].ms / times[0].ms:.2f}x the kernel, "
-            f"eager {times[4]}, {times[4].ms / times[0].ms:.2f}x; max |chain - twin| "
-            f"{chain_err:.3e} (tol {CHEB_TOL})")
-        if (b, N, degree, m) == (B, 900, 10, 8):
-            main = {"ms": times[0].ms, "mma_ms": times[1].ms, "plain_ms": times[2].ms,
-                    "library_ms": times[3].ms, **bd}
-        if window == "per-image" and m == 8 and (b, N) in ((B, 900), (2, 3600)):
-            # recorded: the chain on the f32 operator in true f32
-            S32 = S.float()
-            with exact_f32():
-                diff = (chebyshev_filter_chain(S32, X, c, e, degree) - ref).abs().max().item()
-                t32 = cuda_ms(lambda: chebyshev_filter_chain(S32, X, c, e, degree))
-                graph, _ = graphed(lambda: chebyshev_filter_chain(S32, X, cg, eg, degree))
-                g32 = cuda_ms(graph.replay)
-            log(f"[3] recorded: XLA chain on the f32 operator (true f32) b{b} N={N} m={m} "
-                f"degree={degree}: as a CUDA graph {g32}, {g32.ms / times[0].ms:.2f}x the "
-                f"kernel; eager {t32} ({TIMING}), {t32.ms / times[0].ms:.2f}x; "
-                f"max |f32 chain - bf16 twin| {diff:.3e}")
-            del S32, graph
-    return {"max_abs_err": worst, **main}
+        log(f"[3] cheb b{b} N={N} m={m} degree={degree} (c, e) {window}, the plan's "
+            f"{plan.build} build ({smem} B of shared memory a CTA, as the plan's model): "
+            f"max |kernel - twin| {err:.3e}, mma.sync build "
+            f"{err_mma:.3e}, XLA chain {chain_err:.3e} (tol {CHEB_TOL})")
+    return worst
 
 
 def phase_cheb_launches(dev) -> None:
@@ -828,7 +639,7 @@ def main_path_step(dev):
     return step, base, cfg, mask, out
 
 
-def phase_main_path(dev) -> dict:
+def phase_main_path(dev) -> tuple[dict, float]:
     import torch
     from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
     from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
@@ -840,20 +651,14 @@ def phase_main_path(dev) -> dict:
     grid = IMG // cfg.patch_size
     _zero_launches()
     n_steps = 5
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
     for _ in range(n_steps):
         out = step(base)
-    end.record()
-    end.synchronize()
+    torch.cuda.synchronize()
     launches = {"flash": flash_attention_packed.launches,
                 "cheb": chebyshev_filter.launches, "eigh": small_eigh.launches}
-    ms = start.elapsed_time(end) / n_steps
     k, feats, evals, vecs, res = out
-    log(f"[4] main path dino_vits16 {IMG}x{IMG} b{B} bf16 K={K}: {ms:.3f} ms/step = "
-        f"{B / ms * 1e3:.2f} img/s (CUDA events, mean of {n_steps} steps); "
-        f"launches over the {n_steps} steps: {launches}")
+    log(f"[4] main path dino_vits16 {IMG}x{IMG} b{B} bf16 K={K}: launches over "
+        f"{n_steps} steps: {launches}")
     if tuple(k.shape) != (B, grid * grid, cfg.embed_dim) or not torch.isfinite(k).all():
         raise AssertionError(f"bad features: {tuple(k.shape)}")
     res_max = res.max().item()
@@ -875,17 +680,13 @@ def phase_main_path(dev) -> dict:
     return launches, phase_small_eigh(feats, mask)
 
 
-def phase_small_eigh(feats, mask) -> dict:
+def phase_small_eigh(feats, mask) -> float:
     """4c: the Jacobi kernel (`csrc/small_eigh.cu`) on the matrices the
     main path's solves hand it, recorded from eager solves (no graphs) of
     phase 4's first eight images at K=5 (m=8) and at the CLI's K=20 (m=23):
     against f64 eigh on the card, eigenvalues and ||A V - V diag(w)|| within
-    8 eps ||A||_2, ||V^T V - I|| within 4 m eps (f32 eps); timed at one
-    call's shape (b8) beside its plain twin (f64 eigh on the card) and
-    cuSOLVER's f32 eigh (`torch.linalg.eigh`, which reads its error flags
-    back: a host sync a call); its bound: each matrix read once and its
-    pairs written once, or ~9 m^3 flops a matrix (a dense symmetric
-    eigendecomposition with vectors) at the f64 peak of the CUDA cores."""
+    8 eps ||A||_2, ||V^T V - I|| within 4 m eps (f32 eps). Returns the
+    largest error in f32 eps x ||A||_2."""
     import torch
     from deep_spectral_tpu_torch.ops import eigen
     from deep_spectral_tpu_torch.ops.small_eigh import small_eigh
@@ -903,7 +704,7 @@ def phase_small_eigh(feats, mask) -> dict:
     finally:
         eigen.small_eigh, eigen._RR_GRAPH_BYTES = saved
     eps = float(np.finfo(np.float32).eps)
-    stats = {}
+    worst = 0.0
     for m in sorted(seen):
         M = torch.cat(seen[m])
         w, V, bad = small_eigh(M)
@@ -914,25 +715,16 @@ def phase_small_eigh(feats, mask) -> dict:
         res = ((A @ V - V * w[:, None, :]).abs().amax(dim=(1, 2)) / norm).max().item() / eps
         eye = torch.eye(m, dtype=torch.float64, device=M.device)
         orth = (V.transpose(1, 2) @ V - eye).abs().max().item() / eps
-        M8 = seen[m][0]
-        times = (cuda_ms(lambda: small_eigh(M8)), cuda_ms(lambda: torch.linalg.eigh(M8.double())),
-                 cuda_ms(lambda: torch.linalg.eigh(M8)))
-        b = M8.shape[0]
-        bd = bound(b * (2 * m * m + m) * 4 + b, 9 * m ** 3 * b, PEAK_F64)
         log(f"[4c] small_eigh m={m}: {M.shape[0]} matrices from the solves' Rayleigh-Ritz "
             f"steps, flagged {int(bad.sum())}; vs f64 eigh, in f32 eps x ||A||_2: eigenvalues "
             f"{ev_err:.2f}, residual {res:.2f} (tol 8); ||V^T V - I|| {orth:.2f} eps (tol "
-            f"{4 * m}); b{b}: kernel {times[0]}, f64 eigh {times[1]}, cuSOLVER f32 eigh "
-            f"{times[2]} ({times[2].ms / times[0].ms:.2f}x the kernel) ({TIMING}); bound "
-            f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}), the kernel "
-            f"{bd['bound_ms'] / times[0].ms:.4%} of it")
+            f"{4 * m})")
         if bad.any() or not (ev_err <= 8 and res <= 8 and orth <= 4 * m):
             raise AssertionError(f"small_eigh m={m} disagrees with f64 eigh")
-        stats[f"m{m}"] = {"ms": times[0].ms, "plain_ms": times[1].ms,
-                          "library_ms": times[2].ms, "max_eps_norm": max(ev_err, res), **bd}
+        worst = max(worst, ev_err, res)
     if sorted(seen) != [K + 3, 23]:
         raise AssertionError(f"the solves handed the kernel orders {sorted(seen)}")
-    return {**stats[f"m{K + 3}"], "m23": stats["m23"]}
+    return worst
 
 
 def filter_routes(feats, mask, ev_d, vec_d) -> None:
@@ -941,20 +733,14 @@ def filter_routes(feats, mask, ev_d, vec_d) -> None:
     products) through stage 2's `spectral_decompose_batched`, and f32
     matvecs (the chain on the f32 operator) through `_laplacian_eigs_batched`
     on the affinity stage 2 builds, since the batched call takes no
-    `matvec_precision`, as in the JAX package. Each with its guard's
-    re-solves and the filter chains one solve runs (its outer iterations),
-    held to the first images' dense eigh as phase 4 is, and timed per
-    batch; the kernel must launch under 'auto' alone."""
+    `matvec_precision`, as in the JAX package. Each held to the first
+    images' dense eigh as phase 4 is; the kernel must launch under 'auto'
+    alone."""
     import torch
     from deep_spectral_tpu_torch.ops import eigen
     from deep_spectral_tpu_torch.ops.affinity import feature_affinity
     from deep_spectral_tpu_torch.ops.cheb_filter import chebyshev_filter
     N, n = feats.shape[1], len(ev_d)
-    chain, chains = eigen.chebyshev_filter_chain, []
-
-    def counted(*a, **kw):
-        chains.append(1)
-        return chain(*a, **kw)
 
     def solver(filter_impl, precision):
         if precision == "bf16":
@@ -971,28 +757,16 @@ def filter_routes(feats, mask, ev_d, vec_d) -> None:
 
     for name, filter_impl, precision in (("auto", "auto", "bf16"), ("xla", "xla", "bf16"),
                                          ("f32", "auto", "f32")):
-        solve = solver(filter_impl, precision)
-        _, _, res = solve(return_residual=True)
         _zero_launches()
-        chains.clear()
-        eigen.chebyshev_filter_chain = counted
-        try:
-            evals, vecs = solve()
-        finally:
-            eigen.chebyshev_filter_chain = chain
+        evals, vecs = solver(filter_impl, precision)()
         torch.cuda.synchronize()
         cheb = chebyshev_filter.launches
-        t = calls_ms(solve)
-        resolved = int(((res > eigen.CHEB_RESIDUAL_TOL) | ~torch.isfinite(res)).sum().item())
         impl = eigen.resolved_cheb_impl(N, filter_impl, precision, K + 3)
         ev_err = (evals[:n] - ev_d).abs().max().item()
         cos = min(subspace_cos(vecs[i], vec_d[i]) for i in range(n))
         log(f"[4b] phase 4's solve b{len(feats)} N={N} K={K} through {name!r} (filter {impl!r}): "
-            f"{t} per batch ({CALLS_TIMING}); {resolved}/{len(feats)} images re-solved by the guard "
-            f"(residual max {res.max().item():.3e}); filters in the solve: {cheb} kernel "
-            f"chains, {len(chains)} XLA chains; vs dense "
-            f"eigh ({n} images): max |eigenvalue diff| {ev_err:.3e} (tol {EIG_TOL}), min "
-            f"subspace cosine {cos:.6f} (min {SUBSPACE_MIN})")
+            f"{cheb} kernel launches; vs dense eigh ({n} images): max |eigenvalue diff| "
+            f"{ev_err:.3e} (tol {EIG_TOL}), min subspace cosine {cos:.6f} (min {SUBSPACE_MIN})")
         finite = bool(torch.isfinite(evals).all() and torch.isfinite(vecs).all())
         if not (finite and ev_err <= EIG_TOL and cos >= SUBSPACE_MIN):
             raise AssertionError(f"{name}: eigenpairs disagree with dense eigh")
@@ -1024,10 +798,9 @@ def phase_cli(tmp: Path, device: str) -> None:
                  ["extract_eigs", "--images_root", str(images), "--features_dir",
                   str(tmp / "features"), "--output_dir", str(tmp / "eigs"),
                   "--K", str(K), "--batch_size", "4", "--device", device]):
-        t0 = time.perf_counter()
         proc = subprocess.run(cli + args, cwd=ROOT, env=env, capture_output=True,
                               text=True, timeout=600)
-        log(f"[5] {args[0]}: rc {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+        log(f"[5] {args[0]}: rc {proc.returncode}")
         for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
             log(f"    {line}")
         if proc.returncode != 0:
@@ -1064,37 +837,6 @@ def dense_gates(what: str, feats, mask, evals, vecs, color_W=None, n: int = 2) -
         raise AssertionError(f"{what}: eigenpairs disagree with dense eigh")
 
 
-def calls_ms(fn) -> Timing:
-    """`cuda_ms` for calls that sync the host themselves (the solvers test
-    convergence on the host every iteration): CUDA events around each of 5
-    single calls after a warm-up call, so the host's share is in the time."""
-    return cuda_ms(fn, iters=1, windows=5, warmup=1)
-
-
-CALLS_TIMING = "CUDA events, median [min-max] of 5 single calls after a warm-up"
-
-
-def graphed(fn):
-    """`fn`, whose shapes are fixed, captured once in a CUDA graph after two
-    warm-up calls on a side stream: returns the graph, whose replay runs
-    fn's launches with no host enqueue between them, and the captured
-    output, which each replay rewrites."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph, out
-
-
-GRAPH_TIMING = "CUDA events over replays of one CUDA graph, median [min-max] of 5 windows of 20"
-
-
 def blob_images_lr(b: int, grid: int, rng) -> np.ndarray:
     """(b, grid, grid, 3) float images in [0, 1]: phase 5's 480x480 blob
     images, downsampled as stage 2 loads them (PIL bilinear)."""
@@ -1109,9 +851,9 @@ def blob_images_lr(b: int, grid: int, rng) -> np.ndarray:
     return out
 
 
-def fused_filter_timing(feats, color_W) -> None:
+def fused_filter_gate(feats, color_W) -> None:
     """Kernel 2 against its twin on the whitened color-fused operator (degree
-    10, per-image windows), with times and the chain's bound."""
+    10, per-image windows)."""
     import torch
     from deep_spectral_tpu_torch.ops.affinity import degree_vector, feature_affinity
     from deep_spectral_tpu_torch.ops.cheb_filter import (
@@ -1127,13 +869,8 @@ def fused_filter_timing(feats, color_W) -> None:
     out = chebyshev_filter(S, X, c, e, 10)
     torch.cuda.synchronize()
     err = (out - chebyshev_filter_plain(S, X, c, e, 10)).abs().max().item()
-    times = (cuda_ms(lambda: chebyshev_filter(S, X, c, e, 10)),
-             cuda_ms(lambda: chebyshev_filter_plain(S, X, c, e, 10)))
-    bd = bound(S.numel() * 2 + 2 * X.numel() * 4, 10 * 2 * b * N * N * 8, PEAK_BF16)
     log(f"[9b] filter kernel on the fused operator b{b} N={N} m=8 degree 10: max |kernel - "
-        f"twin| {err:.3e} (tol {CHEB_TOL}); kernel {times[0]}, twin {times[1]} ({TIMING}); "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} "
-        f"of it")
+        f"twin| {err:.3e} (tol {CHEB_TOL})")
     if not np.isfinite(err) or err > CHEB_TOL:
         raise AssertionError(f"cheb kernel disagrees with its twin on the fused graph: {err}")
 
@@ -1163,7 +900,6 @@ def phase_stage2_routes(dev) -> None:
     _zero_launches()
     k = extract_patch_keys(model, images, token_mask=mask)
     fwd_launches = flash_attention_packed.launches
-    fwd_t = calls_ms(lambda: extract_patch_keys(model, images, token_mask=mask))
     base = torch.from_numpy(structured_features(LOBPCG_B, grid, cfg.embed_dim, rng)).to(dev)
     feats = base + 0.02 * k.float()
     calls, orig = [], eigen._lobpcg_laplacian
@@ -1178,11 +914,9 @@ def phase_stage2_routes(dev) -> None:
         evals, vecs = eigen.spectral_decompose_batched(feats, mask, K=K)
     finally:
         eigen._lobpcg_laplacian = orig
-    solve_t = calls_ms(lambda: eigen.spectral_decompose_batched(feats, mask, K=K))
     log(f"[9a] dino_vits8 {LOBPCG_IMG}x{LOBPCG_IMG} b{LOBPCG_B} bf16 (T={N + 1}): forward "
-        f"{fwd_t} per batch, {fwd_launches} launches of the packed flash kernel; "
-        f"'auto' K={K} solve at N={N}: {solve_t} per batch through LOBPCG "
-        f"({len(calls)} call), {chebyshev_filter.launches} filter launches ({CALLS_TIMING})")
+        f"{fwd_launches} launches of the packed flash kernel; 'auto' K={K} solve at N={N} "
+        f"through LOBPCG ({len(calls)} call), {chebyshev_filter.launches} filter launches")
     # blocks 0..10 attend; the last block's qkv projection is the feature
     if fwd_launches != cfg.depth - 1 or len(calls) != 1 or chebyshev_filter.launches:
         raise AssertionError("phase 9a did not run the packed kernel per block and LOBPCG")
@@ -1194,7 +928,7 @@ def phase_stage2_routes(dev) -> None:
 
     # (b) the color-fused graph: phase 4's model at 480x480 (30x30 patches),
     # features upsampled to the 60x60 grid of image_downsample_factor 8
-    _, base16, cfg16, mask16, out4 = main_path_step(dev)
+    _, base16, cfg16, _, out4 = main_path_step(dev)
     k16 = out4[0][:LOBPCG_B]
     g16, g_lr = IMG // cfg16.patch_size, IMG // 8
     N = g_lr * g_lr
@@ -1204,48 +938,18 @@ def phase_stage2_routes(dev) -> None:
     mask = torch.ones((LOBPCG_B, N), dtype=torch.bool, device=dev)
     imgs = torch.from_numpy(blob_images_lr(LOBPCG_B, g_lr, rng)).to(dev)
     color_W = knn_affinity(imgs, mask=mask)
-    knn_t = calls_ms(lambda: knn_affinity(imgs, mask=mask))
-
-    def fused_solve():
-        return eigen.spectral_decompose_batched(
-            feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA, return_residual=True)
-
+    fused_filter_gate(feats, color_W)
     _zero_launches()
-    evals, vecs, res = fused_solve()
+    ev_g, vec_g = eigen.spectral_decompose_batched(
+        feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA)
     cheb = chebyshev_filter.launches
-    solve_t = calls_ms(fused_solve)
-    bad = int((res > eigen.CHEB_RESIDUAL_TOL).sum().item())
-    fused_filter_timing(feats, color_W)
-    log(f"[9b] color-fused graph (lambda {COLOR_LAMBDA}, knn) b{LOBPCG_B} N={N}: knn_affinity "
-        f"{knn_t}, 'auto' K={K} solve {solve_t} per batch ({CALLS_TIMING}), {cheb} filter "
-        f"launches, residuals {[f'{r:.3e}' for r in res.tolist()]} ({bad} above the guard)")
+    log(f"[9b] color-fused graph (lambda {COLOR_LAMBDA}, knn) b{LOBPCG_B} N={N}: 'auto' K={K} "
+        f"solve, {cheb} filter launches")
     if cheb <= 0:
         raise AssertionError("the color-fused solve did not run the filter kernel")
-    ev_g, vec_g = eigen.spectral_decompose_batched(
-        feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA)  # the guard
     if not (torch.isfinite(ev_g).all() and torch.isfinite(vec_g).all()):
         raise AssertionError("color-fused results are not finite")
     dense_gates("color-fused N=3600", feats, mask, ev_g, vec_g, color_W)
-
-    # (c) recorded, not gated
-    _, f4, _, _, _ = out4
-    _, _, res20 = eigen.spectral_decompose_batched(f4, mask16, K=20, return_residual=True)
-    resolved20 = int((res20 > eigen.CHEB_RESIDUAL_TOL).sum().item())
-    times, res_c = {}, {}
-    for route, kw in (("chebyshev", {"solver": "chebyshev"}),
-                      ("chebyshev through the XLA chain",
-                       {"solver": "chebyshev", "cheb_filter_impl": "xla"}),
-                      ("lobpcg", {"solver": "lobpcg"})):
-        def solve(kw=kw):
-            return eigen.spectral_decompose_batched(
-                feats, mask, color_W, K=K, image_color_lambda=COLOR_LAMBDA,
-                return_residual=True, **kw)
-        times[route] = calls_ms(solve)
-        res_c[route] = solve()[2].max().item()
-    log(f"[9c] recorded: K=20 on phase 4's b{B} features: {resolved20}/{B} residuals above "
-        f"the guard (max {res20.max().item():.3e}); N={N} b{LOBPCG_B} color-fused K={K} "
-        f"({CALLS_TIMING}; residual max, unguarded): " + "; ".join(
-            f"{route} {times[route]} ({res_c[route]:.3e})" for route in times))
 
 
 def make_loc_voc(root: Path) -> list:
@@ -1292,13 +996,13 @@ def kernel_shapes(seen: set):
             setattr(mod, name, fn)
 
 
-def phase_localization(tmp: Path) -> dict:
+def phase_localization(tmp: Path) -> None:
     """Stages 1-2 and the localization CLI in this process, each with the
-    launch counts set to 0 just before it and read just after; the shapes
-    they give the kernels must be among those phases 2-3 hold. Stages 1-2
-    run again with no batch in flight and must write the same bytes.
-    Returns the f32 builds' launches in the LOST and dino_seg runs (every
-    kernel-3 launch there must be the f32 build's)."""
+    launch counts set to 0 just before it and read just after (every
+    kernel-3 launch in the LOST and dino_seg runs must be the f32 build's);
+    the shapes they give the kernels must be among those phases 2-3 hold.
+    Stages 1-2 run again with no batch in flight and must write the same
+    bytes."""
     import torch
     from deep_spectral_tpu_torch.models.vit import get_model_config
     from deep_spectral_tpu_torch.pipeline.extract import extract_eigs, extract_features
@@ -1334,23 +1038,21 @@ def phase_localization(tmp: Path) -> dict:
             ("eigenseg", ["--eigenseg", "--precomputed_eigs_dir", str(tmp / "eigs")], {}),
             ("lost", ["--lost"], {"flash_attention_lse": blocks * len(ids)}),
             ("dino_seg", ["--dino_seg"], {"flash_attention_lse": blocks * len(ids)}))]
-    seen, f32_builds = set(), {}
+    seen = set()
 
     def drive(name, run, want):
         """`want`: each kernel's launches, None for at least one; others 0."""
-        t0 = time.perf_counter()
         _zero_launches()
         with kernel_shapes(seen):
             run()
         torch.cuda.synchronize()
-        launches, f32_builds[name] = _launches(), _f32_launches()
-        log(f"[10] {name}: {time.perf_counter() - t0:.1f} s (host clock), launches {launches}"
-            f"; of them by the f32 builds {f32_builds[name]}")
+        launches, f32_builds = _launches(), _f32_launches()
+        log(f"[10] {name}: launches {launches}; of them by the f32 builds {f32_builds}")
         off = {n: c for n, c in launches.items()
                if not (c > 0 if want.get(n, 0) is None else c == want.get(n, 0))}
         if name in ("lost", "dino_seg") and \
-                f32_builds[name]["flash_attention_lse"] != launches["flash_attention_lse"]:
-            off["flash_attention_lse (f32 build)"] = f32_builds[name]["flash_attention_lse"]
+                f32_builds["flash_attention_lse"] != launches["flash_attention_lse"]:
+            off["flash_attention_lse (f32 build)"] = f32_builds["flash_attention_lse"]
         if off:
             raise AssertionError(f"{name}: launches {off}, expected {want} and no others")
 
@@ -1386,8 +1088,6 @@ def phase_localization(tmp: Path) -> dict:
     if scores["eigenseg"] < CORLOC_FLOOR:
         raise AssertionError(f"color-fused eigenseg CorLoc {scores['eigenseg']} is below "
                              f"{CORLOC_FLOOR}")
-    return {name: f32_builds[name] for name in ("lost", "dino_seg")}
-
 
 
 def make_seg_voc(root: Path) -> list:
@@ -1434,24 +1134,6 @@ def stage6_batches(bbox_file: Path, patch: int = 16) -> dict:
     return {side: -(-n // STAGE6_B) for side, n in sides.items()}
 
 
-@contextlib.contextmanager
-def lloyd_steps(record: list):
-    """Append the Lloyd steps of every lane (an int tensor of the lanes'
-    shape) of every k-means call to `record`."""
-    from deep_spectral_tpu_torch.ops import kmeans as KM
-    real = KM.lloyd
-
-    def lloyd(*args, **kw):
-        res = real(*args, **kw)
-        record.append(res.n_iter.cpu())
-        return res
-    KM.lloyd = lloyd
-    try:
-        yield
-    finally:
-        KM.lloyd = real
-
-
 def _cli_output(argv: list) -> str:
     """Run the port's task CLI in this process; its standard output."""
     from deep_spectral_tpu_torch.tasks import cli as task_cli
@@ -1466,15 +1148,13 @@ def _cli_output(argv: list) -> str:
     return out
 
 
-def phase_segments(tmp: Path) -> dict:
+def phase_segments(tmp: Path) -> None:
     """Stages 1-8 and both evaluations in this process on phase 11's tree
     (dino_vits16, seeded random weights, bf16), each run with the launch
-    counts set to 0 just before it and read just after, its wall time
-    printed; stage 6 must launch kernel 1 once per block and batch, at
-    shapes phase 2 holds; every output must have the JAX schema; stages 3
-    and 6 rerun with no batch in flight must write the same bytes; stage 6
-    runs once more under torch.profiler for its device time. Returns
-    stage 6's kernel-1 launches."""
+    counts set to 0 just before it and read just after; stage 6 must launch
+    kernel 1 once per block and batch, at shapes phase 2 holds; every output
+    must have the JAX schema; stages 3 and 6 rerun with no batch in flight
+    must write the same bytes."""
     import torch
     from deep_spectral_tpu_torch.models.vit import get_model_config
     from deep_spectral_tpu_torch.pipeline import extract as S
@@ -1491,7 +1171,7 @@ def phase_segments(tmp: Path) -> dict:
     held = ({("flash_attention_packed", 4, t, torch.bfloat16) for t in LOC_FLASH_T}
             | {("flash_attention_packed", STAGE6_B, t, torch.bfloat16) for t in STAGE6_T}
             | {("chebyshev_filter", 4, n, K + 3) for n in LOC_CHEB_N})
-    seen, walls, steps = set(), {}, []
+    seen = set()
 
     def stage6_want():
         return {"flash_attention_packed": blocks * sum(stage6_batches(Path(boxes)).values())}
@@ -1499,27 +1179,17 @@ def phase_segments(tmp: Path) -> dict:
     def drive(name, run, want):
         """`want`: each kernel's launches, None for at least one; others 0."""
         _zero_launches()
-        n_calls = len(steps)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with kernel_shapes(seen), lloyd_steps(steps):
+        with kernel_shapes(seen):
             result = run()
         torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
         launches = _launches()
         want = want() if callable(want) else want
-        log(f"[11] {name}: {walls[name]:.3f} s (host clock), launches {launches}")
-        from deep_spectral_tpu_torch.utils.device import POLL_EVERY
-        for it in steps[n_calls:]:
-            log(f"[11]   k-means call, {it.numel()} lanes (images x restarts): Lloyd steps "
-                f"per lane mean {it.float().mean().item():.1f}, max {it.max().item()}, so "
-                f"{-(-it.max().item() // POLL_EVERY) + 1} host checks (one every {POLL_EVERY} "
-                f"steps, and the last after the slowest lane stopped)")
+        log(f"[11] {name}: launches {launches}")
         off = {n: c for n, c in launches.items()
                if not (c > 0 if want.get(n, 0) is None else c == want.get(n, 0))}
         if off:
             raise AssertionError(f"{name}: launches {off}, expected {want} and no others")
-        return result, launches
+        return result
 
     os.environ.pop("DSS_TPU_INFLIGHT", None)  # the default: one batch in flight
     stage_runs = [
@@ -1542,24 +1212,22 @@ def phase_segments(tmp: Path) -> dict:
         ("8 extract_semantic_segmentations", lambda: S.extract_semantic_segmentations(
             out["multi"], clusters, out["semantic"]), {}),
     ]
-    stage6_launches = 0
     for name, run, want in stage_runs:
         if name.startswith("7"):
             n_boxes = sum(len(bd["bboxes"]) for bd in torch.load(boxes, weights_only=False))
             log(f"[11] {n_boxes} boxes for stage 7's 20 clusters")
             if n_boxes < 20:
                 raise AssertionError(f"{n_boxes} boxes: fewer than stage 7's 20 clusters")
-        _, launches = drive(name, run, want)
+        drive(name, run, want)
         if name.startswith("6"):
-            stage6_launches = launches["flash_attention_packed"]
             log(f"[11] stage 6 batches per bucket side: {stage6_batches(Path(boxes))}")
     sem_out = drive("semantic_eval", lambda: _cli_output([
         "semantic_eval", f"data.root={voc}", f"segments_dir={out['semantic']}",
-        "visualize=0", "device=cuda"]), {})[0]
+        "visualize=0", "device=cuda"]), {})
     obj_out = drive("object_segmentation", lambda: _cli_output([
         "object_segmentation", f"predictions.root={out['single']}",
         f"datasets.ECSSD.images_dir={jpegs}", f"datasets.ECSSD.labels_dir={voc / 'saliency'}",
-        "device=cuda"]), {})[0]
+        "device=cuda"]), {})
     os.environ["DSS_TPU_INFLIGHT"] = "0"
     try:
         drive("3 with no batch in flight", lambda: S.extract_multi_region_segmentations(
@@ -1605,31 +1273,6 @@ def phase_segments(tmp: Path) -> dict:
     log(f"[11] random-weight dino_vits16 (a smoke of the path, not a measurement): "
         f"semantic mIoU {miou}, object segmentation acc {acc} IoU {iou}")
 
-    # stage 6's device time: torch.profiler over one more run; its model
-    # build alone on the host clock
-    from deep_spectral_tpu_torch.models.convert import load_model
-    from deep_spectral_tpu_torch.probe_main import _kernel_times, _print_groups
-    t0 = time.perf_counter()
-    load_model("dino_vits16", precision="bf16", device="cuda")
-    torch.cuda.synchronize()
-    build = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        S.extract_bbox_features(jpegs, boxes, "dino_vits16", str(tmp / "p6" / "f.pth"),
-                                device="cuda")
-        torch.cuda.synchronize()
-    kern = _kernel_times(prof, 1)
-    total = sum(t for t, _ in kern.values())
-    flash = sum(t for name, (t, _) in kern.items() if "flash_fwd_packed" in name)
-    wall6 = walls["6 extract_bbox_features"] * 1e3
-    log(f"[11] stage 6 under torch.profiler: kernels {total:.3f} ms in all, kernel 1 "
-        f"{flash:.3f} ms ({stage6_launches} launches); unprofiled wall {wall6:.1f} ms, so "
-        f"the device idles {1 - total / wall6:.1%} of it; the model build (seeded random "
-        f"init on the host, then the copy) {build * 1e3:.1f} ms of it")
-    _print_groups(kern, total, 1)
-    log(f"[11] wall times (s): " + ", ".join(f"{k}: {v:.3f}" for k, v in walls.items()))
-    return {"flash_attention_packed": stage6_launches}
-
 
 def _max_err(got, ref, valid):
     return (got.float() - ref.float())[valid].abs().max().item()
@@ -1657,7 +1300,7 @@ def hi_lo_reading(got, ref, rows) -> tuple[float, float]:
     makes the largest difference one ulp either way; carrying p and ds as
     hi/lo pairs leaves the f32 sums ~1e-6 from the twin's, so few entries
     round differently, where a single bf16 rounding of p and ds moves many
-    (`probe_dkv` runs that control of both kernels)."""
+    (the single-rounding control builds of both kernels, README)."""
     sel = rows[:, :, None, None].expand_as(ref)
     d = (got.float() - ref.float())[sel]
     return ((d != 0).float().mean().item(),
@@ -1671,18 +1314,16 @@ def hi_lo_rows(mask) -> dict:
 
 
 def phase_train_kernels(dev) -> dict:
-    """Kernels 3-5 against their twins; returns each build's worst error and
-    its and its twin's times at the train shape (b144 T=197), bf16 and f32
-    (the f32 builds with the CUDA-core FMA builds' times beside)."""
+    """Kernels 3-5 against their twins; returns each build's worst error
+    (`flash_attention_lse`, ... for bf16, `flash_attention_lse_f32`, ...
+    for f32)."""
     import torch
-    import torch.nn.functional as F
     from deep_spectral_tpu_torch.models.flash_attention import (
-        _backward_plain, _row_dot, flash_attention_lse, flash_attention_lse_plain,
-        flash_backward_plain, flash_bwd_dkv, flash_bwd_dq)
-    from deep_spectral_tpu_torch.probe_f32 import fma_calls
+        _row_dot, flash_attention_lse, flash_attention_lse_plain, flash_backward_plain,
+        flash_bwd_dkv, flash_bwd_dq)
     g = torch.Generator().manual_seed(6)
-    worst = {dt: {"fwd": 0.0, "dkv": 0.0, "dq": 0.0} for dt in ("bf16", "f32")}
-    at_train = {}
+    worst = {f"{name}{suffix}": 0.0 for suffix in ("", "_f32")
+             for name in ("flash_attention_lse", "flash_bwd_dkv", "flash_bwd_dq")}
     for (b, T, dtype, ragged) in TRAIN_KERNEL_SHAPES:
         dtype = getattr(torch, dtype)
         q, k, v, do, mask = train_kernel_inputs(b, T, dtype, ragged, g, dev)
@@ -1695,7 +1336,6 @@ def phase_train_kernels(dev) -> dict:
         refs = flash_backward_plain(q, k, v, mask, o, lse, do)
         valid = mask.any(dim=1)
         f32 = dtype == torch.float32
-        tag = "f32" if f32 else "bf16"
         errs, tols = {}, {}
         errs["o"], tols["o"] = _max_err(o, o_ref, valid), F32_TOL if f32 else FLASH_TOL
         errs["lse"], tols["lse"] = _max_err(lse, lse_ref, valid), F32_TOL
@@ -1718,60 +1358,14 @@ def phase_train_kernels(dev) -> dict:
         if bad:
             raise AssertionError(f"trainable flash kernels disagree with their twins: {bad} "
                                  f"(tolerances {tols})")
-        worst[tag]["fwd"] = max(worst[tag]["fwd"], errs["o"])
-        worst[tag]["dkv"] = max(worst[tag]["dkv"], errs["dk"], errs["dv"])
-        worst[tag]["dq"] = max(worst[tag]["dq"], errs["dq"])
-        t = {"fwd": cuda_ms(lambda: flash_attention_lse(q, k, v, mask)),
-             "fwd_plain": cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask)),
-             "dkv": cuda_ms(lambda: flash_bwd_dkv(q, k, v, mask, do, lse, di)),
-             "dq": cuda_ms(lambda: flash_bwd_dq(q, k, v, mask, do, lse, di)),
-             "bwd_plain": cuda_ms(lambda: _backward_plain(q, k, v, mask, lse, do, di))}
-        fma = ""
-        if f32:  # the CUDA-core builds the split-TF32 kernels replaced
-            fwd_fma, dkv_fma, dq_fma = fma_calls(q, k, v, mask, do, lse, di)
-            t.update(fwd_fma=cuda_ms(fwd_fma), dkv_fma=cuda_ms(dkv_fma), dq_fma=cuda_ms(dq_fma))
-            fma = (f"; the FMA builds: fwd {t['fwd_fma']}, dkv {t['dkv_fma']}, "
-                   f"dq {t['dq_fma']}")
         log(f"[6] b{b} T={T} H=6 hd=64 {str(dtype)[6:]} ragged={ragged}: max |kernel - twin| "
-            + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items())
-            + f"; {TIMING}: fwd {t['fwd']} vs twin {t['fwd_plain']}, dkv {t['dkv']} + dq "
-              f"{t['dq']} vs twin backward {t['bwd_plain']}" + fma)
-        if (b, T) == (TRAIN_B, 197):
-            shapes = (("fwd", "dss_flash_fwd_lse_f32_shape"),) if f32 else ()
-            for name, fn in shapes + tuple((n, f"dss_flash_bwd_{n}_{tag}_shape")
-                                           for n in ("dkv", "dq")):
-                gx, gy, gz, threads, smem = launch_shape(fn, b, T, 6)
-                log(f"[6] {tag} {name} grid ({gx}, {gy}, {gz}) = {gx * gy * gz} CTAs of "
-                    f"{threads} threads, {smem} B of dynamic shared memory")
-            # SDPA (unmasked) on the (B, H, T, hd) views: the forward with inputs
-            # that need a gradient, and one backward giving dq, dk and dv
-            qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
-            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
-            o_lib = F.scaled_dot_product_attention(qh, kh, vh)
-            doh = do.transpose(1, 2)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qh, kh, vh), doh,
-                                                          retain_graph=True))
-            bounds = {"fwd": attention_work(q, mask, products=2, io_tensors=4, stats=1),
-                      "dkv": attention_work(q, mask, products=4, io_tensors=6, stats=2),
-                      "dq": attention_work(q, mask, products=3, io_tensors=5, stats=2)}
-            log(f"[6] b{b} T={T} {tag}: SDPA fwd (requires_grad) {lib_fwd}, SDPA backward "
-                f"(dq, dk, dv) {lib_bwd} ({TIMING}); bounds " + ", ".join(
-                    f"{n} {x['bound_ms']:.4f} ms ({x['bound_by']}, "
-                    f"{x['bound_ms'] / t[n].ms:.1%} of the kernel"
-                    + (f", {x['bound_ms'] / t[n + '_fma'].ms:.1%} of the FMA build"
-                       if n + "_fma" in t else "") + ")" for n, x in bounds.items()))
-            at_train[tag] = (t, lib_fwd.ms, lib_bwd.ms, bounds)
-    out = {}
-    for tag, suffix in (("bf16", ""), ("f32", "_f32")):
-        t, lib_fwd, lib_bwd, bounds = at_train[tag]
-        for name, kernel, plain, lib in (("flash_attention_lse", "fwd", "fwd_plain", lib_fwd),
-                                         ("flash_bwd_dkv", "dkv", "bwd_plain", lib_bwd),
-                                         ("flash_bwd_dq", "dq", "bwd_plain", lib_bwd)):
-            out[name + suffix] = {"max_abs_err": worst[tag][kernel], "ms": t[kernel].ms,
-                                  "plain_ms": t[plain].ms, "library_ms": lib, **bounds[kernel]}
-            if kernel + "_fma" in t:
-                out[name + suffix]["fma_ms"] = t[kernel + "_fma"].ms
-    return out
+            + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in errs.items()))
+        suffix = "_f32" if f32 else ""
+        for name, e in (("flash_attention_lse", errs["o"]),
+                        ("flash_bwd_dkv", max(errs["dk"], errs["dv"])),
+                        ("flash_bwd_dq", errs["dq"])):
+            worst[name + suffix] = max(worst[name + suffix], e)
+    return worst
 
 
 def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:
@@ -1798,31 +1392,24 @@ def blob_batch(b: int, rng) -> tuple[np.ndarray, np.ndarray]:
 
 
 @contextlib.contextmanager
-def twins_on_the_card(forward: bool = True):
-    """Route kernels 4-5 (the autograd function's backward) and, with
-    `forward`, kernel 3 (its forward, and the fp32 frozen blocks' no-grad
-    forward, kernel 3's f32 build) through their plain twins on CUDA
-    tensors: phase 7a twins the backward only, `probe_train` both, phase 7d
-    each in turn. The bf16 frozen blocks keep the
-    packed kernel in every run; phase 2 holds it against its twin at their
-    shape (b144, T=197). This step's gradients move by up to ~10% of their
-    largest entry when any block's attention output changes by bf16 rounding
-    alone, even by one ulp in 0.01% of its outputs, while two runs of the
-    same route agree to within ~2e-3 (`python -m
-    deep_spectral_tpu_torch.probe_train` measures both): the head's ASPP
-    pooling BatchNorm cancels ~4 digits on these random-weight features
-    (ROADMAP queue 3). The backward kernels enter the gradients linearly."""
+def twins_on_the_card():
+    """Route kernels 4-5 (the autograd function's backward) through their
+    plain twins on CUDA tensors, behind kernel 3's own o and lse: 7a's and
+    7d's reference step. A step with kernel 3 twinned too is no reference:
+    this step's gradients move by up to ~10% of their largest entry when any
+    block's attention output changes by bf16 rounding alone, even by one ulp
+    in 0.01% of its outputs, while two runs of the same route agree to
+    within ~2e-3 on an H100: the head's ASPP pooling BatchNorm cancels ~4
+    digits on these random-weight features (ROADMAP queue 3). The backward
+    kernels enter the gradients linearly."""
     import torch
     from deep_spectral_tpu_torch.models import flash_attention as fa
-    from deep_spectral_tpu_torch.models import vit
-    saved = (fa.flash_attention_lse, fa.flash_backward, vit.flash_attention_lse)
-    if forward:
-        fa.flash_attention_lse = vit.flash_attention_lse = fa.flash_attention_lse_plain
+    saved = fa.flash_backward
     fa.flash_backward = lambda *a: torch.stack(fa.flash_backward_plain(*a), dim=2)
     try:
         yield
     finally:
-        fa.flash_attention_lse, fa.flash_backward, vit.flash_attention_lse = saved
+        fa.flash_backward = saved
 
 
 def phase_train(dev) -> dict:
@@ -1875,7 +1462,7 @@ def phase_train(dev) -> dict:
         if route == "kernels":
             fa.flash_attention_lse = capture
         try:
-            with (twins_on_the_card(forward=False) if route != "kernels"
+            with (twins_on_the_card() if route != "kernels"
                   else contextlib.nullcontext()):
                 SS.train_step(state, x, y, gen)
         finally:
@@ -1905,29 +1492,19 @@ def phase_train(dev) -> dict:
         f"{GRAD_REL_TOL}): " + ", ".join(f"{n} {rel[n]:.3e}" for n in top))
     if not all(np.isfinite(v) and v <= GRAD_REL_TOL for v in rel.values()):
         raise AssertionError(f"train-step gradients disagree: {top[-1]} {rel[top[-1]]}")
-    del seen, grads, q, k, v, kv_mask, o, lse, o_ref, lse_ref  # out of 7b's peak memory
+    del seen, grads, q, k, v, kv_mask, o, lse, o_ref, lse_ref  # freed before 7b
 
     # (b) the train path: 10 steps on one batch
     state = new_state(1)
     gen = torch.Generator(device=dev).manual_seed(12)
-    SS.train_step(state, x, y, gen)                       # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    # a first step, not counted: the gates were set on the steps after one
+    SS.train_step(state, x, y, gen)
     n_steps = 10
     _zero_launches()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    losses = [SS.train_step(state, x, y, gen)["loss"] for _ in range(n_steps)]
-    end.record()
-    end.synchronize()
+    losses = [float(SS.train_step(state, x, y, gen)["loss"]) for _ in range(n_steps)]
     launches = _launches()
-    ms = start.elapsed_time(end) / n_steps
-    peak = torch.cuda.max_memory_allocated(dev)
-    losses = [float(v) for v in losses]
     log(f"[7b] train dino_vits16 DeepLabV3+ crop {CROP} b{TRAIN_B} bf16 flash, 1 unfrozen "
-        f"block: {ms:.3f} ms/step = {TRAIN_B / ms * 1e3:.2f} img/s (CUDA events, mean of "
-        f"{n_steps} steps after 1 warm-up); peak memory {peak / 2**30:.3f} GiB; launches "
-        f"over the {n_steps} steps: {launches}")
+        f"block: launches over {n_steps} steps after a first one: {launches}")
     log(f"[7b] losses: {' '.join(f'{v:.4f}' for v in losses)}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError("train loss not finite or not falling")
@@ -1939,20 +1516,15 @@ def phase_train(dev) -> dict:
     # (c) the whole backbone unfrozen: every block runs kernels 3-5
     state = new_state(-1)
     gen = torch.Generator(device=dev).manual_seed(13)
-    SS.train_step(state, x, y, gen)                       # warm-up
-    torch.cuda.synchronize()
+    # a first step, not counted: the gates were set on the steps after one
+    SS.train_step(state, x, y, gen)
     n_full = 3
     _zero_launches()
-    start.record()
     losses = [float(SS.train_step(state, x, y, gen)["loss"]) for _ in range(n_full)]
-    end.record()
-    end.synchronize()
     full = _launches()
-    ms = start.elapsed_time(end) / n_full
-    log(f"[7c] whole backbone unfrozen, b{TRAIN_B}: {ms:.3f} ms/step = "
-        f"{TRAIN_B / ms * 1e3:.2f} img/s (CUDA events, mean of {n_full} steps after 1 "
-        f"warm-up); losses {' '.join(f'{v:.4f}' for v in losses)}; launches over the "
-        f"{n_full} steps: {full}")
+    log(f"[7c] whole backbone unfrozen, b{TRAIN_B}: losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; launches over {n_full} steps after a "
+        f"first one: {full}")
     if not all(np.isfinite(losses)) or any(full[n] != 12 * n_full for n in
                                            ("flash_attention_lse", "flash_bwd_dkv",
                                             "flash_bwd_dq")):
@@ -1961,41 +1533,19 @@ def phase_train(dev) -> dict:
     return launches
 
 
-@contextlib.contextmanager
-def fma_builds_on_the_card():
-    """Route the f32 forward, dK/dV and dQ wrappers to the CUDA-core FMA
-    builds the split-TF32 kernels replaced (exact f32 products; `_fma` entry
-    points): 7d's control of how far the step moves under an f32 rounding
-    change."""
-    from deep_spectral_tpu_torch import _build
-    from deep_spectral_tpu_torch.probe_dkv import _WithControls
-    lib = _build.load()
-    _build._lib = _WithControls(lib, {name: getattr(lib, f"{name}_fma") for name in
-                                      ("dss_flash_fwd_lse_f32", "dss_flash_bwd_dkv_f32",
-                                       "dss_flash_bwd_dq_f32")})
-    try:
-        yield
-    finally:
-        _build._lib = lib
-
-
 def phase_train_fp32(dev) -> dict:
     """7d: the fp32 recipe's step, the precision `semantic_train` defaults to:
     `build_model` (DeepLabV3+ over dino_vits16, 'auto' attention: kernel 3's
     f32 build in all 12 blocks, kernels 4-5's f32 builds in the trained one),
-    crop 224, b144, one unfrozen block. Every route is one step from the same
-    state under deterministic algorithms, so what differs is the kernels.
-    Gated, as 7a gates the bf16 step: kernel 3's o and lse at each of the
-    step's 12 launches against its twin on the q/k/v it was given (F32_TOL),
-    and the trained gradients against the same step with kernels 4-5
-    twinned behind kernel 3's own o and lse (F32_GRAD_REL of the largest
-    entry). Recorded: the gradients against the step with every f32 kernel
-    twinned, beside the same reading for the CUDA-core FMA builds (exact f32
-    products): the head amplifies any f32 rounding change in the blocks'
-    attention (see `twins_on_the_card`), so that reading is the step's, not
-    the kernels'. Then 10 steps' ms/step and peak memory through the kernels
-    and through einsum attention. Returns the f32 builds' launches over the
-    10 kernel steps and both step times."""
+    crop 224, b144, one unfrozen block. Both routes are one step from the
+    same state under deterministic algorithms, so what differs is the
+    kernels. Gated, as 7a gates the bf16 step: kernel 3's o and lse at each
+    of the step's 12 launches against its twin on the q/k/v it was given
+    (F32_TOL), and the trained gradients against the same step with kernels
+    4-5 twinned behind kernel 3's own o and lse (F32_GRAD_REL of the largest
+    entry). Then 10 steps through the kernels and through einsum attention,
+    each loss finite and falling. Returns the f32 builds' launches over the
+    10 kernel steps."""
     import warnings
     import torch
     from deep_spectral_tpu_torch.models import flash_attention as fa
@@ -2026,11 +1576,8 @@ def phase_train_fp32(dev) -> dict:
     # the wrapper counts under its module-level name, now this
     capture.launches = capture.f32_launches = 0
 
-    routes = {"kernels": contextlib.nullcontext, "kernels 4-5 twinned":
-              lambda: twins_on_the_card(forward=False), "all twinned": twins_on_the_card,
-              "FMA builds": fma_builds_on_the_card}
     grads, first = {}, None
-    for route, ctx in routes.items():
+    for route in ("kernels", "kernels 4-5 twinned"):
         state = new_state("flash")
         _zero_launches()
         if route == "kernels":
@@ -2039,7 +1586,8 @@ def phase_train_fp32(dev) -> dict:
         try:
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore")  # cuBLAS's determinism notice
-                with ctx():
+                with (contextlib.nullcontext() if route == "kernels"
+                      else twins_on_the_card()):
                     SS.train_step(state, x, y, torch.Generator(device=dev).manual_seed(28))
             torch.cuda.synchronize()
             if route == "kernels":  # kernel 3's count is `capture`'s now
@@ -2062,62 +1610,43 @@ def phase_train_fp32(dev) -> dict:
     log(f"[7d] one fp32 b{TRAIN_B} step: kernel 3 at its 12 launches (11 frozen blocks, the "
         f"trained one) vs its twin on the same q/k/v: max |o diff| {err_o:.3e}, max |lse "
         f"diff| {err_lse:.3e} (tol {F32_TOL}); the step's f32 launches {first}")
-
-    def rel(a, b):
-        r = {n: (grads[a][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-             for n, g in grads[b].items()}
-        return r, sorted(r, key=r.get)[-3:]
-
-    readings = {}
-    for a, b in (("kernels", "kernels 4-5 twinned"), ("kernels", "all twinned"),
-                 ("FMA builds", "all twinned")):
-        r, top = rel(a, b)
-        readings[a, b] = max(r.values())
-        log(f"[7d] one fp32 b{TRAIN_B} step (deterministic algorithms), {a} vs {b}: "
-            f"{len(r)} trained tensors, worst gradient differences relative to max |{b}|"
-            + (f" (tol {F32_GRAD_REL})" if b == "kernels 4-5 twinned" else " (recorded)")
-            + ": " + ", ".join(f"{n} {r[n]:.3e}" for n in top))
-    bad = not (err_o <= F32_TOL and err_lse <= F32_TOL and
-               np.isfinite(readings["kernels", "kernels 4-5 twinned"]) and
-               readings["kernels", "kernels 4-5 twinned"] <= F32_GRAD_REL)
-    if bad:
+    twinned = grads["kernels 4-5 twinned"]
+    rel = {n: (grads["kernels"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+           for n, g in twinned.items()}
+    top = sorted(rel, key=rel.get)[-3:]
+    log(f"[7d] one fp32 b{TRAIN_B} step (deterministic algorithms), kernels vs kernels 4-5 "
+        f"twinned: {len(rel)} trained tensors, worst gradient differences relative to max "
+        f"|twinned| (tol {F32_GRAD_REL}): " + ", ".join(f"{n} {rel[n]:.3e}" for n in top))
+    worst = max(rel.values())
+    if not (err_o <= F32_TOL and err_lse <= F32_TOL and np.isfinite(worst)
+            and worst <= F32_GRAD_REL):
         raise AssertionError(f"the fp32 step's f32 kernels disagree with their twins: o "
-                             f"{err_o}, lse {err_lse}, gradients {readings}")
+                             f"{err_o}, lse {err_lse}, gradients {worst}")
     if first != {"flash_attention_lse": 12, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}:
         raise AssertionError(f"the fp32 step's f32 launches: {first}")
-    del grads
+    del grads, twinned
 
-    n_steps, out = 10, {}
+    n_steps, launches = 10, {}
     for impl in ("flash", "einsum"):
         state = new_state(impl)
         gen = torch.Generator(device=dev).manual_seed(29)
-        SS.train_step(state, x, y, gen)                   # warm-up (cuDNN, allocator)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
+        # a first step, not counted: the gates were set on the steps after one
+        SS.train_step(state, x, y, gen)
         _zero_launches()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        losses = [SS.train_step(state, x, y, gen)["loss"] for _ in range(n_steps)]
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end) / n_steps
-        peak = torch.cuda.max_memory_allocated(dev)
-        losses = [float(v) for v in losses]
-        out[impl] = {"ms": ms, "peak_gib": peak / 2**30, "launches": _f32_launches()}
+        losses = [float(SS.train_step(state, x, y, gen)["loss"]) for _ in range(n_steps)]
+        launches[impl] = _f32_launches()
         log(f"[7d] train dino_vits16 DeepLabV3+ crop {CROP} b{TRAIN_B} fp32 {impl}, 1 unfrozen "
-            f"block: {ms:.3f} ms/step = {TRAIN_B / ms * 1e3:.2f} img/s (CUDA events, mean of "
-            f"{n_steps} steps after 1 warm-up); peak memory {peak / 2**30:.3f} GiB; f32 "
-            f"launches over the {n_steps} steps: {out[impl]['launches']}; losses "
-            f"{' '.join(f'{v:.4f}' for v in losses)}")
+            f"block: f32 launches over {n_steps} steps after a first one: {launches[impl]}; "
+            f"losses {' '.join(f'{v:.4f}' for v in losses)}")
         if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
             raise AssertionError(f"fp32 {impl} train loss not finite or not falling")
         del state
     want = {"flash_attention_lse": 12 * n_steps, "flash_bwd_dkv": n_steps,
             "flash_bwd_dq": n_steps}
-    if out["flash"]["launches"] != want or any(out["einsum"]["launches"].values()):
-        raise AssertionError(f"fp32 steps' f32 launches: {out}, want {want} through the kernels")
-    return {"launches": out["flash"]["launches"], "ms": out["flash"]["ms"],
-            "einsum_ms": out["einsum"]["ms"]}
+    if launches["flash"] != want or any(launches["einsum"].values()):
+        raise AssertionError(f"fp32 steps' f32 launches: {launches}, want {want} through the "
+                             f"kernels")
+    return launches["flash"]
 
 
 def make_voc(root: Path) -> None:
@@ -2154,12 +1683,10 @@ def phase_train_cli(tmp: Path) -> None:
                         f"checkpoint.resume={tmp / 'ck' / 'best.pt'}"])]
     outs = {}
     for name, args in runs:
-        t0 = time.perf_counter()
         proc = subprocess.run(cli + args, cwd=ROOT, env=env, capture_output=True,
                               text=True, timeout=600)
         outs[name] = proc.stdout
-        log(f"[8] semantic_train ({name}): rc {proc.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[8] semantic_train ({name}): rc {proc.returncode}")
         for line in (proc.stdout + proc.stderr).strip().splitlines()[-6:]:
             log(f"    {line}")
         if proc.returncode != 0:
@@ -2181,8 +1708,8 @@ def _pngs(d) -> list:
 
 
 def phase_run_all(tmp: Path) -> dict:
-    """(a) `run_all` on the card over phase 11's tree; returns its launches,
-    its output dirs and the tree."""
+    """(a) `run_all` on the card over phase 11's tree; returns its output
+    dirs and the tree."""
     import torch
     from PIL import Image
     from deep_spectral_tpu_torch.models.vit import get_model_config
@@ -2198,23 +1725,14 @@ def phase_run_all(tmp: Path) -> dict:
             | {("chebyshev_filter", 4, n, K + 3) for n in LOC_CHEB_N})
     seen = set()
     os.environ.pop("DSS_TPU_INFLIGHT", None)  # the default: one batch in flight
-    buf = io.StringIO()
     _zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with kernel_shapes(seen), contextlib.redirect_stdout(buf):
+    with kernel_shapes(seen), contextlib.redirect_stdout(io.StringIO()):
         dirs = run_all(str(listing), str(jpegs), str(tmp / "out"), K=K, batch_size=4,
                        feature_batch_size=4, device="cuda")
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = _launches()
-    out = buf.getvalue()
-    table = out[out.rindex("stage "):].strip().splitlines()
     log(f"[12a] run_all dino_vits16 bf16 on {len(ids)} images (480x480, 320x480), stage 1 "
-        f"b4, stage 2 K={K} b4: {wall:.3f} s (host clock); its StageTimer (the clock read "
-        f"after a device sync):")
-    for line in table:
-        log(f"    {line}")
+        f"b4, stage 2 K={K} b4")
     stage6 = sum(stage6_batches(Path(dirs["bboxes"])).values())
     want = {"flash_attention_packed": (blocks - 1) * 6 + blocks * stage6}
     log(f"[12a] launches {launches}; kernel 1 expected {want['flash_attention_packed']} "
@@ -2276,7 +1794,7 @@ def phase_run_all(tmp: Path) -> dict:
         raise AssertionError(f"stage 9 launched a kernel: {_launches()}")
     log(f"[12a] stage 9 with no batch in flight (DSS_TPU_INFLIGHT=0) wrote the same bytes "
         f"({2 * len(ids)} PNGs)")
-    return {"launches": launches, "dirs": dirs, "voc": voc, "ids": ids, "list": listing}
+    return {"dirs": dirs, "voc": voc, "ids": ids, "list": listing}
 
 
 def _crf_batch(voc: Path, seg_dir: str, ids: list):
@@ -2300,7 +1818,7 @@ def phase_crf(run: dict) -> None:
     """(b) the CRF on the card against the CRF on the CPU: stage 9's batches
     of 4 at the default parameters (dense regime), then one image in the
     grid regime (the dense bound lowered to 0), run twice on the card; the
-    verification recipe's blob probe; the mean field's time and memory."""
+    verification recipe's blob probe."""
     import torch
     from deep_spectral_tpu_torch.ops import crf as CRF
     voc, ids, dirs = run["voc"], run["ids"], run["dirs"]
@@ -2314,11 +1832,10 @@ def phase_crf(run: dict) -> None:
         cpu = CRF.dense_crf(torch.from_numpy(imgs), torch.from_numpy(segs),
                             num_classes=CLASSES).numpy()
         agree = [float(np.mean(c[:H, :W] == p[:H, :W])) for c, p in zip(card, cpu)]
-        moved = float(np.mean(cpu[:, :H, :W] != segs[:, :H, :W]))
         log(f"[12b] dense_crf b{len(group)} at the {imgs.shape[1]}x{imgs.shape[2]} bucket of "
             f"{H}x{W} images, 21 classes, default parameters: labels on the card equal to "
             f"the CPU's on {min(agree):.6f} of an image's pixels at least (min "
-            f"{CRF_AGREEMENT_MIN}); the CRF changed {moved:.4f} of the input labels")
+            f"{CRF_AGREEMENT_MIN})")
         worst = min(worst, *agree)
     if worst < CRF_AGREEMENT_MIN:
         raise AssertionError(f"CRF labels on the card agree with the CPU on {worst} only")
@@ -2345,7 +1862,6 @@ def phase_crf(run: dict) -> None:
         labels_card = [CRF.dense_crf(*args, num_classes=CLASSES) for _ in range(2)]
         labels_cpu = CRF.dense_crf(torch.from_numpy(imgs), torch.from_numpy(segs),
                                    num_classes=CLASSES).numpy()
-        grid_ms = calls_ms(lambda: CRF.dense_crf(*args, num_classes=CLASSES))
     finally:
         CRF._DENSE_MAX_POINTS = saved
     same = all(torch.equal(a, b) for a, b in zip(*grid_card)) and \
@@ -2355,8 +1871,7 @@ def phase_crf(run: dict) -> None:
         f"{imgs.shape[1]}-pixel bucket, 21 channels, alpha 80): dense regime max rel diff "
         f"{rel_dense:.3e}, grid regime {rel_grid:.3e} (tol {CRF_FILTER_REL}); grid regime "
         f"twice on the card: the same bytes {same}; grid-regime dense_crf labels equal to "
-        f"the CPU's on {grid_agree:.6f} of the pixels; its mean field {grid_ms} "
-        f"({CALLS_TIMING})")
+        f"the CPU's on {grid_agree:.6f} of the pixels")
     if max(rel_dense, rel_grid) > CRF_FILTER_REL or not same or grid_agree < CRF_AGREEMENT_MIN:
         raise AssertionError("the CRF's bilateral filter disagrees, or the grid regime is "
                              "not deterministic on the card")
@@ -2377,34 +1892,6 @@ def phase_crf(run: dict) -> None:
     if iou <= BLOB_IOU_MIN:
         raise AssertionError(f"blob probe IoU {iou}")
 
-    # stage 9's mean field: a batch of 4 480x480 images in their 512 bucket
-    imgs, segs, (H, W) = _crf_batch(voc, dirs["semantic"], by_size[0])
-    args = (torch.from_numpy(imgs).to(dev), torch.from_numpy(segs).to(dev))
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    CRF.dense_crf(*args, num_classes=CLASSES)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    t4 = cuda_ms(lambda: CRF.dense_crf(*args, num_classes=CLASSES), iters=5, windows=3,
-                 warmup=1)
-    t1 = cuda_ms(lambda: CRF.dense_crf(args[0][:1], args[1][:1], num_classes=CLASSES),
-                 iters=5, windows=3, warmup=1)
-    log(f"[12b] stage 9's mean field (21 classes, 5 iterations, {H}x{W} images in their "
-        f"{imgs.shape[1]}x{imgs.shape[2]} bucket): b4 {t4} = {t4.ms / 4:.4f} ms per image; "
-        f"b1 {t1}; CUDA events, median [min-max] of 3 windows of 5 calls; the b4 call "
-        f"holds {peak / 2**20:.1f} MiB on the card above its inputs")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        CRF.dense_crf(*args, num_classes=CLASSES)
-        torch.cuda.synchronize()
-    ops = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
-                 key=lambda e: -e.self_device_time_total)
-    total = sum(e.self_device_time_total for e in ops) / 1e3
-    log(f"[12b] one b4 mean field under torch.profiler: {total:.3f} ms of device time; by "
-        f"op (self device ms, calls): " + ", ".join(
-            f"{e.key} {e.self_device_time_total / 1e3:.3f} ({e.count})" for e in ops[:8]))
-
 
 def phase_vis(run: dict, tmp: Path) -> None:
     """(c) stage 10 over (a)'s outputs, and `vis_server` in a thread."""
@@ -2420,11 +1907,10 @@ def phase_vis(run: dict, tmp: Path) -> None:
         log("[12c] stage 10 (vis_segmentations) not run: it draws with matplotlib, which "
             "this host does not have")
     else:
-        t0 = time.perf_counter()
         S.vis_segmentations(str(run["list"]), jpegs, dirs["crf"], bbox_file=dirs["bboxes"],
                             output_dir=str(tmp / "vis"), max_images=4)
         names = sorted(f.name for f in (tmp / "vis").iterdir())
-        log(f"[12c] stage 10: {names} in {time.perf_counter() - t0:.3f} s")
+        log(f"[12c] stage 10: {names}")
         if names != sorted([f"{i}.png" for i in ids[:4]] + ["index.html"]):
             raise AssertionError(f"stage 10 wrote {names}")
     srv = make_vis_server(str(run["list"]), jpegs, dirs["crf"], dirs["bboxes"], dirs["eigs"],
@@ -2452,7 +1938,7 @@ def phase_vis(run: dict, tmp: Path) -> None:
         raise AssertionError("vis_server: unexpected responses")
 
 
-def phase_generate(run: dict, tmp: Path) -> dict:
+def phase_generate(run: dict, tmp: Path) -> None:
     """(d) semantic_train (bf16 dino_vits16, 2 steps at crop 224 b8) on (a)'s
     CRF segmaps, then semantic_generate from its checkpoint, each through
     `tasks.cli.main`; the dump's eval forward must launch kernel 1."""
@@ -2461,23 +1947,19 @@ def phase_generate(run: dict, tmp: Path) -> dict:
     voc, ids, dirs = run["voc"], run["ids"], run["dirs"]
     cfg = [f"data.root={voc}", f"segments_dir={dirs['crf']}", "precision=bf16",
            f"data.loader.batch_size={GEN_B}", "device=cuda"]
-    t0 = time.perf_counter()
     _cli_output(["semantic_train", *cfg, "max_train_steps=2", "eval_every=2",
                  f"checkpoint.dir={tmp / 'ck'}"])
-    log(f"[12d] semantic_train bf16 dino_vits16 crop {CROP} b{GEN_B}, 2 steps and an eval: "
-        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    log(f"[12d] semantic_train bf16 dino_vits16 crop {CROP} b{GEN_B}, 2 steps and an eval")
     seen = set()
     _zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with kernel_shapes(seen):
         _cli_output(["semantic_generate", "--checkpoint", str(tmp / "ck" / "best.pt"),
                      "--output_dir", str(tmp / "gen"), *cfg])
     torch.cuda.synchronize()
     launches = _launches()
     val = ids[::3]
-    log(f"[12d] semantic_generate: {time.perf_counter() - t0:.3f} s (host clock), launches "
-        f"{launches}, kernel shapes {sorted(map(str, seen))}")
+    log(f"[12d] semantic_generate: launches {launches}, kernel shapes "
+        f"{sorted(map(str, seen))}")
     # one bucket (480x480 holds every val image), one batch of 8: 12 blocks
     if launches["flash_attention_packed"] != 12 or \
             any(c for n, c in launches.items() if n != "flash_attention_packed"):
@@ -2492,7 +1974,6 @@ def phase_generate(run: dict, tmp: Path) -> dict:
             raise AssertionError(f"{f.name}: prediction {a.shape}, max {a.max()}")
     log(f"[12d] one prediction PNG per val image ({len(val)}), at the image's size cropped "
         f"to a multiple of 16, labels below {CLASSES}")
-    return launches
 
 
 def phase_resnet(run: dict, tmp: Path) -> None:
@@ -2522,34 +2003,23 @@ def phase_resnet(run: dict, tmp: Path) -> None:
     if not rel <= RESNET_REL:
         raise AssertionError(f"DeepLabResNet on the card disagrees with the CPU: {rel}")
     gen = torch.Generator(device=dev).manual_seed(16)
-    SS.train_step(state, x, y, gen)                    # warm-up (cuDNN, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    losses = [SS.train_step(state, x, y, gen)["loss"] for _ in range(3)]
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / 3
-    losses = [float(v) for v in losses]
-    log(f"[12e] DeepLabResNet train b{RESNET_B} crop {CROP}, layer4 + head trained: {ms:.3f} "
-        f"ms/step (CUDA events, mean of 3 steps after 1 warm-up); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
-        f"{' '.join(f'{v:.4f}' for v in losses)}")
+    # a first step, not counted: the gates were set on the steps after one
+    SS.train_step(state, x, y, gen)
+    losses = [float(SS.train_step(state, x, y, gen)["loss"]) for _ in range(3)]
+    log(f"[12e] DeepLabResNet train b{RESNET_B} crop {CROP}, layer4 + head trained, 3 steps "
+        f"after a first one: losses {' '.join(f'{v:.4f}' for v in losses)}")
     if not all(np.isfinite(losses)):
         raise AssertionError("DeepLabResNet loss is not finite")
     SS.save_checkpoint(str(tmp / "rck"), state, 4)
     del state
     _zero_launches()
-    t0 = time.perf_counter()
     _cli_output(["semantic_generate", "--checkpoint", str(tmp / "rck" / "step_4.pt"),
                  "--output_dir", str(tmp / "rgen"), "backbone=resnet50",
                  f"data.root={run['voc']}", f"segments_dir={run['dirs']['crf']}", "device=cuda"])
     preds = _pngs(tmp / "rgen" / "pred")
     shapes = {np.array(Image.open(f)).shape for f in preds}
     log(f"[12e] semantic_generate (ResNet, per-image path): {len(preds)} predictions of "
-        f"shapes {sorted(shapes)} in {time.perf_counter() - t0:.3f} s (host clock); "
-        f"launches {_launches()}")
+        f"shapes {sorted(shapes)}; launches {_launches()}")
     if [f.stem for f in preds] != run["ids"][::3] or shapes != {(480, 480), (320, 480)} or \
             any(_launches().values()):
         raise AssertionError("ResNet semantic_generate: unexpected output or launches")
@@ -2564,16 +2034,13 @@ def _grad_diff(a: dict, b: dict) -> tuple:
     return len(a) - len(differ), rel, differ
 
 
-def phase_remat(dev) -> dict:
+def phase_remat(dev) -> None:
     """(f) one 7b step (and one 7c step) with remat=True and one without,
     from the same weights, batch and dropout generator, under
     `torch.use_deterministic_algorithms`: the trained parameters' gradients
     must be bit-equal, and the remat'd step must launch kernel 3 twice per
-    trained block. Then both states train in turns (plain, remat, remat,
-    plain; 3 steps a window, the default mode), each window's ms/step and
-    peak memory above the states printed. Recorded, not gated: in the
-    default mode two plain 7b steps already differ, as does the remat'd one.
-    Returns the remat'd 7b step's launches."""
+    trained block."""
+    import warnings
     import torch
     from deep_spectral_tpu_torch.models.deeplab import DeepLabViT
     from deep_spectral_tpu_torch.models.vit import get_model_config
@@ -2581,8 +2048,8 @@ def phase_remat(dev) -> dict:
     x_np, y_np = blob_batch(TRAIN_B, np.random.default_rng(17))
     x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
 
-    def first_step(unfrozen, remat, deterministic):
-        """A fresh state's first step: (state, gradients, loss, launches)."""
+    def first_step(unfrozen, remat):
+        """A fresh state's first step: (gradients, loss, launches)."""
         cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
                              batch_size=TRAIN_B, unfrozen_backbone_layers=unfrozen,
                              precision="bf16", seed=0, remat=remat)
@@ -2590,29 +2057,26 @@ def phase_remat(dev) -> dict:
                            compute_dtype=torch.bfloat16, attention_impl="flash", remat=remat)
         state = SS.create_train_state(cfg, model, device=dev)
         _zero_launches()
-        torch.use_deterministic_algorithms(deterministic, warn_only=True)
+        torch.use_deterministic_algorithms(True, warn_only=True)
         try:
-            loss = SS.train_step(state, x, y, torch.Generator(device=dev).manual_seed(18))["loss"]
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # cuBLAS's determinism notice
+                loss = SS.train_step(state, x, y,
+                                     torch.Generator(device=dev).manual_seed(18))["loss"]
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
         grads = {n: p.grad.detach().clone() for n, p in state.opt.params.items()}
-        return state, grads, loss.clone(), _launches()
+        return grads, loss.clone(), _launches()
 
-    import warnings
-    remat_launches = None
     for unfrozen, name, trained in ((1, "7b", 1), (-1, "7c", 12)):
-        runs, states = {}, {}
+        runs = {}
         for remat in (False, True):
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")  # cuBLAS's determinism notice
-                state, grads, loss, launches = first_step(unfrozen, remat, True)
-            runs[remat], states[remat] = (grads, loss, launches), state
+            runs[remat] = first_step(unfrozen, remat)
+            launches = runs[remat][2]
             if launches["flash_attention_lse"] != trained * (2 if remat else 1) or \
                     launches["flash_bwd_dkv"] != trained or launches["flash_bwd_dq"] != trained:
                 raise AssertionError(f"{name} remat={remat}: launches {launches}")
-            if remat and unfrozen == 1:
-                remat_launches = launches
         equal, rel, differ = _grad_diff(runs[False][0], runs[True][0])
         same_loss = torch.equal(runs[False][1], runs[True][1])
         log(f"[12f] {name} under torch.use_deterministic_algorithms: {equal} of "
@@ -2622,56 +2086,15 @@ def phase_remat(dev) -> dict:
         if differ or not same_loss:
             raise AssertionError(f"{name}: remat changed the step (max rel diff {rel})")
         del runs
-        # time both in turns (plain, remat, remat, plain), 3 steps a window
-        # after a warm-up step each (cuDNN picks its default-mode algorithms);
-        # each window's peak memory above what was allocated at its start
-        times, peaks = {False: [], True: []}, {False: [], True: []}
-        gen = torch.Generator(device=dev).manual_seed(19)
-        for remat in (False, True):
-            SS.train_step(states[remat], x, y, gen)
-        for remat in (False, True, True, False):
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
-                SS.train_step(states[remat], x, y, gen)
-            end.record()
-            end.synchronize()
-            times[remat].append(start.elapsed_time(end) / 3)
-            peaks[remat].append((torch.cuda.max_memory_allocated() - base) / 2**30)
-        for remat in (False, True):
-            log(f"[12f] {name} b{TRAIN_B} bf16 flash remat={remat}: "
-                f"{' / '.join(f'{t:.3f}' for t in times[remat])} ms/step (CUDA events, "
-                f"mean of 3 steps in each of its windows, in turns plain, remat, remat, "
-                f"plain); peak memory above the states "
-                f"{' / '.join(f'{p:.3f}' for p in peaks[remat])} GiB")
-        del states
-    # recorded: the default mode, where cuDNN may pick nondeterministic
-    # backward algorithms for the head's convolutions (`probe_train
-    # determinism` finds the head's conv weight gradients and the attention
-    # output's gradient differing between two runs)
-    steps = [first_step(1, remat, False) for remat in (False, False, True)]
-    same = _grad_diff(steps[0][1], steps[1][1])
-    rem = _grad_diff(steps[0][1], steps[2][1])
-    log(f"[12f] 7b in the default mode (recorded): two plain steps {same[0]} of "
-        f"{len(steps[0][1])} gradients bit-equal (max rel diff {same[1]:.3e}; differ: "
-        f"{same[2][:4]}); plain vs remat {rem[0]} bit-equal (max rel diff {rem[1]:.3e})")
-    return remat_launches
 
 
-def phase_12(tmp: Path, dev) -> dict:
-    t0 = time.perf_counter()
+def phase_12(tmp: Path, dev) -> None:
     run = phase_run_all(tmp)
     phase_crf(run)
     phase_vis(run, tmp)
-    gen = phase_generate(run, tmp)
+    phase_generate(run, tmp)
     phase_resnet(run, tmp)
-    remat = phase_remat(dev)
-    log(f"[12] phase 12: {time.perf_counter() - t0:.1f} s (host clock)")
-    return {"run_all": run["launches"], "generate": gen, "remat": remat}
+    phase_remat(dev)
 
 
 # ----------------------------------------------------------------- phase 13
@@ -2719,27 +2142,6 @@ def _want_launches(what: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{what}: launches {got}, want {want}")
 
 
-def _slowest_ms(fn, calls: int = 5) -> float:
-    """The median over `calls` calls (after a warm-up call) of the slowest
-    rank's CUDA-event time of one call, every call started after a
-    barrier."""
-    import torch
-    import torch.distributed as dist
-    fn()
-    times = []
-    for _ in range(calls):
-        dist.barrier()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        t = torch.tensor([start.elapsed_time(end)], device="cuda")
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        times.append(t.item())
-    return float(np.median(times))
-
-
 def _gather_tokens(group, x):
     """Every rank's token rows (dim 1; the ranks may hold different counts)
     concatenated in rank order, on every rank."""
@@ -2752,14 +2154,11 @@ def _gather_tokens(group, x):
     return torch.cat([b[:, :c] for b, c in zip(padded.split(rows, dim=1), counts)], dim=1)
 
 
-def _hop_timing(what: str, q, k, v, mask, iters: int = 20) -> dict:
-    """Kernel 3 (`flash_attention_lse`) at one ring hop's shape, held
-    against its twin on the same inputs (o: FLASH_TOL in bf16 scaled by
-    |o|, F32_TOL in f32; the f32 lse within F32_TOL of max(1, |lse|)), and
-    its time, its twin's, SDPA's (unmasked) and its bound, logged and
-    returned."""
+def _hop_gate(what: str, q, k, v, mask) -> None:
+    """Kernel 3 (`flash_attention_lse`) at one ring hop's shape against its
+    twin on the same inputs (o: FLASH_TOL in bf16 scaled by |o|, F32_TOL in
+    f32; the lse within F32_TOL of max(1, |lse|))."""
     import torch
-    import torch.nn.functional as F
     from deep_spectral_tpu_torch.models.flash_attention import (
         flash_attention_lse, flash_attention_lse_plain)
     o, lse = flash_attention_lse(q, k, v, mask)
@@ -2770,33 +2169,20 @@ def _hop_timing(what: str, q, k, v, mask, iters: int = 20) -> dict:
     lse_tol = F32_TOL * max(1.0, lse_ref.abs().max().item())
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
-    del o, lse, o_ref, lse_ref
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    times = (cuda_ms(lambda: flash_attention_lse(q, k, v, mask), iters=iters),
-             cuda_ms(lambda: flash_attention_lse_plain(q, k, v, mask), iters=2, warmup=1),
-             cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=iters))
-    bd = attention_work(q, mask, products=2, io_tensors=2, kv_tensors=2, stats=1)
     b, T = q.shape[:2]
     valid = T if mask is None else int(mask.sum())
-    dtype = str(q.dtype)[6:]
-    log(f"[13] kernel 3 at the ring hop {what} (b{b} T={T} H=6 hd=64 {dtype}, {valid} valid "
-        f"keys): vs its twin o {err_o:.3e} (tol {o_tol:.3e}), lse {err_lse:.3e} (tol "
-        f"{lse_tol:.3e}); kernel {times[0]}, twin {times[1]} (5 windows of 2 calls), SDPA "
-        f"(unmasked) {times[2]} ({TIMING} but the twin's); bound {bd['bound_ms']:.4f} ms "
-        f"({bd['bound_by']}), {bd['bound_ms'] / times[0].ms:.1%} of it")
+    log(f"[13] kernel 3 at the ring hop {what} (b{b} T={T} H=6 hd=64 {str(q.dtype)[6:]}, "
+        f"{valid} valid keys): vs its twin o {err_o:.3e} (tol {o_tol:.3e}), lse {err_lse:.3e} "
+        f"(tol {lse_tol:.3e})")
     if not (err_o <= o_tol and err_lse <= lse_tol):
         raise AssertionError(f"13: kernel 3 at {what} disagrees with its twin: o {err_o}, "
                              f"lse {err_lse}")
-    return {"shape": what, "b": b, "T": T, "dtype": dtype, "valid_keys": valid,
-            "max_abs_err": err_o, "lse_err": err_lse, "ms": times[0].ms,
-            "plain_ms": times[1].ms, "library_ms": times[2].ms, **bd}
 
 
-def _parallel_sp(dev, mesh, x, world) -> tuple[dict, list, tuple]:
+def _parallel_sp(dev, mesh, x, world) -> tuple | None:
     """(a) SP-ViT through kernel 3's ring hops, the ranks' rows gathered,
     against the single-card forward on the same input (kernel 1 in bf16,
-    kernel 3's f32 build in fp32); returns the launches by path, the
-    T=8465 hop timings (world 1) and block 0's bf16 q/k/v (world 1)."""
+    kernel 3's f32 build in fp32); returns block 0's bf16 q/k/v at world 1."""
     import torch
     from deep_spectral_tpu_torch.models.convert import random_init_
     from deep_spectral_tpu_torch.models.vit import (
@@ -2806,31 +2192,27 @@ def _parallel_sp(dev, mesh, x, world) -> tuple[dict, list, tuple]:
     cfg = get_model_config("dino_vits8")
     group = mesh.get_group(MODEL_AXIS)
     sd = random_init_(VisionTransformer(cfg), seed=0).state_dict()
-    launches, timings, qkv0 = {}, [], None
-    for dtype, path in ((torch.bfloat16, "sp"), (torch.float32, "sp_f32")):
+    qkv0 = None
+    for dtype in (torch.bfloat16, torch.float32):
         f32 = dtype == torch.float32
         model = VisionTransformer(cfg, dtype, "flash")
         model.load_state_dict(sd)
         model.to(dev).eval()
         torch.cuda.synchronize()
         _zero_launches()
-        t0 = time.perf_counter()
         out = sp_vit_forward(mesh, model, x, qkv_block=0, attn_impl="flash")
         keys = sp_patch_features(mesh, model, x, attn_impl="flash")
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[path] = _launches()
+        launches = _launches()
         if f32:  # every hop is kernel 3's f32 build
-            launches["sp_f32_builds"] = _f32_launches()
-            _want_launches(f"13a SP {path} (f32 builds)", launches["sp_f32_builds"], {
-                "flash_attention_lse": launches[path]["flash_attention_lse"]})
+            _want_launches("13a SP f32 (f32 builds)", _f32_launches(), {
+                "flash_attention_lse": launches["flash_attention_lse"]})
         x_norm, keys = _gather_tokens(group, out["x_norm"]), _gather_tokens(group, keys)
         qkv = {n: _gather_tokens(group, out["qkv"][n]) for n in "qkv"}
         T = x_norm.shape[1]
         log(f"[13a] SP-ViT dino_vits8 {SP_IMG}x{SP_IMG} (T={T}) b1 {str(dtype)[6:]} flash hops "
-            f"at world {world}: sp_vit_forward + sp_patch_features {wall:.3f} s (host clock "
-            f"after a sync, first calls); launches {launches[path]}")
-        _want_launches(f"13a SP {path}", launches[path], {
+            f"at world {world}: sp_vit_forward + sp_patch_features, launches {launches}")
+        _want_launches(f"13a SP {str(dtype)[6:]}", launches, {
             "flash_attention_lse": (2 * cfg.depth - 1) * world, "flash_attention_packed": 0})
         with torch.no_grad():
             ref = model(x, qkv_block=0)
@@ -2842,20 +2224,14 @@ def _parallel_sp(dev, mesh, x, world) -> tuple[dict, list, tuple]:
                    world, f32)
         if world == 1:
             q, k, v = (qkv[n].to(dtype).reshape(1, T, cfg.num_heads, -1) for n in "qkv")
-            timings.append(_hop_timing(f"SP world 1 (one hop, T={T})", q, k, v, None,
-                                       iters=5 if f32 else 20))
+            _hop_gate(f"SP world 1 (one hop, T={T})", q, k, v, None)
             if not f32:
                 qkv0 = (q, k, v)
-        else:
-            ms = _slowest_ms(lambda: sp_vit_forward(mesh, model, x, attn_impl="flash"))
-            one = cuda_ms(lambda: model(x), iters=1, warmup=1).ms
-            log(f"[13a] sp_vit_forward {str(dtype)[6:]} at world {world}: {ms:.3f} ms "
-                f"(slowest rank, median of 5 calls) vs the single-card forward {one:.3f} ms")
         del model, out, keys, ref, ref_keys, x_norm, qkv
-    return launches, timings, qkv0
+    return qkv0
 
 
-def _parallel_hops(dev, qkv0) -> tuple[dict, dict]:
+def _parallel_hops(dev, qkv0) -> None:
     """(b) the ring's multi-hop merge in one process: block 0's q/k/v split
     into HOPS shards of HOP_T tokens (the last of the sequence's shards
     ending in padding rows, the last shard all padding); each query shard
@@ -2914,12 +2290,11 @@ def _parallel_hops(dev, qkv0) -> tuple[dict, dict]:
           (got.float() - whole.float()).abs().max().item(), tol)
     _held("13b merged kernel-3 hops vs the same merge over the twin",
           (got.float() - twin.float()).abs().max().item(), tol)
-    timing = _hop_timing(f"13b (q shard 0, K/V shard {HOPS - 2})", shards[0][0],
-                         shards[1][HOPS - 2], shards[2][HOPS - 2], m_s[HOPS - 2])
-    return launches, timing
+    _hop_gate(f"13b (q shard 0, K/V shard {HOPS - 2})", shards[0][0],
+              shards[1][HOPS - 2], shards[2][HOPS - 2], m_s[HOPS - 2])
 
 
-def _parallel_ring(dev, mesh, world) -> dict:
+def _parallel_ring(dev, mesh, world) -> None:
     """(b) at world > 1: `ring_attention` (its default impl, flash hops on
     the card) over random bf16 q/k/v at T=8465 padded to a multiple of the
     world, the K/V shards rotating by P2P, against kernel 1 on the whole
@@ -2947,15 +2322,11 @@ def _parallel_ring(dev, mesh, world) -> dict:
     _held(f"13b ring attention T={T} at world {world} vs kernel 1 on the whole sequence",
           (o.float() - whole.float()).abs().max().item(),
           FLASH_TOL * max(1.0, whole.float().abs().max().item() / 2))
-    ms = _slowest_ms(lambda: ring_attention(mesh, ql, kl, vl, ml))
-    one = cuda_ms(lambda: flash_attention_packed(q, k, v)).ms
     log(f"[13b] ring attention T={T} at world {world} (shards of {ql.shape[1]}): launches "
-        f"{launches}; {ms:.4f} ms (slowest rank, median of 5 calls) vs kernel 1 alone "
-        f"{one:.4f} ms")
-    return launches
+        f"{launches}")
 
 
-def _parallel_pp(dev, mesh, sd16, cfg16, world) -> dict:
+def _parallel_pp(dev, mesh, sd16, cfg16, world) -> None:
     """(c) PP over `world` stages: dino_vits16 480x480 b8 bf16 in 4
     microbatches of 2 (kernel 1 at b2 T=901), each rank holding its blocks
     only, against the single-card forward of b8."""
@@ -2986,15 +2357,9 @@ def _parallel_pp(dev, mesh, sd16, cfg16, world) -> dict:
         ref = full(x)
     _agree(f"13c PP x_norm vs the single-card b{PP_B} forward", out["x_norm"], ref["x_norm"],
            world)
-    if world > 1:
-        ms = _slowest_ms(lambda: pp_vit_forward(mesh, stage, x, n_microbatches=PP_M))
-        one = cuda_ms(lambda: full(x), iters=1, warmup=1).ms
-        log(f"[13c] PP at world {world}: {ms:.3f} ms (slowest rank, median of 5 calls) vs the "
-            f"single-card forward {one:.3f} ms")
-    return launches
 
 
-def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
+def _parallel_sharded(dev, world, sd16, cfg16) -> None:
     """(d) DP patch features on a data mesh of `world`, TP x DP patch
     features on a (world / tp, tp) mesh (tp 2 at an even world, else 1),
     and DP eigs, at phase 4's b24 shape, the rows gathered, against the
@@ -3004,7 +2369,6 @@ def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
     from deep_spectral_tpu_torch.models.vit import VisionTransformer, extract_patch_keys
     from deep_spectral_tpu_torch.ops.affinity import feature_affinity
     from deep_spectral_tpu_torch.ops.eigen import spectral_decompose_batched
-    from deep_spectral_tpu_torch.parallel.lobpcg import lobpcg_laplacian_eigs
     from deep_spectral_tpu_torch.parallel.mesh import (
         DATA_AXIS, MODEL_AXIS, gather_rows, local_rows, make_mesh)
     from deep_spectral_tpu_torch.parallel.sharded import (
@@ -3021,7 +2385,6 @@ def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
     grid = IMG // cfg16.patch_size
     x = torch.from_numpy(rng.standard_normal((B, IMG, IMG, 3)).astype(np.float32)).to(dev)
     mask = torch.ones((B, grid * grid), dtype=torch.bool, device=dev)
-    launches = {}
     ref = extract_patch_keys(model, x, token_mask=mask)
     for path, group, fn in (
             ("dp", data, lambda: sharded_patch_features(dmesh, model, local_rows(data, x),
@@ -3032,16 +2395,12 @@ def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
         _zero_launches()
         keys = gather_rows(group, fn())
         torch.cuda.synchronize()
-        launches[path] = _launches()
+        launches = _launches()
         what = "DP" if path == "dp" else f"TP x DP ({world // tp} x {tp})"
         log(f"[13d] {what} patch features b{B} T={1 + grid * grid} bf16 at world {world}: "
-            f"launches {launches[path]}")
-        _want_launches(f"13d {path}", launches[path],
-                       {"flash_attention_packed": cfg16.depth - 1})
+            f"launches {launches}")
+        _want_launches(f"13d {path}", launches, {"flash_attention_packed": cfg16.depth - 1})
         _agree(f"13d {what} patch features vs extract_patch_keys", keys, ref, world)
-        if world > 1:
-            log(f"[13d] {what} at world {world}: {_slowest_ms(fn):.3f} ms (slowest rank, "
-                f"median of 5 calls)")
     feats = torch.from_numpy(structured_features(B, grid, cfg16.embed_dim, rng)).to(dev) \
         + 0.02 * ref.float()
     torch.cuda.synchronize()
@@ -3061,8 +2420,6 @@ def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
     if eig_launches["chebyshev_filter"] <= 0 or (world == 1 and not same) or \
             not (err <= EIG_TOL and cos >= SUBSPACE_MIN):
         raise AssertionError(f"13d DP eigs: launches {eig_launches}, equal {same}, {err}, {cos}")
-    for n, c in eig_launches.items():
-        launches["dp"][n] += c
     dense_gates("13d DP spectral decompose", feats, mask, evals, vecs)
     rmesh = make_mesh(axes=[(MODEL_AXIS, world)])
     rows = rmesh.get_group(MODEL_AXIS)
@@ -3072,21 +2429,16 @@ def _parallel_sharded(dev, world, sd16, cfg16) -> dict:
     evals, vecs = row_sharded_laplacian_eigs(rmesh, W_l, K)
     every = gather_rows(rows, torch.cat([evals, vecs.reshape(-1)])[None])
     same = bool((every == every[0]).all())
-    t = calls_ms(lambda: row_sharded_laplacian_eigs(rmesh, W_l, K)) if world == 1 else \
-        f"{_slowest_ms(lambda: row_sharded_laplacian_eigs(rmesh, W_l, K)):.4f} ms (slowest rank)"
-    one = calls_ms(lambda: lobpcg_laplacian_eigs(W, K))
     log(f"[13d] row-sharded LOBPCG N={ROW_GRID ** 2} K={K} at world {world}: every rank's "
-        f"eigenpairs the same bits: {same}; {t} vs the single-graph solve {one} "
-        f"({CALLS_TIMING})")
+        f"eigenpairs the same bits: {same}")
     if not same:
         raise AssertionError("13d: the ranks' row-sharded eigenpairs differ")
     dense_gates("13d row-sharded LOBPCG", f1, torch.ones((1, ROW_GRID ** 2), dtype=torch.bool,
                                                          device=dev),
                 evals[None], vecs[None], n=1)
-    return launches
 
 
-def _parallel_train(dev, world) -> dict:
+def _parallel_train(dev, world) -> None:
     """(e) one data-parallel 7b step, each rank on its rows of the b144
     batch, against the plain step on the whole batch from the same state
     (both under torch.use_deterministic_algorithms): at world 1 every
@@ -3102,7 +2454,7 @@ def _parallel_train(dev, world) -> dict:
     group = make_mesh(axes=[(DATA_AXIS, world)]).get_group(DATA_AXIS)
     x_np, y_np = blob_batch(TRAIN_B, np.random.default_rng(7))
     x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
-    grads, launches, states = {}, None, {}
+    grads, launches, dp_state = {}, None, None
     for data_parallel in (False, True):
         cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
                              batch_size=TRAIN_B, unfrozen_backbone_layers=1, precision="bf16",
@@ -3124,14 +2476,13 @@ def _parallel_train(dev, world) -> dict:
         finally:
             torch.use_deterministic_algorithms(False)
         if data_parallel:
-            launches = _launches()
+            launches, dp_state = _launches(), state
         grads[data_parallel] = ({n: p.grad.detach().float().clone()
                                  for n, p in state.opt.params.items()}, float(loss["loss"]))
-        states[data_parallel] = state
     equal, rel, differ = _grad_diff(grads[False][0], grads[True][0])
     losses = (grads[True][1], grads[False][1])
     flat = torch.cat([p.detach().float().reshape(-1)[:4096]
-                      for p in states[True].opt.params.values()])
+                      for p in dp_state.opt.params.values()])
     same = bool((gather_rows(group, flat[None]) == flat).all())
     log(f"[13e] one data-parallel 7b step (b{TRAIN_B} over {world} rank(s)) vs the plain step, "
         f"under deterministic algorithms: launches {launches}; {equal} of {len(grads[False][0])} "
@@ -3143,85 +2494,56 @@ def _parallel_train(dev, world) -> dict:
     if (world == 1 and rel > GRAD_REL_TOL) or not same or \
             not math.isclose(losses[0], losses[1], rel_tol=1e-3):
         raise AssertionError(f"13e: max rel diff {rel}, losses {losses}, same {same}")
-    if world > 1:
-        gen = torch.Generator(device=dev).manual_seed(22)
-        xl, yl = local_rows(group, x), local_rows(group, y)
-        ms = _slowest_ms(lambda: SS.train_step(states[True], xl, yl, gen))
-        one = cuda_ms(lambda: SS.train_step(states[False], x, y, gen), iters=1, warmup=1).ms
-        log(f"[13e] data-parallel 7b step at world {world} (b{TRAIN_B // world} a rank): "
-            f"{ms:.3f} ms (slowest rank, median of 5 calls) vs the plain b{TRAIN_B} step "
-            f"{one:.3f} ms")
-    return launches
 
 
-def make_loop_voc(root: Path, n: int = LOOP_IMAGES) -> None:
-    """A VOC-layout tree of `n` 500x375 JPEGs (VOC's common size; the first
-    and every other one portrait) with full-size pseudolabels of blobs, for
-    `train()`'s producers to decode and augment."""
-    from PIL import Image
-    rng = np.random.default_rng(9)
-    for d in ("JPEGImages", "pseudo"):
-        (root / d).mkdir(parents=True, exist_ok=True)
-    for i in range(n):
-        h, w = (500, 375) if i % 2 == 0 else (375, 500)
-        img = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
-        seg = np.zeros((h, w), np.uint8)
-        y0, x0 = int(rng.integers(0, h - 150)), int(rng.integers(0, w - 150))
-        seg[y0:y0 + 150, x0:x0 + 150] = int(rng.integers(1, CLASSES))
-        Image.fromarray(img).save(root / "JPEGImages" / f"{i:05d}.jpg", quality=90)
-        Image.fromarray(seg).save(root / "pseudo" / f"{i:05d}.png")
-
-
-def loop_rate(dev, root: Path, mesh=None) -> float:
-    """`train()`'s steps per second at the 7b configuration (b144 global, 4
-    producer threads a process) over `make_loop_voc`'s tree: two runs, of
-    LOOP_WARM and LOOP_WARM + LOOP_STEPS steps, each timed on the host
-    clock from its call to its return; the rate is LOOP_STEPS over the
-    difference. With `mesh`, data-parallel over its ranks (each decoding
-    its rows of every batch); it passes `mesh` only when given one, so it
-    also runs a `train()` that predates the argument."""
-    import contextlib
+def _parallel_loop(dev, world: int, root: Path) -> None:
+    """(f) at world > 1: `train()` data-parallel over a data mesh of `world`
+    for LOOP_STEPS steps of the 7b configuration, each rank's producer
+    threads decoding its rows of every batch from `make_voc`'s JPEG tree in
+    `root`: every step's loss finite (rank 0 prints them), the state at
+    step LOOP_STEPS with finite parameters, every rank's parameters the
+    same bits, and kernels 3-5 once a step on every rank."""
     import torch
     import torch.distributed as dist
+    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, gather_rows, make_mesh
     from deep_spectral_tpu_torch.tasks import semantic_segmentation as SS
     cfg = SS.TrainConfig(backbone="dino_vits16", num_classes=CLASSES, lr=5e-3,
                          batch_size=TRAIN_B, unfrozen_backbone_layers=1, precision="bf16",
                          seed=0)
     ds = SS.VOCSegmentationWithPseudolabels(str(root), "train", str(root / "pseudo"))
-    walls = []
-    for steps in (LOOP_WARM, LOOP_WARM + LOOP_STEPS):
-        if mesh is not None:
-            dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            SS.train(cfg, ds, log_every=0, max_steps=steps, device=dev,
-                     **({} if mesh is None else {"mesh": mesh}))
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    rate = LOOP_STEPS / (walls[1] - walls[0])
-    world = 1 if mesh is None else dist.get_world_size()
-    log(f"[13f] train() 7b (b{TRAIN_B}, {cfg.num_workers} producer threads a process, "
-        f"{len(ds)} 500x375 JPEGs) at world {world}: {walls[0]:.3f} s for "
-        f"{LOOP_WARM} steps, {walls[1]:.3f} s for {LOOP_WARM + LOOP_STEPS}: {rate:.3f} steps/s "
-        f"(host clock)")
-    return rate
+    mesh = make_mesh(axes=[(DATA_AXIS, world)])
+    _zero_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        state, _ = SS.train(cfg, ds, log_every=1, max_steps=LOOP_STEPS, device=dev, mesh=mesh)
+    launches = _launches()
+    losses = [float(v) for v in re.findall(r"^step \d+: loss=(\S+) ", printed.getvalue(), re.M)]
+    flat = torch.cat([p.detach().float().reshape(-1)[:4096] for p in state.opt.params.values()])
+    same = bool((gather_rows(mesh.get_group(DATA_AXIS), flat[None]) == flat).all())
+    log(f"[13f] train() 7b (b{TRAIN_B}, {cfg.num_workers} producer threads a rank, {len(ds)} "
+        f"JPEGs) data-parallel at world {world}: {int(state.step)} steps, losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; launches {launches}; every rank's "
+        f"parameters the same bits: {same}")
+    _want_launches("13f", launches, {n: LOOP_STEPS for n in (
+        "flash_attention_lse", "flash_bwd_dkv", "flash_bwd_dq")})
+    if int(state.step) != LOOP_STEPS or not same or not bool(torch.isfinite(flat).all()) or \
+            (dist.get_rank() == 0 and (len(losses) != LOOP_STEPS or not all(np.isfinite(losses)))):
+        raise AssertionError(f"13f: step {int(state.step)}, losses {losses}, same {same}")
 
 
 def phase_parallel(dev, world: int = 1, rank: int = 0, port: int = 0,
-                   tmp: Path | None = None) -> dict:
+                   root: Path | None = None) -> None:
     """Phase 13: the parallel paths on the card in one NCCL group of
     `world` ranks, this process being `rank` (world 1 with no arguments:
-    NCCL takes one rank per card). At world > 1 also `train()`'s rate over
-    the VOC tree in `tmp`."""
+    NCCL takes one rank per card). At world > 1 also `train()`'s loop over
+    the VOC tree in `root`."""
     import socket
     import torch
     import torch.distributed as dist
     from deep_spectral_tpu_torch.models.convert import random_init_
     from deep_spectral_tpu_torch.models.vit import VisionTransformer, get_model_config
     from deep_spectral_tpu_torch.parallel import distributed as pdist
-    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh
-    t0 = time.perf_counter()
+    from deep_spectral_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
     if not port:
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -3243,49 +2565,33 @@ def phase_parallel(dev, world: int = 1, rank: int = 0, port: int = 0,
         mesh = make_mesh(axes=[(MODEL_AXIS, world)])
         x = torch.from_numpy(np.random.default_rng(30).standard_normal(
             (1, SP_IMG, SP_IMG, 3)).astype(np.float32)).to(dev)
-        out, timings, qkv0 = _parallel_sp(dev, mesh, x, world)
+        qkv0 = _parallel_sp(dev, mesh, x, world)
         if world == 1:
-            out["ring_hops"], hop_timing = _parallel_hops(dev, qkv0)
-            timings.append(hop_timing)
+            _parallel_hops(dev, qkv0)
         else:
-            out["ring_hops"] = _parallel_ring(dev, mesh, world)
+            _parallel_ring(dev, mesh, world)
         cfg16 = get_model_config("dino_vits16")
         sd16 = random_init_(VisionTransformer(cfg16), seed=0).state_dict()
-        out["pp"] = _parallel_pp(dev, mesh, sd16, cfg16, world)
-        out.update(_parallel_sharded(dev, world, sd16, cfg16))
-        out["dp_train"] = _parallel_train(dev, world)
+        _parallel_pp(dev, mesh, sd16, cfg16, world)
+        _parallel_sharded(dev, world, sd16, cfg16)
+        _parallel_train(dev, world)
         if world > 1:
-            loop_rate(dev, tmp, make_mesh(axes=[(DATA_AXIS, world)]))
+            _parallel_loop(dev, world, root)
     finally:
         dist.destroy_process_group()
-    log(f"[13] phase 13 at world {world}: {time.perf_counter() - t0:.1f} s (host clock)")
-    return {"launches": out, "ring_hops": timings}
 
 
-def _parallel_rank(rank: int, world: int, port: int, tmp: str, what: str) -> None:
-    """One rank of `chip_smoke.py 13 --world N` or `loop --world N` (rank 0
-    alone prints)."""
+def _parallel_rank(rank: int, world: int, port: int, root: str) -> None:
+    """One rank of `chip_smoke.py 13 --world N` (rank 0 alone prints)."""
     import torch
-    import torch.distributed as dist
-    from deep_spectral_tpu_torch.parallel import distributed as pdist
-    from deep_spectral_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
     if rank:
         sys.stdout = open(os.devnull, "w")
-    dev = torch.device("cuda", rank)
-    if what == "13":
-        phase_parallel(dev, world, rank, port, Path(tmp))
-        return
-    pdist.initialize(f"tcp://localhost:{port}", world, rank)
-    try:
-        loop_rate(dev, Path(tmp), make_mesh(axes=[(DATA_AXIS, world)]))
-    finally:
-        dist.destroy_process_group()
+    phase_parallel(torch.device("cuda", rank), world, rank, port, Path(root))
 
 
-def run_parallel(world: int, what: str) -> None:
-    """Phase 13 ('13') or `loop_rate` ('loop') at world N, one process a
-    card: the kernels built here first, the loop's VOC tree made here for
-    every rank."""
+def run_parallel(world: int) -> None:
+    """Phase 13 at world N, one process a card: the kernels built here
+    first, 13f's VOC tree made here for every rank."""
     import socket
     import torch
     import torch.multiprocessing as mp
@@ -3295,15 +2601,14 @@ def run_parallel(world: int, what: str) -> None:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as tmp:
-        make_loop_voc(Path(tmp))
-        mp.spawn(_parallel_rank, args=(world, port, tmp, what), nprocs=world, join=True)
+        make_voc(Path(tmp))
+        mp.spawn(_parallel_rank, args=(world, port, tmp), nprocs=world, join=True)
 
 
 def main(argv: list) -> int:
-    """Every phase, then the kernels line, the card line and the result line.
-    With arguments, the build and then only what they name, and no result
-    line: phase 12 and phase 13 ('12', '13'), and 'loop' (`loop_rate`);
-    with '--world N', phase 13 or the loop at world N, one process a card."""
+    """Every phase, then the result line. With arguments, the build and then
+    only what they name, and no result line: phase 12 and phase 13 ('12',
+    '13'); with '--world N', phase 13 at world N, one process a card."""
     import torch
     only, world = list(argv), 1
     if "--world" in only:
@@ -3329,36 +2634,29 @@ def main(argv: list) -> int:
                 phase_12(Path(tmp), dev)
         if "13" in only:
             if world > 1:
-                run_parallel(world, "13")
+                run_parallel(world)
             else:
                 phase_parallel(dev)
-        if "loop" in only:
-            if world > 1:
-                run_parallel(world, "loop")
-            else:
-                with tempfile.TemporaryDirectory() as tmp:
-                    make_loop_voc(Path(tmp))
-                    loop_rate(dev, Path(tmp))
         log(f"partial run (phases 1 and {only}, world {world}): no result line")
         return 0
-    flash = phase_flash(dev)
-    cheb = phase_cheb(dev)
-    launches, eigh = phase_main_path(dev)
+    flash_err = phase_flash(dev)
+    cheb_err = phase_cheb(dev)
+    launches, eigh_err = phase_main_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(Path(tmp), "cuda")
-    train_kernels = phase_train_kernels(dev)
+    train_errs = phase_train_kernels(dev)
     train_launches = phase_train(dev)
-    train_fp32 = phase_train_fp32(dev)
+    fp32_launches = phase_train_fp32(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_cli(Path(tmp))
     phase_stage2_routes(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        loc = phase_localization(Path(tmp))
+        phase_localization(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        seg_launches = phase_segments(Path(tmp))
+        phase_segments(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        p12 = phase_12(Path(tmp), dev)
-    p13 = phase_parallel(dev)
+        phase_12(Path(tmp), dev)
+    phase_parallel(dev)
     sub = subprocess.run([sys.executable, str(Path(__file__).resolve()), "3c"],
                          capture_output=True, text=True)
     log(sub.stdout.strip().splitlines()[-2] if sub.stdout.strip() else "[3c] no output")
@@ -3369,63 +2667,18 @@ def main(argv: list) -> int:
     if jax_modules:
         raise AssertionError(f"the port imported JAX or the JAX package: {jax_modules[:5]}")
     log("[13] no module of jax or of the JAX package was imported")
-    par = p13["launches"]
-    kernels = [
-        {"name": "flash_attention_packed", "route": "cuda",
-         "source": "deep_spectral_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "deep_spectral_tpu/models/flash_attention.py:193",
-         "launches": launches["flash"],
-         "launches_by_path": {"main": launches["flash"],
-                              "stage6": seg_launches["flash_attention_packed"],
-                              "run_all": p12["run_all"]["flash_attention_packed"],
-                              "generate": p12["generate"]["flash_attention_packed"],
-                              **{path: par[path]["flash_attention_packed"]
-                                 for path in ("pp", "tp", "dp")}},
-         **flash},
-        {"name": "chebyshev_filter", "route": "cuda",
-         "source": "deep_spectral_tpu_torch/csrc/cheb_filter_sm90.cu",
-         "replaces": "deep_spectral_tpu/ops/cheb_filter.py:74",
-         "launches": launches["cheb"],
-         "launches_by_path": {"main": launches["cheb"],
-                              "run_all": p12["run_all"]["chebyshev_filter"],
-                              "dp": par["dp"]["chebyshev_filter"]},
-         **cheb},
-        {"name": "small_eigh", "route": "cuda",
-         "source": "deep_spectral_tpu_torch/csrc/small_eigh.cu",
-         "replaces": None,
-         "launches": launches["eigh"],
-         "launches_by_path": {"main": launches["eigh"],
-                              "run_all": p12["run_all"]["small_eigh"],
-                              "dp": par["dp"]["small_eigh"]},
-         **eigh},
-    ] + [{"name": name, "route": "cuda", "source": f"deep_spectral_tpu_torch/csrc/{source}",
-          "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
-          "launches": train_launches[name],
-          "launches_by_path": {"train": train_launches[name], "remat": p12["remat"][name],
-                               **{path: par[path][name] for path in
-                                  (("sp", "ring_hops", "dp_train")
-                                   if name == "flash_attention_lse" else ("dp_train",))}},
-          **train_kernels[name],
-          **({"ring_hop_shapes": p13["ring_hops"]} if name == "flash_attention_lse" else {})}
-         for name, source, line in (("flash_attention_lse", "flash_fwd.cu", 64),
-                                    ("flash_bwd_dkv", "flash_bwd_dkv.cu", 112),
-                                    ("flash_bwd_dq", "flash_bwd_dq.cu", 156))
-    ] + [{"name": f"{name}_f32", "route": "cuda",
-          "source": f"deep_spectral_tpu_torch/csrc/{source}",
-          "replaces": f"deep_spectral_tpu/models/flash_attention.py:{line}",
-          "launches": train_fp32["launches"][name],
-          "launches_by_path": {"train_fp32": train_fp32["launches"][name], **(
-              {"lost": loc["lost"][name], "dino_seg": loc["dino_seg"][name],
-               "sp_f32": par["sp_f32_builds"][name]} if name == "flash_attention_lse" else {})},
-          **train_kernels[f"{name}_f32"]}
-         for name, source, line in (("flash_attention_lse", "flash_fwd_f32.cu", 64),
-                                    ("flash_bwd_dkv", "flash_bwd_dkv_f32.cu", 112),
-                                    ("flash_bwd_dq", "flash_bwd_dq_f32.cu", 156))]
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
+    kernels = {
+        "flash_attention_packed": {"launches": launches["flash"], "max_abs_err": flash_err},
+        "chebyshev_filter": {"launches": launches["cheb"], "max_abs_err": cheb_err},
+        "small_eigh": {"launches": launches["eigh"], "max_eps_norm": eigh_err},
+        **{name: {"launches": train_launches[name], "max_abs_err": train_errs[name]}
+           for name in ("flash_attention_lse", "flash_bwd_dkv", "flash_bwd_dq")},
+        **{f"{name}_f32": {"launches": fp32_launches[name],
+                           "max_abs_err": train_errs[f"{name}_f32"]}
+           for name in ("flash_attention_lse", "flash_bwd_dkv", "flash_bwd_dq")}}
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}, "kernels": kernels}))
     return 0
 
 

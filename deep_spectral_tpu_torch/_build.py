@@ -26,7 +26,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -46,38 +45,27 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # q, k, v, kv_mask, out, lse (null: no lse); B, T, H; 9 strides; scale; stream
     "dss_flash_fwd_packed": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_F, _P],
-    "dss_flash_fwd_packed_shape": [_I, _I, _I, _IP],
     # S, ld, bs, X, ce, out, T staging in global memory; B, N, m, degree,
     # cluster, rows, smem; stream
     "dss_cheb_filter_resident": [_P, _LL, _LL] + [_P] * 4 + [_I] * 7 + [_P],
     # S, ld, bs, X, ce, out, work, flags; B, N, m, degree, ctas,
     # key_window, smem; stream
     "dss_cheb_filter_stream": [_P, _LL, _LL] + [_P] * 5 + [_I] * 7 + [_P],
-    # build, B, N, m, cluster or ctas, rows or key_window; out (6 ints)
-    "dss_cheb_filter_sm90_info": [_I] * 6 + [_IP],
     # cluster, shared bytes a CTA; out: clusters the card holds at once
     "dss_cheb_clusters_at_once": [_I, _I, _IP],
-    # the mma.sync build, the yardstick: S, X, ce, out, work, colmax; B, N,
-    # m, degree; stream
+    # N, m, rows, cluster, key_window; out: the resident and streaming
+    # layouts' shared bytes a CTA
+    "dss_cheb_layout_bytes": [_I] * 5 + [_IP],
+    # the mma.sync build: S, X, ce, out, work, colmax; B, N, m, degree; stream
     "dss_cheb_filter_mma": [_P] * 6 + [_I] * 4 + [_P],
-    "dss_cheb_filter_mma_shape": [_I, _I, _I, _IP],
-    # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream (the _fma
-    # builds: the CUDA-core yardsticks of the split-TF32 kernels)
+    # q, k, v, kv_mask, o, lse; B, T, H; strides; scale; stream
     "dss_flash_fwd_lse_f32": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_fwd_lse_f32_fma": [_P] * 6 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_fwd_lse_f32_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dk, dv; B, T, H; strides; scale; stream
     "dss_flash_bwd_dkv_f32": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dkv_f32_fma": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dkv_f32_shape": [_I, _I, _I, _IP],
     "dss_flash_bwd_dkv_bf16": [_P] * 9 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dkv_bf16_shape": [_I, _I, _I, _IP],
     # q, k, v, kv_mask, do, lse, di, dq; B, T, H; strides; scale; stream
     "dss_flash_bwd_dq_f32": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dq_f32_fma": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dq_f32_shape": [_I, _I, _I, _IP],
     "dss_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
-    "dss_flash_bwd_dq_bf16_shape": [_I, _I, _I, _IP],
     # M, w, V, bad; B, m; stream
     "dss_small_eigh": [_P] * 4 + [_I] * 2 + [_P],
 }
@@ -114,13 +102,12 @@ def library_path() -> Path:
 def build(force: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed library unless it already exists:
     one nvcc per source, all running at once, then one link. A compile
-    records its nvcc log and wall time in `last_build`."""
+    records its nvcc log in `last_build`."""
     out = library_path()
     if out.is_file() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [Path(work) / f"{src.stem}.o" for src in _sources()]
         procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -141,8 +128,7 @@ def build(force: bool = False) -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
-    last_build.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log="\n".join(logs).strip())
+    last_build.update(path=str(out), log="\n".join(logs).strip())
     return out
 
 

@@ -1,9 +1,9 @@
 // Chebyshev filter chain, the mma.sync build: T_degree(((I - S) - c) / e) X,
 // batched over images, one launch per step.
 //
-// The yardstick of csrc/cheb_filter_sm90.cu, which replaced it on every path
-// (`dss_cheb_filter_mma`, reached through ops/cheb_filter.chebyshev_filter_mma,
-// is timed beside the new kernel and runs on no path). It ported
+// Replaced on every path by csrc/cheb_filter_sm90.cu, but faster than that
+// kernel's streaming build at b4 N=1288-2048 (PERF.md); reached through
+// ops/cheb_filter.chebyshev_filter_mma and held to the twin. It ported
 // deep_spectral_tpu/ops/cheb_filter.py::_cheb_kernel. Same arithmetic as the
 // Pallas form:
 //   a_shift(t) = ((1 - c) t - S bf16(t)) * (1 / e)     (f32 accumulation)
@@ -319,16 +319,6 @@ cudaError_t launch_steps(const __nv_bfloat16* S, const float* X, const float* ce
 }
 
 }  // namespace
-
-// Launch geometry of one step: grid (x, y, z), threads per CTA, static shared bytes.
-extern "C" int dss_cheb_filter_mma_shape(int B, int N, int m, int* shape5) {
-  shape5[0] = (N + ROWS - 1) / ROWS;
-  shape5[1] = (m + MC - 1) / MC;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = (int)(sizeof(__nv_bfloat16) * MC * PITCH + sizeof(float) * (RB * 32 * 4 + MC));
-  return 0;
-}
 
 // work: 3 * B * N * m floats; colmax: (degree + 1) * B * m words, zeroed here.
 extern "C" int dss_cheb_filter_mma(const void* S, const void* X, const void* ce, void* out,

@@ -79,7 +79,7 @@
 // read from shared memory) was measured and was slower: at n=8 each wgmma
 // moves 2 KB of the slab for 16 KFLOP, and ldmatrix + mma.sync kept the
 // products shorter. What a resident
-// step costs on the H100 (`probe_cheb ablate`: clock64 phases, in PERF.md):
+// step costs on the H100 (clock64 phases of an ablation build, CHANGES.md):
 // the products, then the cluster's exchange and the bookkeeping around it.
 //
 // S is read through a TMA map, which needs a row stride of a multiple of 16
@@ -99,14 +99,13 @@
 
 namespace cg = cooperative_groups;
 
-// DSS_CHEB_ABLATE, set only by `probe_cheb` in builds of its own. Bits 1 and
-// 2 (`ablate`; wrong results, times only): the resident build without its
+// DSS_CHEB_ABLATE, set only in control builds of this file alone (README).
+// Bits 1 and 2 (wrong results, times only): the resident build without its
 // products (1) or without the exchange with the peers (2: each CTA keeps its
-// maxima and rows to itself, behind a CTA barrier). Bit 4 (`ablate`,
-// `crossover`; a correct build): CTA 0 of the first cluster records
-// clock64() at the step's phase boundaries (`dss_cheb_timeline`). Bit 8
-// (`flip`; a correct build, the sums in another order): the streaming build
-// traverses every step forward.
+// maxima and rows to itself, behind a CTA barrier). Bit 4 (a correct
+// build): CTA 0 of the first cluster records clock64() at the step's phase
+// boundaries (`dss_cheb_timeline`). Bit 8 (a correct build, the sums in
+// another order): the streaming build traverses every step forward.
 #ifndef DSS_CHEB_ABLATE
 #define DSS_CHEB_ABLATE 0
 #endif
@@ -1042,45 +1041,6 @@ bool resident_plan_ok(int N, int m, int cluster, int rows, int smem) {
 
 }  // namespace
 
-// Clusters (resident) or CTAs (streaming) the card holds at once for a plan:
-// info6 = {grid x, grid y, threads, shared bytes the layout needs, at once,
-// waves}. build 0: resident (cluster, rows), 1: streaming (ctas, key_window).
-extern "C" int dss_cheb_filter_sm90_info(int build, int B, int N, int m, int a0, int a1,
-                                         int* info6) {
-  if (build == 0) {
-    const int smem = (int)res_layout(N, m, a1, a0).total;
-    if (a0 < 1 || a0 > 16) return DSS_ERR_PLAN;
-    cudaError_t err = resident_attributes(smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int clusters = 0;
-    err = active_clusters(a0, smem, &clusters);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    info6[0] = a0;
-    info6[1] = B;
-    info6[2] = THREADS;
-    info6[3] = smem;
-    info6[4] = clusters;
-    info6[5] = clusters > 0 ? (B + clusters - 1) / clusters : 0;
-    return 0;
-  }
-  const int smem = (int)stream_layout(a1).total;
-  cudaError_t err = stream_attributes(smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cheb_stream_kernel,
-                                                      STREAM_THREADS, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  info6[0] = a0;
-  info6[1] = 1;
-  info6[2] = STREAM_THREADS;
-  info6[3] = smem;
-  info6[4] = per_sm * sms;
-  info6[5] = per_sm * sms > 0 ? (a0 + per_sm * sms - 1) / (per_sm * sms) : 0;
-  return 0;
-}
-
 // Clusters of `cluster` CTAs with `smem` shared bytes each that the card
 // holds at once (the plan's input, ops/cheb_filter.card_clusters_at_once).
 extern "C" int dss_cheb_clusters_at_once(int cluster, int smem, int* clusters) {
@@ -1090,8 +1050,18 @@ extern "C" int dss_cheb_clusters_at_once(int cluster, int smem, int* clusters) {
   return static_cast<int>(active_clusters(cluster, smem, clusters));
 }
 
+// Shared bytes a CTA of each build's layout takes, for the check that the
+// plan's model (ops/cheb_filter.resident_smem, stream_smem) matches them:
+// totals2 = {resident (N, m, rows, cluster), streaming (key_window)}.
+extern "C" int dss_cheb_layout_bytes(int N, int m, int rows, int cluster, int key_window,
+                                     int* totals2) {
+  totals2[0] = (int)res_layout(N, m, rows, cluster).total;
+  totals2[1] = (int)stream_layout(key_window).total;
+  return 0;
+}
+
 #if DSS_CHEB_ABLATE & 4
-// The timeline of the last launch (probe builds only): 2 + 32 * 6 clock64()
+// The timeline of the last launch (bit-4 builds only): 2 + 32 * 6 clock64()
 // readings of CTA 0 of the first cluster.
 extern "C" int dss_cheb_timeline(long long* host) {
   return static_cast<int>(cudaMemcpyFromSymbol(host, dss_timeline, sizeof(dss_timeline)));

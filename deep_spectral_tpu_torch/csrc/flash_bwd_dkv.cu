@@ -2,8 +2,8 @@
 // (B, T, H, hd) layout, on wgmma with keys on the M side.
 //
 // Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_bwd_dkv_kernel
-// (launched by _flash_backward) for bf16. (The f32 build stays on CUDA cores,
-// flash_attn_train.cu.) Same math, per (batch, head) and key tile, summed
+// (launched by _flash_backward) for bf16. (The f32 build is
+// flash_bwd_dkv_f32.cu.) Same math, per (batch, head) and key tile, summed
 // over q tiles, with s = q k^T * scale and the saved lse and di = rowsum(o do):
 //   p  = select(key valid, exp(s - lse), 0)   (a select: exp(s - lse) may be
 //                                               inf on masked keys)
@@ -14,7 +14,7 @@
 // bits of each into the f32 accumulator. A single bf16 rounding of p and ds
 // would be a different kernel (tests/test_torch_flash.py prints its error).
 // Defining DSS_DKV_SINGLE_ROUNDING builds that kernel (the lo products left
-// out) as the control of `python -m deep_spectral_tpu_torch.probe_dkv`; the
+// out), the control behind chip_smoke.py's DKV_SHARE_MAX (README); the
 // port's build never defines it.
 // Keys past T and masked keys write dk = dv = 0, so a batch row with no
 // valid key comes out exactly 0.
@@ -271,12 +271,3 @@ extern "C" int dss_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_bwd_dkv_bf16_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = (T + BKV - 1) / BKV;
-  shape5[1] = H;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}

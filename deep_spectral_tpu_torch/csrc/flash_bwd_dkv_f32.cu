@@ -3,9 +3,8 @@
 // keys on the M side.
 //
 // Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_bwd_dkv_kernel
-// (launched by _flash_backward) for f32. (The bf16 build is flash_bwd_dkv.cu;
-// the CUDA-core build this one replaced stays in flash_attn_train.cu as a
-// yardstick.) Same math, per (batch, head) and key tile, summed over q tiles,
+// (launched by _flash_backward) for f32. (The bf16 build is
+// flash_bwd_dkv.cu.) Same math, per (batch, head) and key tile, summed over q tiles,
 // with s = q k^T * scale and the saved lse and di = rowsum(o do):
 //   p  = select(key valid && q < T, exp(s - lse), 0)   (a select: exp(s - lse)
 //                                                       may be inf on masked keys)
@@ -14,8 +13,7 @@
 // f32-accurate: three TF32 products of hi/lo splits (tf32.cuh: hi and lo
 // rounded to nearest, ties away from zero). Keys past T and masked keys write
 // dk = dv = 0, so a batch row with no valid key comes out exactly 0.
-// Defining DSS_F32_SINGLE_TF32 builds the single-pass control (`python -m
-// deep_spectral_tpu_torch.probe_f32 control`).
+// Defining DSS_F32_SINGLE_TF32 builds the single-pass control (tf32.cuh).
 //
 // What bounds it on this card: at the fp32 recipe's shape (B=144, T=197,
 // H=6, hd=64) the four T x T x 64 products are 17.2 GFLOP over the valid
@@ -298,12 +296,3 @@ extern "C" int dss_flash_bwd_dkv_f32(const void* q, const void* k, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_bwd_dkv_f32_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = (T + BKV - 1) / BKV;
-  shape5[1] = H;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}

@@ -2,8 +2,8 @@
 // layout, on wgmma with q rows on the M side.
 //
 // Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_bwd_dq_kernel
-// (launched by _flash_backward) for bf16. (The f32 build stays on CUDA cores,
-// flash_attn_train.cu.) Same math, per (batch, head) and q tile, summed over
+// (launched by _flash_backward) for bf16. (The f32 build is
+// flash_bwd_dq_f32.cu.) Same math, per (batch, head) and q tile, summed over
 // key tiles, with s = q k^T * scale and the saved lse and di = rowsum(o do):
 //   p  = select(key valid, exp(s - lse), 0)   (a select: exp(s - lse) may be
 //                                               inf on masked keys)
@@ -14,8 +14,8 @@
 // bits of ds into the f32 accumulator; K is exact in bf16. A single bf16
 // rounding of ds would be a different kernel (tests/test_torch_flash.py prints
 // its error). Defining DSS_DQ_SINGLE_ROUNDING builds that kernel (the lo
-// products left out) as the control of `python -m
-// deep_spectral_tpu_torch.probe_dkv`; the port's build never defines it.
+// products left out), the control behind chip_smoke.py's DQ_SHARE_MAX
+// (README); the port's build never defines it.
 // The mask is on keys only: masked query rows still get their dq, and a batch
 // row with no valid key comes out exactly 0 (every p is selected to 0).
 //
@@ -252,12 +252,3 @@ extern "C" int dss_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_bwd_dq_bf16_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = (T + BQ - 1) / BQ;
-  shape5[1] = H;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}

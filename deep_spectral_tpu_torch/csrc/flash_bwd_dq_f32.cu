@@ -3,9 +3,8 @@
 // the M side.
 //
 // Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_bwd_dq_kernel
-// (launched by _flash_backward) for f32. (The bf16 build is flash_bwd_dq.cu;
-// the CUDA-core build this one replaced stays in flash_attn_train.cu as a
-// yardstick.) Same math, per (batch, head) and q tile, summed over key
+// (launched by _flash_backward) for f32. (The bf16 build is
+// flash_bwd_dq.cu.) Same math, per (batch, head) and q tile, summed over key
 // tiles, with s = q k^T * scale and the saved lse and di = rowsum(o do):
 //   p  = select(key valid, exp(s - lse), 0)   (a select: keys past T come in
 //                                               zero-filled, and an
@@ -18,7 +17,7 @@
 // rounded to nearest, ties away from zero). The mask is on keys only: masked
 // query rows still get their dq, and a batch row with no valid key comes
 // out exactly 0. Defining DSS_F32_SINGLE_TF32 builds the single-pass control
-// (`python -m deep_spectral_tpu_torch.probe_f32 control`).
+// (tf32.cuh).
 //
 // What bounds it on this card: at the fp32 recipe's shape (B=144, T=197,
 // H=6, hd=64) the three T x T x 64 products are 12.9 GFLOP over the valid
@@ -305,12 +304,3 @@ extern "C" int dss_flash_bwd_dq_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_bwd_dq_f32_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = (T + BQ - 1) / BQ;
-  shape5[1] = H;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}

@@ -11,7 +11,7 @@
 //     epilogue writes (m + log2(max(l, 1e-30))) ln 2. A row with no valid key
 //     keeps m = MASK_VALUE (log2 units): its lse need not equal the Pallas
 //     kernel's, since the backward selects p = 0 on masked keys either way.
-//     (The f32 build of _flash_kernel stays on CUDA cores, flash_attn_train.cu.)
+//     (The f32 build of _flash_kernel is flash_fwd_f32.cu.)
 // Same math in both: non-causal
 // softmax(q k^T / sqrt(hd)) v per (batch, head); keys whose kv_mask is false
 // score MASK_VALUE = -0.7 * FLT_MAX and get p = 0 by a select; online-softmax
@@ -303,16 +303,6 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 }  // namespace
-
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_fwd_packed_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = (T + BQ - 1) / BQ;
-  shape5[1] = H;
-  shape5[2] = B;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}
 
 // lse null: the inference forward (kernel 1); else also the (B, H, T) f32
 // row log-sum-exp (kernel 3's bf16 route).

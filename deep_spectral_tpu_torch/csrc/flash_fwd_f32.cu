@@ -4,8 +4,7 @@
 //
 // Replaces: deep_spectral_tpu/models/flash_attention.py::_flash_kernel
 // (launched by _flash_forward, save_residuals=True) for f32. (The bf16 build
-// is flash_fwd.cu's WRITE_LSE instantiation; the CUDA-core build this one
-// replaced stays in flash_attn_train.cu as a yardstick.) Same math: non-causal
+// is flash_fwd.cu's WRITE_LSE instantiation.) Same math: non-causal
 // softmax(q k^T / sqrt(hd)) v per (batch, head); keys whose kv_mask is false
 // score MASK_VALUE = -0.7 * FLT_MAX and get p = 0 by a select; the online
 // max m, sum l and o in f32, in natural units as the Pallas kernel keeps them;
@@ -15,7 +14,7 @@
 // TF32 products of hi/lo splits (tf32.cuh: hi and lo rounded to nearest,
 // ties away from zero), ~21 significant bits a product where one TF32 product
 // keeps ~11. Defining DSS_F32_SINGLE_TF32 builds the single-pass control
-// (`python -m deep_spectral_tpu_torch.probe_f32 control`).
+// (tf32.cuh).
 //
 // What bounds it on this card: f32-accurate work costs three TF32 products,
 // so its peak is 495 / 3 = 165 TFLOP/s. At the fp32 recipe's shape (B=144,
@@ -368,16 +367,6 @@ int grid_size(int B, int T, int H) {
 }
 
 }  // namespace
-
-// Launch geometry: grid (x, y, z), threads per CTA, dynamic shared bytes.
-extern "C" int dss_flash_fwd_lse_f32_shape(int B, int T, int H, int* shape5) {
-  shape5[0] = grid_size(B, T, H);
-  shape5[1] = 1;
-  shape5[2] = 1;
-  shape5[3] = THREADS;
-  shape5[4] = SMEM_BYTES;
-  return 0;
-}
 
 // `strides` is a host array of (batch, token, head) element strides, three
 // per tensor, in the order q, k, v, o; lse is a contiguous (B, H, T) f32.

@@ -18,9 +18,9 @@
 // below 2^-22 |a b|, so each product carries ~21 significant bits into the
 // f32 sum. Defining DSS_F32_SINGLE_TF32 sets every lo part to 0, so the lo
 // products run on zeros and add nothing: one TF32 product of the rounded
-// operands in the port's own instruction stream, the control build of
-// `python -m deep_spectral_tpu_torch.probe_f32 control`; the port never
-// defines it.
+// operands in the port's own instruction stream: a control build of
+// kernels 3-5 f32 (README), whose error against the twin must be the larger
+// by far; the port never defines it.
 #pragma once
 
 #include "hopper.cuh"

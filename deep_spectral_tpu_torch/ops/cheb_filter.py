@@ -91,9 +91,11 @@ def stream_smem(key_window: int) -> int:
 
 def _resident_cost(B: int, N: int, m: int, rows: int, cluster: int, at_once: tuple) -> float:
     """A chain's time in cycles a step, modelled on the H100's readings
-    (`probe_cheb ablate` timeline, b24 N=900: ~3,000 cycles of exchange and
-    bookkeeping a step, ~2,000 of products for a warp that multiplies two row
-    blocks by a quarter of the keys): waves x (fixed + exchange + products),
+    (an ablation build's clock64 timeline at b24 N=900, from the card runs
+    of the CHANGES.md entry that opens "redesigned kernel 2 (the Chebyshev
+    filter"): ~3,000 cycles of exchange and bookkeeping a step, ~2,000 of
+    products for a warp that multiplies two row blocks by a quarter of the
+    keys): waves x (fixed + exchange + products),
     the exchange and products growing with N and the column groups, the
     products with the row blocks a warp takes."""
     groups = -(-m // 8)

@@ -109,20 +109,20 @@ _WIDE_INIT_MAX_N = 1600
 # (`ops.cheb_filter.fits_vmem(N, m=8)`, the same for any block m <= 128).
 # The port's kernel itself takes any N, so a filter request is not resolved
 # by N (`resolved_cheb_impl`); only the 'auto' solver's regime reads this.
-# On an H100 80GB HBM3 at 700 W (chip_smoke.py phase 9c) the kernel's
-# Chebyshev solve of a b4 N=3600 color-fused graph took 9.53 ms against
-# LOBPCG's 36.28, so the crossover lies above 3600 there too; where is not
-# measured. The rule stays the JAX package's.
+# On an H100 80GB HBM3 at 700 W (the card run of the CHANGES.md entry that
+# opens "the port's eigensolver takes every option of the JAX solver") the
+# kernel's Chebyshev solve of a b4 N=3600 color-fused graph took 9.53 ms
+# against LOBPCG's 36.28, so the crossover lies above 3600 there too; where
+# is not measured. The rule stays the JAX package's.
 CHEB_MAX_N = 3856
 
 # Largest N the 'auto' solver sends to chebyshev when the filter is the XLA
 # chain (cheb_filter_impl='xla' or matvec_precision='f32'): the JAX
 # package's `_XLA_CHAIN_CHEB_MAX_N`, LOBPCG above. On an H100 80GB HBM3 at
-# 700 W (chip_smoke.py phases 4b and 9c) the chain's solve took 12.72 ms a
-# b24 N=900 batch against the kernel's 6.23 (8.94 with f32 matvecs), and at
-# b4 N=3600 the chain's Chebyshev 13.41 ms against LOBPCG's 36.28: on that
-# card the chain beats LOBPCG above 2048 too. The rule stays the JAX
-# package's.
+# 700 W (the same card run) the chain's solve took 12.72 ms a b24 N=900
+# batch against the kernel's 6.23 (8.94 with f32 matvecs), and at b4 N=3600
+# the chain's Chebyshev 13.41 ms against LOBPCG's 36.28: on that card the
+# chain beats LOBPCG above 2048 too. The rule stays the JAX package's.
 XLA_CHAIN_CHEB_MAX_N = 2048
 
 # Bytes of static buffers that the Chebyshev solver's Rayleigh-Ritz graphs

@@ -290,7 +290,11 @@ def test_entry_points_match_their_sources():
     show only on the card."""
     import re
     from deep_spectral_tpu_torch import _build
-    from deep_spectral_tpu_torch.probe_f32 import CONTROLS
+    # the split-TF32 entry points, each with its source and the define that
+    # builds its single-pass-TF32 control
+    CONTROLS = {"dss_flash_fwd_lse_f32": ("flash_fwd_f32.cu", "DSS_F32_SINGLE_TF32"),
+                "dss_flash_bwd_dkv_f32": ("flash_bwd_dkv_f32.cu", "DSS_F32_SINGLE_TF32"),
+                "dss_flash_bwd_dq_f32": ("flash_bwd_dq_f32.cu", "DSS_F32_SINGLE_TF32")}
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     for name, argtypes in _build._SIGNATURES.items():
         defs = [(src, m.group(1)) for src, text in sources.items() for m in
