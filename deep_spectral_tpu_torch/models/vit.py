@@ -418,6 +418,65 @@ def dinov2_pos_embed(pos_embed: torch.Tensor, grid: int, h: int, w: int,
     return torch.cat([tables[k] for k in keys])
 
 
+class _Compaction:
+    """Each image's own tokens of a bucket-padded batch, as one batch of
+    Tc tokens an image, Tc the largest of the images' 1 + R + h_i w_i.
+    Planned on the host from the grids ((B, 2) ints) of an (h, w)-patch
+    bucket and uploaded as one int64 array: a flat gather of each image's
+    prefix and grid tokens (a shorter image's tail repeats its CLS and is
+    masked as keys), and a flat scatter of its grid rows back to the
+    bucket's layout. A grid of zero patches keeps its prefix tokens."""
+
+    def __init__(self, grids: np.ndarray, h: int, w: int, prefix: int,
+                 device: torch.device):
+        g = np.asarray(grids, np.int64).reshape(-1, 2)
+        B, T = len(g), prefix + h * w
+        counts = prefix + g[:, 0] * g[:, 1]
+        self.B, self.T, self.Tc, self.N = B, T, int(counts.max()), h * w
+        gather = np.zeros((B, self.Tc), np.int64)
+        src, dst = [], []
+        for b, (gh, gw) in enumerate(g):
+            pos = (np.arange(gh)[:, None] * w + np.arange(gw)).ravel()
+            gather[b, :prefix] = np.arange(prefix)
+            gather[b, prefix:prefix + pos.size] = prefix + pos
+            gather[b] += b * T
+            src.append(b * self.Tc + prefix + np.arange(pos.size))
+            dst.append(b * self.N + pos)
+        host = torch.from_numpy(np.concatenate([counts, gather.ravel(), *src, *dst]))
+        idx = (host.pin_memory() if device.type == "cuda" else host).to(device,
+                                                                         non_blocking=True)
+        S = int(counts.sum()) - B * prefix
+        _, self.gather, self.src, self.dst = idx.split([B, B * self.Tc, S, S])
+        self.mask = (None if (counts == self.Tc).all() else
+                     torch.arange(self.Tc, device=device) < idx[:B, None])
+
+    @classmethod
+    def plan(cls, grids: np.ndarray, h: int, w: int, prefix: int,
+             device: torch.device) -> Optional["_Compaction"]:
+        """The compaction of a batch of `grids` in an (h, w)-patch bucket, or
+        None where every image fills the bucket."""
+        g = np.asarray(grids).reshape(-1, 2)
+        if int((g[:, 0] * g[:, 1]).max()) == h * w:
+            return None
+        return cls(g, h, w, prefix, device)
+
+    def tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, T, D) bucket tokens -> (B, Tc, D) compacted."""
+        if tokens.shape[:2] != (self.B, self.T):
+            raise ValueError(f"{self.B} grids of {self.T} tokens for tokens "
+                             f"{tuple(tokens.shape[:2])}")
+        return tokens.reshape(self.B * self.T, -1).index_select(0, self.gather).reshape(
+            self.B, self.Tc, -1)
+
+    def patches(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, Tc, ...) compacted rows -> the bucket's (B, h * w, D) patch
+        rows, zeros at padded positions."""
+        x = x.reshape(self.B * self.Tc, -1)
+        out = x.new_zeros((self.B * self.N, x.shape[1]))
+        out.index_copy_(0, self.dst, x.index_select(0, self.src))
+        return out.reshape(self.B, self.N, -1)
+
+
 @torch.no_grad()
 def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
                        which_block: int = -1, which_features: str = "k",
@@ -426,15 +485,36 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
     """Stage-1 features: head-merged `which_features` ('q', 'k' or 'v') of
     block `which_block`, CLS and registers dropped (reference:
     extract/extract.py:96-98, which has no registers). Runs only as far as
-    that block's qkv projection (a `vit.extract` span, which counts
-    `vit.tokens`, the B x T tokens run, and, given `grids` ((B, 2) host
-    ints, each image's patch grid; see `VisionTransformer.embed`),
-    `vit.tokens_valid`, the prefix and grid tokens of the images with any).
-    Returns (B, N, D) in the compute dtype."""
+    that block's qkv projection.
+
+    Given `grids` ((B, 2) host ints, each image's patch grid; see
+    `VisionTransformer.embed`), a DINOv2-family model runs its blocks on
+    each image's own tokens: after the embedding, the prefix and grid
+    tokens of every image are gathered into a batch of the largest count,
+    the shorter images' tails masked as keys, and the features are
+    scattered back with zeros at the padded positions. A DINOv2 token's
+    result does not depend on the padding (its positions are its own
+    grid's), so the padding's work is dropped, not changed. Without grids,
+    for DINO v1, or where every image fills the bucket, the blocks run on
+    the whole bucket under `token_mask`.
+
+    One `vit.extract` span, which counts `vit.tokens` (the B x T tokens
+    run: compacted, B x Tc), `vit.compacted` (1 for a batch whose blocks ran
+    compacted) and, given grids, `vit.tokens_valid` (the prefix and grid
+    tokens of the images with any). Returns (B, N, D) in the compute
+    dtype."""
     cfg, dtype = model.cfg, model.compute_dtype
     j = "qkv".index(which_features)
     with span("vit.extract"), model.precision():
         tokens, token_mask = model.embed(images, token_mask, grids=grids)
+        compact = None
+        if grids is not None and cfg.family == "dinov2":
+            P = cfg.patch_size
+            compact = _Compaction.plan(grids, images.shape[1] // P, images.shape[2] // P,
+                                       cfg.num_prefix, tokens.device)
+        if compact is not None:
+            tokens, token_mask = compact.tokens(tokens), compact.mask
+            count("vit.compacted")
         count("vit.tokens", tokens.shape[0] * tokens.shape[1])
         if grids is not None:
             count("vit.tokens_valid", sum(cfg.num_prefix + int(gh) * int(gw)
@@ -445,6 +525,8 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
             tokens = blk(tokens, token_mask, False, dtype)[0]
         blk = model.blocks[last]
         qkv = blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype)
+    if compact is not None:
+        return compact.patches(qkv[:, :, j])
     B, T = qkv.shape[:2]
     n = cfg.num_prefix
     return qkv[:, n:, j].reshape(B, T - n, -1)

@@ -27,11 +27,13 @@ The spans and counters the port opens and counts:
     (the host waiting for a fetch), `stage.callback` (the host's work on a
     fetched batch);
   * ViT (`models/vit.py`): `vit.extract` (`extract_patch_keys`), with its
-    counters `vit.tokens` (the batch's B x T tokens run, prefix and padding
-    included, from shapes) and `vit.tokens_valid` (each image's CLS,
-    registers and valid patches, from the grids the caller gives, counted
-    only where it gives them); `vit.swiglu` (a block's SwiGLU FFN: w12, the
-    gate and w3);
+    counters `vit.tokens` (the batch's B x T tokens run, prefix and any
+    padding that runs included, from shapes: B x Tc where the blocks run
+    compacted), `vit.compacted` (the batches whose blocks ran on each
+    image's own tokens, DINOv2 given grids) and `vit.tokens_valid` (each
+    image's CLS, registers and valid patches, from the grids the caller
+    gives, counted only where it gives them); `vit.swiglu` (a block's SwiGLU
+    FFN: w12, the gate and w3);
   * eigensolve (`ops/eigen.py`, `ops/lobpcg.py`): `eigs.decompose`,
     `eigs.affinity`, `eigs.cheb` and `eigs.lobpcg` (one iterative solve),
     `eigs.outer` (one Chebyshev outer iteration), `eigs.guard` (the residual

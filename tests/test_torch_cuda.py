@@ -207,6 +207,61 @@ def test_dinov2_vitg14_reg_through_kernel_1(cuda):
     assert checks.keys_gap(no_reg, ref) > 100 * gap32
 
 
+def test_dinov2_vitg14_reg_ragged_batch_runs_compacted(cuda):
+    """dinov2_vitg14_reg on a ragged bf16 batch: a 476x476 and a 420x392
+    image (grids 34x34 and 30x28) in one 40x40 bucket. The blocks run on
+    each image's own tokens (Tc = 5 + 1156; the second image's tail masked
+    as keys through kernel 1, one launch a block before the last); each
+    image's keys against the f32 reference on its unpadded image within the
+    benchmark cell's 5e-2 (as `test_dinov2_vitg14_reg_through_kernel_1`),
+    the padded positions exactly zero; the same modules in f32 (kernel 3's
+    split-TF32 build, masked) within 1e-4."""
+    import json
+
+    from benchmark import checks, weights
+    from benchmark.drivers.extract_dinov2 import build_vit, dinov2_shapes, port_config
+    from benchmark.reference import dinov2 as ref_dinov2
+    from benchmark.reference.lowp import tf32_enabled
+    from benchmark.reference.vit import Numerics
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    from deep_spectral_tpu_torch.utils import profiling
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                      / "dinov2_vitg14_reg.json").read_text())
+    sd = weights.seeded_weights(dinov2_shapes(cfg), 2**31 + 5, cuda)
+    model = build_vit(port_config(cfg), sd, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grids = np.array([[34, 34], [30, 28]])
+    images = [torch.randn((gh * 14, gw * 14, 3), generator=gen, device=cuda) for gh, gw in grids]
+    x = torch.zeros((2, 560, 560, 3), device=cuda)
+    mask = torch.zeros((2, 40, 40), dtype=torch.bool, device=cuda)
+    for i, ((gh, gw), im) in enumerate(zip(grids, images)):
+        x[i, :gh * 14, :gw * 14] = im
+        mask[i, :gh, :gw] = True
+    before, counts = flash_attention_packed.launches, profiling.totals()
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1), grids=grids)
+    assert flash_attention_packed.launches == before + 39
+    after = profiling.totals()
+    assert after["vit.compacted"] - counts.get("vit.compacted", 0) == 1
+    assert after["vit.tokens"] - counts.get("vit.tokens", 0) == 2 * (5 + 34 * 34)
+    k = k.float().reshape(2, 40, 40, -1)
+    assert torch.equal(k[~mask], torch.zeros_like(k[~mask]))
+    del model
+    with tf32_enabled(False):
+        ref = ref_dinov2.patch_keys(sd, cfg, images, Numerics(torch.float32))
+    gap = checks.keys_gap([k[i, :gh, :gw].reshape(gh * gw, -1)
+                           for i, (gh, gw) in enumerate(grids)], ref)
+    print(f"ragged dinov2_vitg14_reg keys_rel_err {gap:.4e}")
+    assert gap <= 5e-2
+    model = build_vit(port_config(cfg), sd, cuda, torch.float32)
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1), grids=grids)
+    k = k.reshape(2, 40, 40, -1)
+    del model
+    gap32 = checks.keys_gap([k[i, :gh, :gw].reshape(gh * gw, -1)
+                             for i, (gh, gw) in enumerate(grids)], ref)
+    print(f"ragged f32 keys_rel_err {gap32:.4e}")
+    assert gap32 <= 1e-4
+
+
 def _train_inputs(B, T, dtype, device, seed):
     """A fused (B, T, 3, 6, 64) qkv, a grad of o, and a mask with a ragged
     end, an all-masked batch row and a masked start."""

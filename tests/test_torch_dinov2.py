@@ -28,6 +28,7 @@ from benchmark.reference.vit import Numerics, normalize_uint8
 from deep_spectral_tpu_torch.models import convert as t_convert
 from deep_spectral_tpu_torch.models.vit import (VisionTransformer, extract_patch_keys,
                                                 get_model_config, swiglu_hidden)
+from deep_spectral_tpu_torch.utils import profiling
 
 REPO = Path(__file__).resolve().parents[1]
 NAME = "test_dinov2_tiny"
@@ -113,12 +114,23 @@ def test_bf16_close_to_the_reference():
     assert cos.min().item() >= 0.99
 
 
+def _counted(fn):
+    """fn's result and the counters it added."""
+    before = profiling.totals()
+    out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in profiling.totals().items()
+                 if v != before.get(k, 0)}
+
+
 def test_bucket_padded_batch_gives_each_image_its_own_keys():
     """Two images of other grids (4x6, 5x3) padded into one 5x6 bucket,
     with garbage in the padding: given the token mask and the grids, each
     image's keys are its unpadded reference's, so each took its own grid's
-    positional embeddings and the mask reached past the registers. Without
-    the grids (the bucket's grid resampled) they are not."""
+    positional embeddings and the mask reached past the registers. The
+    blocks ran compacted, on 5 + 24 tokens an image (the 5x3 image's tail
+    masked), and every padded position of the output is exactly zero.
+    Without the grids (the bucket's grid resampled) the keys are not the
+    reference's."""
     model = _model()
     a, b = _image(4, 6, seed=3), _image(5, 3, seed=4)
     x = 50.0 * torch.randn((2, 5 * P, 6 * P, 3), generator=torch.Generator().manual_seed(9))
@@ -126,17 +138,58 @@ def test_bucket_padded_batch_gives_each_image_its_own_keys():
     mask = torch.zeros((2, 5, 6), dtype=torch.bool)
     mask[0, :4, :6] = True
     mask[1, :5, :3] = True
-    mask = mask.reshape(2, -1)
     grids = np.array([[4, 6], [5, 3]])
-    got = extract_patch_keys(model, x, token_mask=mask, grids=grids).reshape(2, 5, 6, -1)
+    got, counts = _counted(lambda: extract_patch_keys(model, x, token_mask=mask.reshape(2, -1),
+                                                      grids=grids))
+    assert counts == {"vit.compacted": 1, "vit.tokens": 2 * (R + 1 + 24),
+                      "vit.tokens_valid": (R + 1 + 24) + (R + 1 + 15)}
+    got = got.reshape(2, 5, 6, -1)
+    assert torch.equal(got[~mask], torch.zeros_like(got[~mask]))
     refs = _reference([a, b])
     ka, kb = got[0, :4, :6].reshape(24, -1), got[1, :5, :3].reshape(15, -1)
     assert (ka - refs[0]).abs().max().item() <= 1e-4
     assert (kb - refs[1]).abs().max().item() <= 1e-4
+    mask = mask.reshape(2, -1)
     stretched = extract_patch_keys(model, x, token_mask=mask).reshape(2, 5, 6, -1)
     assert (stretched[1, :5, :3].reshape(15, -1) - refs[1]).abs().max().item() > 1e-2
     with pytest.raises(ValueError, match="do not fit"):
         extract_patch_keys(model, x, token_mask=mask, grids=np.array([[6, 6], [5, 3]]))
+
+
+def test_zero_patch_padding_row_gives_zeros():
+    """A short batch's padding row (grid 0x0, as `pad_batch_images` makes
+    it) beside a 3x4 image in a 4x4 bucket: the batch runs compacted on
+    5 + 12 tokens an image, the padding row keeps only its prefix, its
+    output is all zeros, and the image's keys are its reference's."""
+    model = _model()
+    a = _image(3, 4, seed=7)
+    x = torch.zeros((2, 4 * P, 4 * P, 3))
+    x[0, :3 * P] = a
+    mask = torch.zeros((2, 4, 4), dtype=torch.bool)
+    mask[0, :3] = True
+    got, counts = _counted(lambda: extract_patch_keys(
+        model, x, token_mask=mask.reshape(2, -1), grids=np.array([[3, 4], [0, 0]])))
+    assert counts == {"vit.compacted": 1, "vit.tokens": 2 * (R + 1 + 12),
+                      "vit.tokens_valid": R + 1 + 12}
+    assert got.shape == (2, 16, 128)
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert torch.equal(got[0, 12:], torch.zeros_like(got[0, 12:]))
+    assert (got[0, :12] - _reference([a])[0]).abs().max().item() <= 1e-4
+
+
+def test_grids_that_fill_the_bucket_run_uncompacted():
+    """Two 4x5 images in a 4x5 bucket: nothing to drop, so the blocks run on
+    the bucket's T = 5 + 20 tokens, uncompacted, and each image's keys are
+    its reference's."""
+    model = _model()
+    a, b = _image(4, 5, seed=8), _image(4, 5, seed=9)
+    x = torch.stack([a, b])
+    got, counts = _counted(lambda: extract_patch_keys(
+        model, x, token_mask=torch.ones(2, 20, dtype=torch.bool),
+        grids=np.array([[4, 5], [4, 5]])))
+    assert counts == {"vit.tokens": 2 * (R + 1 + 20), "vit.tokens_valid": 2 * (R + 1 + 20)}
+    for k, ref in zip(got, _reference([a, b])):
+        assert (k - ref).abs().max().item() <= 1e-4
 
 
 def test_register_rows_are_absent_from_the_features():

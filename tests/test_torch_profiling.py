@@ -338,9 +338,11 @@ def test_vit_extract_is_one_span():
 def test_swiglu_spans_and_token_counters():
     """`vit.swiglu` opens once a block that runs its FFN (the forward's every
     block, stage 1's all but the last), inside `vit.extract`; `vit.tokens`
-    counts B x T and `vit.tokens_valid` each image's CLS, 4 registers and
-    grid patches, only where grids are given; the benchmark's readers read
-    them (no device time on the CPU)."""
+    counts the B x T tokens run (given grids, the compacted B x Tc, Tc the
+    largest image's 5 + 24), `vit.compacted` the batches run compacted and
+    `vit.tokens_valid` each image's CLS, 4 registers and grid patches, only
+    where grids are given; the benchmark's readers read them (no device time
+    on the CPU)."""
     from benchmark import harness
     from deep_spectral_tpu_torch.models.vit import (VisionTransformer, extract_patch_keys,
                                                     get_model_config)
@@ -356,8 +358,10 @@ def test_swiglu_spans_and_token_counters():
     recs = profiling.records()
     assert [r["name"] for r in recs] == ["vit.extract"] + ["vit.swiglu"] * (cfg.depth - 1)
     assert all(r["parent"] == 0 for r in recs[1:])
-    assert recs[0]["counts"] == {"vit.tokens": 2 * 35, "vit.tokens_valid": (5 + 24) + (5 + 15)}
-    assert harness.metric_reader("vit_pad_share.extract").read(None) == pytest.approx(30.0)
+    assert recs[0]["counts"] == {"vit.tokens": 2 * 29, "vit.tokens_valid": (5 + 24) + (5 + 15),
+                                 "vit.compacted": 1}
+    assert harness.metric_reader("vit_pad_share.extract").read(None) == \
+        pytest.approx(100 * (1 - 49 / 58))
     assert harness.metric_reader("swiglu_ms.extract").read(None) is None
     profiling.clear()
     with _profile(), torch.no_grad():
