@@ -1,0 +1,11 @@
+"""rope_ms.extract (ms/batch): the device time of the port's `vit.rope`
+spans (each block's RoPE on q and k, between the span's CUDA events) summed
+over the traced window, per stage-1 batch (`vit.extract` spans). Silent
+where the port opens no such span (a model without RoPE, or a port without
+the span). Moves `images_per_s`."""
+from benchmark import spans
+
+
+def read(run):
+    ms, batches = spans.device_ms("vit.rope"), spans.opened("vit.extract")
+    return ms / batches if ms is not None and batches else None

@@ -10,8 +10,9 @@ which must pass:
      `deep_spectral_tpu_torch/csrc/` (nvcc) and read the ptxas log: the
      wgmma kernels and the filter's two must not spill registers; count the
      tensor-core instructions in the SASS (`cuobjdump -sass` on the built
-     library) of the seven wgmma kernels: HGMMA in the packed flash
-     forward, its lse-writing build, the bf16 dKV and dQ kernels, and TF32
+     library) of the eight wgmma kernels: HGMMA in the packed flash
+     forward (hd 64 and 128), its lse-writing build, the bf16 dKV and dQ
+     kernels, and TF32
      HGMMA or HMMA in the split-TF32 f32 builds of kernel 3
      (`flash_fwd_f32.cu`), kernel 4 (`flash_bwd_dkv_f32.cu`) and kernel 5
      (`flash_bwd_dq_f32.cu`), each count > 0; and the TMA loads (UTMALDG)
@@ -54,7 +55,21 @@ which must pass:
      the same affinity), each held to the same dense-eigh gates, the kernel
      launching under 'auto' alone; (4c) the Jacobi eigh on the matrices the
      solves of the first eight images hand it at K=5 (m=8) and K=20 (m=23),
-     against f64 eigh on the card (within 8 f32 eps x ||A||_2);
+     against f64 eigh on the card (within 8 f32 eps x ||A||_2); (4d) the
+     DINOv3 path at dinov3_vit7b16's widths (32 heads of 128) and the COCO
+     cell's shapes: kernel 1's hd=128 build vs its twin on a b24 fused qkv
+     at T=885, 1205 and 1605, unmasked and with masked tails and an
+     all-masked row (FLASH_TOL; the all-masked row exactly 0); the RoPE
+     kernel (`apply_rope_`) vs its twin on b24 batches of each stage-1
+     bucket's grids, compacted and bucket-padded, in bf16 (ROPE_BF16_REL)
+     and f32 (ROPE_F32_REL), the prefix rows, v and the rows outside each
+     grid keeping their bits; then `extract_patch_keys` on the model's
+     first DINOV3_DEPTH blocks (LayerScales at 1) over a b24 batch of 30x40
+     and 26x40 images in the 32x40 bucket, each image handed its grid: the
+     blocks run compacted, kernel 1 and the RoPE kernel each launch once a
+     block before the last, the padded keys are 0, and each image's keys
+     agree with those of its grid's images run in a bucket of their own
+     size (DINOV3_KEYS_REL);
   5. stages 1-2 through `python -m deep_spectral_tpu_torch.pipeline` on six
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
@@ -171,13 +186,16 @@ least per-token cosine (PAR_COS_MIN); and (f) `train()` data-parallel over
 N ranks for LOOP_STEPS steps of the 7b configuration on a JPEG tree
 (finite losses, every rank's state the same bits, kernels 3-5 once a
 step).
-`python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
+`python3 chip_smoke.py 4d` runs the build and phase 4d, with no result
+line. `python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
 library the full run built (the full run starts it so, last).
 The last line is one JSON object: {"ok": true, "device": {...}, "kernels":
 {name: {"launches": ..., "max_abs_err": ...}}}, each kernel's launches on
-the main path (phase 4) or the train path (phase 7) and its largest error
-against its twin in phases 2, 3, 4c and 6 (kernels 3-5's f32 builds are
-entries of their own, `*_f32`). It exits non-zero, without that line, if
+the main path (phase 4; 4d's DINOv3 path for kernel 1's hd=128 build,
+`flash_attention_packed_hd128`, and the RoPE kernel, `apply_rope_`) or the
+train path (phase 7) and its largest error against its twin in phases 2,
+3, 4c, 4d and 6 (kernels 3-5's f32 builds are entries of their own,
+`*_f32`). It exits non-zero, without that line, if
 CUDA is missing or any phase fails. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -257,6 +275,20 @@ PAR_COS_MIN = 0.9999  # world > 1: bf16 paths whose GEMMs run at other shapes th
 #                       single-card path's and whose all-reduces and hop merges add in another
 #                       order: least per-token cosine (0.999910 TP x DP, 0.999914 SP measured
 #                       at world 4 on four H100s; world 1 is held by max |diff| instead)
+# phase 4d's shapes: the COCO cell's stage-1 buckets (h, w) at granularity 8 and
+# the image grids (longer side 640, P=16) that fall in each, after CLS and 4
+# storage tokens; 4d's main path runs dinov3_vit7b16's first DINOV3_DEPTH blocks
+DINOV3_BUCKETS = {(32, 40): ((30, 40), (26, 40)), (40, 32): ((40, 30), (40, 26)),
+                  (40, 40): ((40, 40),), (24, 40): ((22, 40),)}
+DINOV3_T = (885, 1205, 1605)  # its compacted batches' tokens: 22x40, 30x40 and 40x40 + 5
+DINOV3_PREFIX, DINOV3_DEPTH = 5, 4
+ROPE_BF16_REL = 2.0 ** -7  # one bf16 ulp of max(|value|, 1): both round one f32 result once
+ROPE_F32_REL = 1e-5  # of max(|value|, 1): torch divides by a Python number through its
+#                      reciprocal, the kernel divides, so a coordinate can differ in its last bit
+DINOV3_KEYS_REL = 2e-2  # 4d: an image's bf16 keys in the compacted b24 batch vs in a batch
+#                         of its own grid, ||diff|| / ||alone||: the GEMMs run other shapes
+#                         (0 read on an H100; 5.0e-3 on the CPU at test_dinov3_tiny, and
+#                         1.5e-1 there with RoPE over the bucket's grid)
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
                        (4, 901, "float32", True), (2, 3601, "float32", True),
@@ -315,7 +347,8 @@ def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
 
 
 # The wgmma kernels by mangled-name fragment: name in the SASS and ptxas logs.
-WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
+WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0ELi128E": "flash_fwd_packed_kernel<false, 128>",
+                 "flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
                  "flash_fwd_packed_kernelILb1E": "flash_fwd_packed_kernel<true>",
                  "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel",
@@ -772,6 +805,146 @@ def filter_routes(feats, mask, ev_d, vec_d) -> None:
             raise AssertionError(f"{name}: eigenpairs disagree with dense eigh")
         if (cheb > 0) != (name == "auto") or impl != ("pallas" if name == "auto" else "xla"):
             raise AssertionError(f"{name}: filter {impl!r}, {cheb} kernel launches")
+
+
+def _rope_rows(plan, T: int):
+    """(B, T) bool: the rows the plan rotates (each image's grid, after the
+    prefix, its grid rows `stride` apart)."""
+    import torch
+    rows = torch.zeros((len(plan.host), T), dtype=torch.bool)
+    for b, (gh, gw, stride) in enumerate(plan.host.tolist()):
+        for i in range(gh):
+            start = plan.prefix + i * stride
+            rows[b, start:start + gw] = True
+    return rows
+
+
+def phase_dinov3_kernels(dev) -> tuple[float, float]:
+    """4d's kernels against their twins; returns the largest error of kernel
+    1's hd=128 build and of the RoPE kernel."""
+    import torch
+    from deep_spectral_tpu_torch.models.flash_attention import (
+        flash_attention_packed, flash_attention_packed_plain)
+    from deep_spectral_tpu_torch.models.rope import (
+        RopePlan, apply_rope_, apply_rope_plain_, rope_periods)
+    g = torch.Generator(device=dev).manual_seed(4)
+    H = 32
+    flash_err = 0.0
+    for T in DINOV3_T:
+        qkv = torch.randn((B, T, 3, H, 128), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        for masked in (False, True):
+            mask = None
+            if masked:  # tails of 0, 160 and 313 keys, and an all-masked row
+                keep = torch.tensor([T, T - 160, T - 313, 0] * (B // 4), device=dev)
+                mask = torch.arange(T, device=dev)[None] < keep[:, None]
+            out = flash_attention_packed(q, k, v, mask)
+            torch.cuda.synchronize()
+            err = 0.0
+            for rows in torch.arange(B, device=dev).split(4):  # the twin's scores at b4
+                m = None if mask is None else mask[rows]
+                ref = flash_attention_packed_plain(q[rows], k[rows], v[rows], m)
+                valid = slice(None) if m is None else m.any(dim=1)
+                err = max(err, (out[rows][valid].float() - ref[valid].float())
+                          .abs().max().item())
+            if masked and out[3].abs().max().item() != 0.0:
+                raise AssertionError("flash hd=128: all-masked batch row is not 0")
+            if not np.isfinite(err) or err > FLASH_TOL:
+                raise AssertionError(f"flash hd=128 disagrees with its twin at T={T} "
+                                     f"masked={masked}: {err}")
+            flash_err = max(flash_err, err)
+            log(f"[4d] flash b{B} T={T} H={H} hd=128 bf16 masked={masked}: max |kernel - "
+                f"twin| on valid rows {err:.3e} (tol {FLASH_TOL})")
+        del qkv, q, k, v
+    periods = rope_periods(128, 100.0).to(dev)
+    rope_err = 0.0
+    for (bh, bw), grids in DINOV3_BUCKETS.items():
+        grid_b = np.array([grids[i % len(grids)] for i in range(B)])
+        for compacted in (True, False):
+            T = DINOV3_PREFIX + (int((grid_b[:, 0] * grid_b[:, 1]).max()) if compacted
+                                 else bh * bw)
+            plan = RopePlan.make(periods, grid_b, bh, bw, B, DINOV3_PREFIX, compacted)
+            rows = _rope_rows(plan, T).to(dev)
+            for dtype, rel in ((torch.bfloat16, ROPE_BF16_REL), (torch.float32, ROPE_F32_REL)):
+                qkv = torch.randn((B, T, 3, H, 128), generator=g, device=dev).to(dtype)
+                before = apply_rope_.launches
+                got = apply_rope_(qkv.clone(), plan)
+                torch.cuda.synchronize()
+                ref = apply_rope_plain_(qkv.clone(), plan)
+                diff = (got.float() - ref.float()).abs()
+                worst = (diff / ref.float().abs().clamp_min(1.0)).max().item()
+                kept = torch.equal(got[:, :, 2], qkv[:, :, 2]) and \
+                    torch.equal(got[~rows], qkv[~rows])
+                log(f"[4d] RoPE b{B} bucket {bh}x{bw} grids {list(grids)} "
+                    f"{'compacted' if compacted else 'bucket-padded'} T={T} {dtype}: max "
+                    f"|kernel - twin| {diff.max().item():.3e}, relative to max(|twin|, 1) "
+                    f"{worst:.3e} (tol {rel:.3e}); prefix, v and other rows kept: {kept}")
+                if apply_rope_.launches != before + 1 or not np.isfinite(worst) \
+                        or worst > rel or not kept:
+                    raise AssertionError(f"the RoPE kernel disagrees with its twin at bucket "
+                                         f"{bh}x{bw} compacted={compacted} {dtype}")
+                rope_err = max(rope_err, diff.max().item())
+                del qkv, got, ref, diff
+    return flash_err, rope_err
+
+
+def phase_dinov3_main_path(dev) -> dict:
+    """4d's main path (see the module docstring); returns the launches of
+    kernel 1 and of the RoPE kernel over its one compacted batch."""
+    import dataclasses
+
+    import torch
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
+    from deep_spectral_tpu_torch.models.rope import apply_rope_
+    from deep_spectral_tpu_torch.models.vit import (
+        LayerScale, VisionTransformer, extract_patch_keys, get_model_config)
+    from deep_spectral_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(get_model_config("dinov3_vit7b16"), depth=DINOV3_DEPTH)
+    model = random_init_(VisionTransformer(cfg, torch.bfloat16), seed=0)
+    with torch.no_grad():
+        for m in model.modules():  # the hub's 1e-5 would leave the blocks invisible
+            if isinstance(m, LayerScale):
+                m.gamma.fill_(1.0)
+    model = model.to(dev).eval()
+    P = cfg.patch_size
+    (bh, bw), grids = next(iter(DINOV3_BUCKETS.items()))
+    grid_b = np.array([grids[i % len(grids)] for i in range(B)])
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.zeros((B, bh * P, bw * P, 3), device=dev)
+    mask = torch.zeros((B, bh, bw), dtype=torch.bool, device=dev)
+    for i, (gh, gw) in enumerate(grid_b):
+        x[i, :gh * P, :gw * P] = torch.randn((gh * P, gw * P, 3), generator=g, device=dev)
+        mask[i, :gh, :gw] = True
+    _zero_launches()
+    apply_rope_.launches = 0
+    compacted = profiling.totals().get("vit.compacted", 0)
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(B, -1), grids=grid_b)
+    torch.cuda.synchronize()
+    launches = {"flash": flash_attention_packed.launches, "rope": apply_rope_.launches}
+    compacted = profiling.totals().get("vit.compacted", 0) - compacted
+    k = k.float().reshape(B, bh, bw, -1)
+    padded_zero = bool((k[~mask] == 0).all())
+    worst = 0.0
+    for gh, gw in grids:
+        idx = torch.from_numpy(np.flatnonzero((grid_b == (gh, gw)).all(axis=1))).to(dev)
+        alone = extract_patch_keys(model, x[idx, :gh * P, :gw * P].contiguous(),
+                                   grids=np.tile([gh, gw], (len(idx), 1))).float()
+        got = k[idx, :gh, :gw].reshape(len(idx), gh * gw, -1)
+        worst = max(worst, ((got - alone).flatten(1).norm(dim=1)
+                            / alone.flatten(1).norm(dim=1)).max().item())
+    log(f"[4d] main path dinov3_vit7b16 widths, {DINOV3_DEPTH} blocks, b{B} grids "
+        f"{list(grids)} in the {bh}x{bw} bucket, bf16: launches {launches}, compacted "
+        f"{compacted}, padded keys 0: {padded_zero}; each image vs its grid run alone: "
+        f"max ||diff|| / ||alone|| {worst:.3e} (tol {DINOV3_KEYS_REL})")
+    want = DINOV3_DEPTH - 1
+    if launches != {"flash": want, "rope": want} or compacted != 1 or not padded_zero:
+        raise AssertionError(f"the DINOv3 path did not run compacted through both kernels "
+                             f"({want} launches each): {launches}, compacted {compacted}")
+    if not np.isfinite(worst) or worst > DINOV3_KEYS_REL:
+        raise AssertionError(f"DINOv3 keys depend on the batch: {worst}")
+    return launches
 
 
 def phase_cli(tmp: Path, device: str) -> None:
@@ -2632,6 +2805,9 @@ def main(argv: list) -> int:
         if "12" in only:
             with tempfile.TemporaryDirectory() as tmp:
                 phase_12(Path(tmp), dev)
+        if "4d" in only:
+            phase_dinov3_kernels(dev)
+            phase_dinov3_main_path(dev)
         if "13" in only:
             if world > 1:
                 run_parallel(world)
@@ -2642,6 +2818,8 @@ def main(argv: list) -> int:
     flash_err = phase_flash(dev)
     cheb_err = phase_cheb(dev)
     launches, eigh_err = phase_main_path(dev)
+    hd128_err, rope_err = phase_dinov3_kernels(dev)
+    dinov3_launches = phase_dinov3_main_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(Path(tmp), "cuda")
     train_errs = phase_train_kernels(dev)
@@ -2669,6 +2847,9 @@ def main(argv: list) -> int:
     log("[13] no module of jax or of the JAX package was imported")
     kernels = {
         "flash_attention_packed": {"launches": launches["flash"], "max_abs_err": flash_err},
+        "flash_attention_packed_hd128": {"launches": dinov3_launches["flash"],
+                                         "max_abs_err": hd128_err},
+        "apply_rope_": {"launches": dinov3_launches["rope"], "max_abs_err": rope_err},
         "chebyshev_filter": {"launches": launches["cheb"], "max_abs_err": cheb_err},
         "small_eigh": {"launches": launches["eigh"], "max_eps_norm": eigh_err},
         **{name: {"launches": train_launches[name], "max_abs_err": train_errs[name]}

@@ -43,8 +43,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # Argument types of every C entry point (pointers and the stream are c_void_p:
 # without argtypes ctypes would pass Python ints as 32-bit ints).
 _SIGNATURES = {
-    # q, k, v, kv_mask, out, lse (null: no lse); B, T, H; 9 strides; scale; stream
-    "dss_flash_fwd_packed": [_P] * 6 + [_I] * 3 + [_LL] * 9 + [_F, _P],
+    # q, k, v, kv_mask, out, lse (null: no lse); B, T, H, hd; 9 strides; scale; stream
+    "dss_flash_fwd_packed": [_P] * 6 + [_I] * 4 + [_LL] * 9 + [_F, _P],
     # S, ld, bs, X, ce, out, T staging in global memory; B, N, m, degree,
     # cluster, rows, smem; stream
     "dss_cheb_filter_resident": [_P, _LL, _LL] + [_P] * 4 + [_I] * 7 + [_P],
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "dss_flash_bwd_dq_bf16": [_P] * 8 + [_I] * 3 + [_LLP, _F, _P],
     # M, w, V, bad; B, m; stream
     "dss_small_eigh": [_P] * 4 + [_I] * 2 + [_P],
+    # qkv, f32 (0: bf16), grids, periods; B, T, prefix, H; stream
+    "dss_rope_rotate": [_P, _I, _P, _P] + [_I] * 4 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

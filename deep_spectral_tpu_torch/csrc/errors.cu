@@ -10,5 +10,7 @@ extern "C" const char* dss_error_string(int err) {
     return "the Chebyshev filter's plan does not fit the kernel's layout";
   if (err == DSS_ERR_OCCUPANCY)
     return "the card holds no thread-block cluster of the plan's size and shared memory";
+  if (err == DSS_ERR_HEAD_DIM)
+    return "the kernel has no build of this head dim";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

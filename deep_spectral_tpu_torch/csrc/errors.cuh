@@ -8,3 +8,5 @@
 #define DSS_ERR_PLAN 10002
 // The card holds no cluster of the plan's size at the plan's shared memory.
 #define DSS_ERR_OCCUPANCY 10003
+// A kernel was asked for a head dim it has no build of.
+#define DSS_ERR_HEAD_DIM 10004

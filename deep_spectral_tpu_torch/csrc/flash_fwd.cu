@@ -46,9 +46,20 @@
 // two warpgroups take turns issuing (named barriers), so one's softmax runs
 // against the other's products.
 //
-// Requirements the Python wrapper checks: bf16, hd == 64, unit stride on hd,
-// other strides multiples of 8 elements (16 bytes, as TMA needs), 16-byte
-// aligned base pointers. out is contiguous (B, T, H, 64).
+// Head dim 128 (DINOv3's 32 heads of 128; the inference build only): the
+// same kernel with each q, K and V tile held as two 64-column boxes of 128
+// bytes a row (two TMA loads from a map over the 128 columns, each its own
+// 128B-swizzled 16 KB block), S = Q K^T in 8 k-steps (4 in each block) and O
+// += P V as two m64n64k16 products a 16-key step, one a 64-column half of V,
+// into 64 accumulators a thread. 32 KB tiles: q and the 3-stage K/V ring take
+// 224 KB of shared memory. At DINOv3-7B's stage-1 shape (b24, T = 885-1605,
+// 32 heads) the products are 4 T^2 hd flops per (b, h): compute bound, and
+// at hd = 128 the exponentials cost half as much per product as at 64.
+//
+// Requirements the Python wrapper checks: bf16, hd == 64 (hd == 128 without
+// the lse), unit stride on hd, other strides multiples of 8 elements (16
+// bytes, as TMA needs), 16-byte aligned base pointers. out is contiguous
+// (B, T, H, hd).
 
 #include <math.h>
 #include <stdint.h>
@@ -63,9 +74,17 @@ constexpr int BK = 128;                   // keys per K/V tile
 constexpr int STAGES = 3;                 // K/V ring depth
 constexpr int CONSUMERS = 2;              // consumer warpgroups
 constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int TILE_BYTES = BK * HD * 2;   // 16 KB, also the q tile's size
-constexpr int SMEM_BYTES = 1024 /* alignment slack */ + TILE_BYTES * (1 + 2 * STAGES) +
-                           16 * STAGES + 8 * (2 * STAGES + 1);
+constexpr int SUB_BYTES = BK * 128;       // 16 KB: 128 rows of one 64-column box
+
+// A q, K or V tile of head dim HDIM: HALVES boxes of 64 columns, SUB_BYTES
+// apart, and the kernel's shared memory.
+template <int HDIM>
+struct Tile {
+  static constexpr int HALVES = HDIM / 64;
+  static constexpr int BYTES = SUB_BYTES * HALVES;  // 16 KB at hd 64, 32 KB at 128
+  static constexpr int SMEM = 1024 /* alignment slack */ + BYTES * (1 + 2 * STAGES) +
+                              16 * STAGES + 8 * (2 * STAGES + 1);
+};
 
 // The consumer warpgroups take turns issuing their products (named barriers
 // 1 and 2, 256 threads: one warpgroup syncs, the other arrives), so one's
@@ -78,18 +97,34 @@ __device__ __forceinline__ void sched_arrive(int wg) {
 }
 
 // S = Q K^T, 64 x 128 per warpgroup: k-steps of 16 over hd are 32 bytes
-// along the swizzled rows (2 descriptor units).
+// along the swizzled rows (2 descriptor units); at hd = 128 the last four
+// read the second 64-column box, SUB_BYTES on.
+template <int HDIM>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq, uint64_t dk) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_m64n128k16_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < HDIM / 16; ++kk) {
+    const int off = (kk >> 2) * (SUB_BYTES >> 4) + 2 * (kk & 3);
+    wgmma_m64n128k16_ss(s, dq + off, dk + off, kk);
+  }
   wgmma_commit();
 }
 
 // O += P V: V's tile is [key][hd], hd contiguous, i.e. the MN-major B operand;
-// a k-step of 16 keys is 16 rows of 128 bytes (128 descriptor units).
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8][4], uint64_t dv) {
+// a k-step of 16 keys is 16 rows of 128 bytes (128 descriptor units). At
+// hd = 128 each k-step is two products, one a 64-column box of V.
+template <int HDIM>
+__device__ __forceinline__ void issue_pv(float (&o)[HDIM / 2], const uint32_t (&pa)[8][4],
+                                         uint64_t dv) {
+  if constexpr (HDIM == 64) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs(o, pa[kk], dv + 128 * kk);
+    for (int kk = 0; kk < 8; ++kk) wgmma_m64n64k16_rs(o, pa[kk], dv + 128 * kk);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_m64n64k16_rs_at<0>(o, pa[kk], dv + 128 * kk);
+      wgmma_m64n64k16_rs_at<32>(o, pa[kk], dv + (SUB_BYTES >> 4) + 128 * kk);
+    }
+  }
   wgmma_commit();
 }
 
@@ -162,15 +197,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], const uint4& vb, in
 
 // lse is last among the parameters so that the WRITE_LSE = false
 // instantiation's code is the same as without it.
-template <bool WRITE_LSE>
+template <bool WRITE_LSE, int HDIM>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
                         const uint8_t* __restrict__ kv_mask,  // (B, T) or null
-                        __nv_bfloat16* __restrict__ out,      // (B, T, H, HD)
+                        __nv_bfloat16* __restrict__ out,      // (B, T, H, HDIM)
                         int T, int H, float scale_log2,
                         float* __restrict__ lse) {            // (B, H, T), WRITE_LSE only
+  constexpr int TILE_BYTES = Tile<HDIM>::BYTES;
+  constexpr int HALVES = Tile<HDIM>::HALVES;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   uint8_t* smem = smem_raw + (((raw + 1023) & ~1023u) - raw);  // 1024-aligned for the swizzle
@@ -207,7 +244,12 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
     if (warp == CONSUMERS * 4) {
       if (lane == 0) {
         mbar_arrive_expect_tx(qbar, TILE_BYTES);
-        tma_load(q_s, &tq, qbar, h, q0, b);
+        if constexpr (HALVES == 1) {
+          tma_load(q_s, &tq, qbar, h, q0, b);
+        } else {
+          for (int c = 0; c < HALVES; ++c)
+            tma_load_at(q_s + c * SUB_BYTES, &tq, qbar, 64 * c, h, q0, b);
+        }
       }
       for (int kt = 0; kt < n_kv; ++kt) {
         const int st = kt % STAGES;
@@ -222,8 +264,17 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) {
           kvalid[st] = make_uint4(words[0], words[1], words[2], words[3]);
           mbar_arrive_expect_tx(full(st), 2 * TILE_BYTES);
-          tma_load(k_s + st * TILE_BYTES, &tk, full(st), h, kt * BK, b);
-          tma_load(v_s + st * TILE_BYTES, &tv, full(st), h, kt * BK, b);
+          if constexpr (HALVES == 1) {
+            tma_load(k_s + st * TILE_BYTES, &tk, full(st), h, kt * BK, b);
+            tma_load(v_s + st * TILE_BYTES, &tv, full(st), h, kt * BK, b);
+          } else {
+            for (int c = 0; c < HALVES; ++c) {
+              tma_load_at(k_s + st * TILE_BYTES + c * SUB_BYTES, &tk, full(st), 64 * c, h,
+                          kt * BK, b);
+              tma_load_at(v_s + st * TILE_BYTES + c * SUB_BYTES, &tv, full(st), 64 * c, h,
+                          kt * BK, b);
+            }
+          }
         }
       }
     }
@@ -232,15 +283,15 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int g = lane >> 2;  // fragment row within the warp's 16
     const int t = lane & 3;   // thread in the row's quad
-    float o[32];
+    float o[HDIM / 2];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < HDIM / 2; ++i) o[i] = 0.f;
     float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, log2 units
     float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
 
     mbar_wait(qbar, 0);
     if (wg == 1) sched_arrive(0);  // warpgroup 0 issues first
-    const uint64_t dq = smem_desc(q_s + wg * (TILE_BYTES / 2));
+    const uint64_t dq = smem_desc(q_s + wg * (SUB_BYTES / 2));
     float s[64];
     uint32_t pa[8][4];
 
@@ -249,7 +300,7 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full(0), 0);
     sched_sync(wg);
     wgmma_fence();
-    issue_qk(s, dq, smem_desc(k_s));
+    issue_qk<HDIM>(s, dq, smem_desc(k_s));
     sched_arrive(1 - wg);
     wgmma_wait<0>();
     float alpha[2];
@@ -262,22 +313,22 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full(st), (kt / STAGES) & 1);
       sched_sync(wg);
       wgmma_fence();
-      issue_qk(s, dq, smem_desc(k_s + st * TILE_BYTES));
-      issue_pv(o, pa, smem_desc(v_s + prev * TILE_BYTES));
+      issue_qk<HDIM>(s, dq, smem_desc(k_s + st * TILE_BYTES));
+      issue_pv<HDIM>(o, pa, smem_desc(v_s + prev * TILE_BYTES));
       sched_arrive(1 - wg);
       wgmma_wait<1>();  // S(kt) is in; P(kt-1) V(kt-1) may still run
       softmax_tile(s, kvalid[st], t, scale_log2, m_run, l_run, alpha);
       wgmma_wait<0>();
       mbar_arrive(empty(prev));
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HDIM / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       pack_p(s, pa);
     }
 
     const int last = (n_kv - 1) % STAGES;
     sched_sync(wg);
     wgmma_fence();
-    issue_pv(o, pa, smem_desc(v_s + last * TILE_BYTES));
+    issue_pv<HDIM>(o, pa, smem_desc(v_s + last * TILE_BYTES));
     if (wg == 0) sched_arrive(1);  // warpgroup 1's last turn: nothing follows it
     wgmma_wait<0>();
     mbar_arrive(empty(last));
@@ -293,38 +344,50 @@ flash_fwd_packed_kernel(const __grid_constant__ CUtensorMap tq,
       if constexpr (WRITE_LSE) {
         if (t == 0) lse[((long long)b * H + h) * T + row] = (m_run[r] + log2f(fmaxf(l, 1e-30f))) * LN2;
       }
-      __nv_bfloat16* orow = out + (((long long)b * T + row) * H + h) * HD;
+      __nv_bfloat16* orow = out + (((long long)b * T + row) * H + h) * HDIM;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HDIM / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
             __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
+template <bool WRITE_LSE, int HDIM>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           const void* kv_mask, void* out, void* lse, int B, int T, int H, float sm_scale,
+           void* stream) {
+  auto kernel = flash_fwd_packed_kernel<WRITE_LSE, HDIM>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<HDIM>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  kernel<<<grid, THREADS, Tile<HDIM>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<const uint8_t*>(kv_mask), static_cast<__nv_bfloat16*>(out), T, H,
+      sm_scale * LOG2E, static_cast<float*>(lse));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// lse null: the inference forward (kernel 1); else also the (B, H, T) f32
-// row log-sum-exp (kernel 3's bf16 route).
+// lse null: the inference forward (kernel 1), at hd 64 or 128; else also the
+// (B, H, T) f32 row log-sum-exp (kernel 3's bf16 route), at hd 64.
 extern "C" int dss_flash_fwd_packed(const void* q, const void* k, const void* v,
                                     const void* kv_mask, void* out, void* lse,
-                                    int B, int T, int H,
+                                    int B, int T, int H, int hd,
                                     long long qsb, long long qst, long long qsh,
                                     long long ksb, long long kst, long long ksh,
                                     long long vsb, long long vst, long long vsh,
                                     float sm_scale, void* stream) {
+  if (hd != HD && !(hd == 2 * HD && lse == nullptr)) return DSS_ERR_HEAD_DIM;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, T, H, qsb, qst, qsh, BQ) ||
-      !make_map(&tk, k, B, T, H, ksb, kst, ksh, BK) ||
-      !make_map(&tv, v, B, T, H, vsb, vst, vsh, BK))
+  if (!make_map(&tq, q, B, T, H, qsb, qst, qsh, BQ, hd) ||
+      !make_map(&tk, k, B, T, H, ksb, kst, ksh, BK, hd) ||
+      !make_map(&tv, v, B, T, H, vsb, vst, vsh, BK, hd))
     return DSS_ERR_TENSOR_MAP;
-  auto kernel = lse == nullptr ? flash_fwd_packed_kernel<false> : flash_fwd_packed_kernel<true>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<const uint8_t*>(kv_mask), static_cast<__nv_bfloat16*>(out), T, H,
-      sm_scale * LOG2E, static_cast<float*>(lse));
-  return static_cast<int>(cudaGetLastError());
+  if (hd == 2 * HD) return launch<false, 2 * HD>(tq, tk, tv, kv_mask, out, lse, B, T, H, sm_scale,
+                                                 stream);
+  return lse == nullptr
+             ? launch<false, HD>(tq, tk, tv, kv_mask, out, lse, B, T, H, sm_scale, stream)
+             : launch<true, HD>(tq, tk, tv, kv_mask, out, lse, B, T, H, sm_scale, stream);
 }

@@ -57,6 +57,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same load at hd column d0 (a box of the first 64 of hd columns d0..),
+// for maps over rows of more than 64 bf16 values (`make_map`'s hd = 128).
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int d0, int h, int t0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(d0), "r"(h), "r"(t0), "r"(b)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128B-swizzled tile whose 8-row groups
 // are 1024 bytes apart: start address, both byte offsets (1024; the one that
 // is not the 8-row stride is unused at these shapes) and the 128B layout.
@@ -174,6 +186,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// The same product into columns OFF..OFF+63 of a 64 x 128 accumulator (32 of
+// a thread's 64 fragments): the hd = 128 forward's O += P V, one 64-column
+// half of V (its own 128B-swizzled tile) at a time.
+template <int OFF>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_at(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -203,14 +241,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The (hd, H, T, B) view of a bf16 (B, T, H, 64) tensor with its element
+// The (hd, H, T, B) view of a bf16 (B, T, H, hd) tensor with its element
 // strides, in boxes of (64, 1, rows, 1), 128B-swizzled, zero-filled out of
-// range.
+// range: hd = 64 (one box a row) or 128 (two, loaded by `tma_load_at`).
 bool make_map(CUtensorMap* map, const void* base, int B, int T, int H, long long sb,
-              long long st, long long sh, int rows) {
+              long long st, long long sh, int rows, int hd = HD) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {HD, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {HD, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};

@@ -5,8 +5,9 @@ The reference loads its backbone with `torch.hub.load('facebookresearch/dino:mai
 name)` (extract/extract_utils.py:40-50). There is no network here, so a local
 DINO state dict is used when one is found (`ckpt_dir`, or
 `$DSS_TPU_DINO_CKPT_DIR/<model_name>.pth`, the JAX package's lookup, or the
-published file name of a DINOv2 model, `CHECKPOINT_FILES`); since the port
-keeps DINO's and DINOv2's parameter names it loads that file as it is. Without a
+published file name of a DINOv2 or DINOv3 model, `CHECKPOINT_FILES`); since
+the port keeps DINO's, DINOv2's and DINOv3's parameter names it loads that
+file as it is (`load_dino_state_dict`). Without a
 checkpoint the weights are a seeded random init from a `torch.Generator`
 (different numbers from the JAX package's flax init of the same seed).
 `flax_to_torch_state_dict` carries the JAX package's ViT params over, and
@@ -28,8 +29,12 @@ from ..utils.device import resolve_device
 from .vit import LayerScale, ViTConfig, VisionTransformer, get_model_config
 
 # Published checkpoint files whose names are not `<model_name>.pth`
-# (facebookresearch/dinov2's hub downloads).
-CHECKPOINT_FILES = {"dinov2_vitg14_reg": "dinov2_vitg14_reg4_pretrain.pth"}
+# (facebookresearch/dinov2's and dinov3's downloads; a glob where the name
+# carries a hash).
+CHECKPOINT_FILES = {"dinov2_vitg14_reg": "dinov2_vitg14_reg4_pretrain.pth",
+                    "dinov3_vit7b16": "dinov3_vit7b16_pretrain_lvd1689m*.pth"}
+# Training-only entries of a DINOv3 checkpoint: the local crops' CLS norm.
+DINOV3_TRAINING_ONLY = ("local_cls_norm.",)
 
 
 def flax_to_torch_state_dict(params: dict, cfg: ViTConfig) -> dict:
@@ -196,22 +201,26 @@ def find_local_checkpoint(model_name: str,
     if model_name in CHECKPOINT_FILES:
         names.append(CHECKPOINT_FILES[model_name])
     for root in roots:
-        for cand in (root / n for n in names):
-            if cand.is_file():
-                return cand
+        for name in names:
+            for cand in sorted(root.glob(name)):
+                if cand.is_file():
+                    return cand
     return None
 
 
 def load_dino_state_dict(path: str | Path) -> dict:
-    """A DINO or DINOv2 checkpoint's backbone state dict: unwraps
+    """A DINO, DINOv2 or DINOv3 checkpoint's backbone state dict: unwraps
     'state_dict', strips DDP's 'module.' prefix and drops the projection
-    head (a DINOv2 file is the backbone's own state dict, `mask_token`
-    and `register_tokens` included)."""
+    head and DINOv3's training-only entries (a DINOv2 or DINOv3 file is the
+    backbone's own state dict under the port's names: `mask_token`,
+    `register_tokens` or `storage_tokens`, `rope_embed.periods`, `ls1.gamma`,
+    `mlp.w12` or `mlp.w1`/`w2`/`w3`)."""
     sd = torch.load(str(path), map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
-    return {k: v for k, v in sd.items() if not k.startswith("head.")}
+    return {k: v for k, v in sd.items()
+            if not k.startswith(("head.", *DINOV3_TRAINING_ONLY))}
 
 
 @torch.no_grad()
@@ -219,24 +228,32 @@ def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
     """Seeded random weights: linear and conv weights ~ N(0, 1/fan_in)
     (flax's lecun-normal scale), zero biases and CLS token, pos_embed ~
     N(0, 0.02^2), LayerNorms at identity; DINOv2's LayerScales at 1 (the
-    hub's init_values), register tokens ~ N(0, 0.02^2), its mask token 0."""
+    hub's init_values), register tokens ~ N(0, 0.02^2), its mask token 0;
+    DINOv3's LayerScales at 1e-5 (the hub's layerscale_init), storage tokens
+    ~ N(0, 0.02^2), its mask token 0 (RoPE's periods are the model's)."""
     g = torch.Generator().manual_seed(seed)
+    family = model.cfg.family
     for module in model.modules():
         if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
             fan_in = module.weight[0].numel()
             module.weight.copy_(torch.randn(module.weight.shape, generator=g)
                                 / fan_in ** 0.5)
-            module.bias.zero_()
+            if module.bias is not None:
+                module.bias.zero_()
         elif isinstance(module, torch.nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
         elif isinstance(module, LayerScale):
-            module.gamma.fill_(1.0)
+            module.gamma.fill_(1e-5 if family == "dinov3" else 1.0)
     model.cls_token.zero_()
-    model.pos_embed.copy_(torch.randn(model.pos_embed.shape, generator=g) * 0.02)
-    if model.cfg.num_registers:
-        model.register_tokens.copy_(torch.randn(model.register_tokens.shape, generator=g) * 0.02)
-    if model.cfg.family == "dinov2":
+    if family == "dinov3":
+        model.storage_tokens.copy_(torch.randn(model.storage_tokens.shape, generator=g) * 0.02)
+    else:
+        model.pos_embed.copy_(torch.randn(model.pos_embed.shape, generator=g) * 0.02)
+        if model.cfg.num_registers:
+            model.register_tokens.copy_(torch.randn(model.register_tokens.shape,
+                                                    generator=g) * 0.02)
+    if family != "dino":
         model.mask_token.zero_()
     return model
 

@@ -7,7 +7,8 @@ CPU tensors. There is no other fallback: a CUDA tensor a kernel does not take
 raises.
   * `flash_attention_packed` (`csrc/flash_fwd.cu`, the port of the Pallas
     `_flash_kernel_packed`; wgmma products fed by TMA loads): the bf16
-    inference forward; twin `flash_attention_packed_plain`.
+    inference forward, at head dim 64 or 128 (`PACKED_HEAD_DIMS`); twin
+    `flash_attention_packed_plain`.
   * `flash_attention_lse` (the port of `_flash_kernel`): forward that also
     returns the row log-sum-exp; bf16 runs `csrc/flash_fwd.cu`'s lse-writing
     instantiation (wgmma + TMA), f32 `csrc/flash_fwd_f32.cu` (wgmma + TMA,
@@ -41,6 +42,7 @@ from ..utils.precision import exact_f32
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIM = 64
+PACKED_HEAD_DIMS = (64, 128)  # the inference forward's builds (the others: 64)
 BLOCK = 64  # key rows per step of the online softmax (the kernels' tile)
 
 
@@ -89,7 +91,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(hd), kv-masked) v over (B, T, H, hd) tensors.
 
     CPU tensors: the plain twin. CUDA tensors: the Hopper kernel, which takes
-    bf16 q/k/v with hd == 64, read through their strides by TMA (views into
+    bf16 q/k/v with hd 64 or 128, read through their strides by TMA (views into
     the fused qkv projection need no copy; every stride a multiple of 16
     bytes); anything else raises. The output is a
     new contiguous (B, T, H, hd) tensor. `flash_attention_packed.launches`
@@ -97,8 +99,8 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_packed_plain(q, k, v, kv_mask)
     B, T, H, hd = q.shape
-    if hd != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernel is built for hd={KERNEL_HEAD_DIM}; got {hd}")
+    if hd not in PACKED_HEAD_DIMS:
+        raise ValueError(f"flash kernel is built for hd in {PACKED_HEAD_DIMS}; got {hd}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -128,7 +130,7 @@ def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> None:
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
-            B, T, H, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            B, T, H, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     _build.check(err, what)
 

@@ -1,4 +1,4 @@
-"""DINO and DINOv2 Vision Transformers as a PyTorch `nn.Module`.
+"""DINO, DINOv2 and DINOv3 Vision Transformers as a PyTorch `nn.Module`.
 
 The port of `deep_spectral_tpu.models.vit`. Parameter names are DINO's own
 (`patch_embed.proj`, `blocks.{i}.norm1`, `attn.qkv`, `attn.proj`, `mlp.fc1`,
@@ -17,9 +17,21 @@ bicubic to each image's own patch grid (`grids`), placed at its valid
 positions of a padded bucket. DINO v1 keeps the JAX package's resample to
 the input's whole (bucket) grid and reads no grids.
 
+The DINOv3 family (`family == "dinov3"`; Simeoni et al. 2025,
+facebookresearch/dinov3's `vision_transformer.py`), under DINOv3's names:
+CLS, then `num_registers` storage tokens (`storage_tokens`), then the
+patches, with no positional embedding added anywhere; positions come from
+2D axial RoPE (`models/rope.py`, periods in `rope_embed.periods`) applied
+to q and k of the patch rows after each block's qkv projection, with
+angles from each image's own grid (`grids`); a qkv projection without a
+bias; LayerScale on both branches; the unfused SwiGLU FFN when `ffn ==
+"swiglu64"` (`mlp.w1`, `mlp.w2`, `mlp.w3`, hidden width aligned to 64);
+LayerNorm eps `norm_eps` (1e-5).
+
 Numerics follow the JAX model:
-  * LayerNorm in f32 with eps 1e-6; linear layers and the patch conv in the
-    compute dtype (params stay f32 and are cast per call, as flax does);
+  * LayerNorm in f32 with the configuration's eps (1e-6; DINOv3's 1e-5);
+    linear layers and the patch conv in the compute dtype (params stay f32
+    and are cast per call, as flax does);
   * under bf16 the residual stream is bf16;
   * GELU is exact erf in f32 and the tanh form in bf16;
   * an optional token mask removes padded keys from every attention.
@@ -57,10 +69,12 @@ from ..utils.precision import exact_f32
 from ..utils.profiling import count, span
 from .flash_attention import (FlashAttentionFn, flash_attention_lse,
                               flash_attention_packed)
+from .rope import RopeEmbed, RopePlan, apply_rope_
 
 ATTENTION_IMPLS = ("auto", "einsum", "flash")
-FAMILIES = ("dino", "dinov2")
-FFNS = ("mlp", "swiglufused")
+FAMILIES = ("dino", "dinov2", "dinov3")
+FFNS = ("mlp", "swiglufused", "swiglu64")
+DINOV3_ROPE_BASE = 100.0  # the hub's pos_embed_rope_base
 
 
 @dataclass(frozen=True)
@@ -71,9 +85,11 @@ class ViTConfig:
     num_heads: int
     mlp_ratio: float = 4.0
     img_size: int = 224  # pretraining resolution (defines stored pos_embed grid)
-    family: str = "dino"     # "dinov2": LayerScale, mask token, per-image antialiased positions
-    num_registers: int = 0   # register tokens after CLS
-    ffn: str = "mlp"         # "mlp" (GELU) or "swiglufused" (DINOv2's fused SwiGLU)
+    family: str = "dino"     # "dinov2": LayerScale, mask token, per-image antialiased positions;
+    #                          "dinov3": LayerScale, mask token, RoPE, no positional embedding
+    num_registers: int = 0   # register (DINOv3: storage) tokens after CLS
+    ffn: str = "mlp"         # "mlp" (GELU), "swiglufused" (DINOv2), "swiglu64" (DINOv3, unfused)
+    norm_eps: float = 1e-6   # every LayerNorm's
 
     @property
     def pos_grid(self) -> int:
@@ -101,6 +117,15 @@ VIT_CONFIGS: dict[str, ViTConfig] = {
     # its tiny sibling for tests/CI smoke only — not a reference model
     "test_dinov2_tiny": ViTConfig(14, 128, 2, 2, img_size=70, family="dinov2",
                                   num_registers=4, ffn="swiglufused"),
+    # DINOv3 ViT-7B/16 (torch.hub facebookresearch/dinov3 `dinov3_vit7b16`:
+    # vit_7b, 4 storage tokens, ffn_ratio 3, "swiglu64", qkv_bias False,
+    # "layernormbf16" (eps 1e-5), RoPE base 100 "separate"; img_size does not
+    # apply: no positional embedding)
+    "dinov3_vit7b16": ViTConfig(16, 4096, 40, 32, mlp_ratio=3.0, family="dinov3",
+                                num_registers=4, ffn="swiglu64", norm_eps=1e-5),
+    # its tiny sibling (heads of 128, as the RoPE kernel's) for tests only
+    "test_dinov3_tiny": ViTConfig(16, 256, 2, 2, mlp_ratio=3.0, family="dinov3",
+                                  num_registers=4, ffn="swiglu64", norm_eps=1e-5),
 }
 
 
@@ -112,23 +137,25 @@ def get_model_config(name: str) -> ViTConfig:
 
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
 def _layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
-                        layer.bias, 1e-6)
+                        layer.bias, layer.eps)
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, attention_impl: str = "auto"):
+    def __init__(self, dim: int, num_heads: int, attention_impl: str = "auto",
+                 qkv_bias: bool = True):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}; "
                              f"got {attention_impl!r}")
         self.num_heads = num_heads
         self.attention_impl = attention_impl
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def qkv_heads(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -137,9 +164,17 @@ class Attention(nn.Module):
         return _linear(x, self.qkv, dtype).reshape(B, T, 3, self.num_heads,
                                                    D // self.num_heads)
 
-    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32,
+                rope: Optional[RopePlan] = None):
+        """Returns the output, the projection (B, T, 3, H, hd), its q and k
+        rotated in place by `rope` where given, and the einsum route's
+        probabilities."""
         B, T, D = x.shape
         qkv = self.qkv_heads(x, dtype)
+        if rope is not None:
+            with span("vit.rope"):
+                apply_rope_(qkv, rope)
+                count("vit.rope_rows", 2 * rope.rows)
         out, attn = attend(qkv, token_mask, self.attention_impl, dtype, want_attn)
         out = _linear(out.reshape(B, T, D), self.proj, dtype)
         return out, qkv, attn
@@ -180,10 +215,12 @@ class Mlp(nn.Module):
         return _linear(h, self.fc2, dtype)
 
 
-def swiglu_hidden(dim: int, mlp_ratio: float) -> int:
-    """DINOv2's `SwiGLUFFNFused` hidden width: 2/3 of the MLP's, rounded up
-    to a multiple of 8 (4096 at width 1536)."""
-    return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
+def swiglu_hidden(dim: int, mlp_ratio: float, align: int = 8) -> int:
+    """A SwiGLU FFN's hidden width: 2/3 of the MLP's, rounded up to a
+    multiple of `align`: DINOv2's `SwiGLUFFNFused` (8; 4096 at width 1536),
+    DINOv3's "swiglu64" (64; 8192 at width 4096, ratio 3)."""
+    d = int(int(dim * mlp_ratio) * 2 / 3)
+    return d + (-d % align)
 
 
 class SwiGLUFFN(nn.Module):
@@ -200,6 +237,29 @@ class SwiGLUFFN(nn.Module):
             return _linear(F.silu(a) * b, self.w3, dtype)
 
 
+class UnfusedSwiGLUFFN(nn.Module):
+    """DINOv3's `SwiGLUFFN`: w3(silu(w1 x) * w2 x), one `vit.swiglu` span."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.w1 = nn.Linear(dim, hidden)
+        self.w2 = nn.Linear(dim, hidden)
+        self.w3 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype=torch.float32):
+        with span("vit.swiglu"):
+            return _linear(F.silu(_linear(x, self.w1, dtype)) * _linear(x, self.w2, dtype),
+                           self.w3, dtype)
+
+
+def _ffn(kind: str, dim: int, mlp_ratio: float) -> nn.Module:
+    if kind == "mlp":
+        return Mlp(dim, int(dim * mlp_ratio))
+    if kind == "swiglufused":
+        return SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio))
+    return UnfusedSwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio, align=64))
+
+
 class LayerScale(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -212,34 +272,36 @@ class LayerScale(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 attention_impl: str = "auto", ffn: str = "mlp"):
+                 attention_impl: str = "auto", ffn: str = "mlp", norm_eps: float = 1e-6,
+                 qkv_bias: bool = True):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = Attention(dim, num_heads, attention_impl)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = (Mlp(dim, int(dim * mlp_ratio)) if ffn == "mlp"
-                    else SwiGLUFFN(dim, swiglu_hidden(dim, mlp_ratio)))
+        self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
+        self.attn = Attention(dim, num_heads, attention_impl, qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
+        self.mlp = _ffn(ffn, dim, mlp_ratio)
 
-    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32, rope=None):
         h, qkv, attn = self.attn(_layer_norm(x, self.norm1), token_mask,
-                                 want_attn, dtype)
+                                 want_attn, dtype, rope)
         x = x + h
         x = x + self.mlp(_layer_norm(x, self.norm2), dtype)
         return x, qkv, attn
 
 
 class LayerScaleBlock(Block):
-    """DINOv2's block: each branch scaled by its LayerScale before the add."""
+    """DINOv2's and DINOv3's block: each branch scaled by its LayerScale
+    before the add."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
-                 attention_impl: str = "auto", ffn: str = "mlp"):
-        super().__init__(dim, num_heads, mlp_ratio, attention_impl, ffn)
+                 attention_impl: str = "auto", ffn: str = "mlp", norm_eps: float = 1e-6,
+                 qkv_bias: bool = True):
+        super().__init__(dim, num_heads, mlp_ratio, attention_impl, ffn, norm_eps, qkv_bias)
         self.ls1 = LayerScale(dim)
         self.ls2 = LayerScale(dim)
 
-    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32):
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32, rope=None):
         h, qkv, attn = self.attn(_layer_norm(x, self.norm1), token_mask,
-                                 want_attn, dtype)
+                                 want_attn, dtype, rope)
         x = self.ls1.add(x, h)
         x = self.ls2.add(x, self.mlp(_layer_norm(x, self.norm2), dtype))
         return x, qkv, attn
@@ -252,13 +314,14 @@ class PatchEmbed(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """DINO or DINOv2 ViT. Input: (B, H, W, 3) normalized images, H and W
-    multiples of the patch size. `compute_dtype` is torch.float32 or
+    """DINO, DINOv2 or DINOv3 ViT. Input: (B, H, W, 3) normalized images, H
+    and W multiples of the patch size. `compute_dtype` is torch.float32 or
     torch.bfloat16.
 
     forward returns a dict with 'x_norm' (B, 1+R+N, D; R registers after
     CLS), 'cls' (B, D), 'qkv' ({'q','k','v'}: head-merged (B, 1+R+N, D) of
-    block `qkv_block`),
+    block `qkv_block`; DINOv3's q and k after its RoPE, the operands of the
+    block's attention: `extract_patch_keys` gives the keys before it),
     'intermediates' (the last `n_intermediates` blocks' outputs, normed) and,
     with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block.
     `attention_impl`: 'auto', 'einsum' or 'flash'; `remat`: recompute each
@@ -277,20 +340,34 @@ class VisionTransformer(nn.Module):
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, D)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
-        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid ** 2, D))
-        if cfg.num_registers:
-            self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_registers, D))
-        if cfg.family == "dinov2":
-            self.mask_token = nn.Parameter(torch.zeros(1, D))   # DINOv2's iBOT mask; unused
-        block = LayerScaleBlock if cfg.family == "dinov2" else Block
+        if cfg.family == "dinov3":
+            self.storage_tokens = nn.Parameter(torch.zeros(1, cfg.num_registers, D))
+            self.rope_embed = RopeEmbed(D // cfg.num_heads, DINOV3_ROPE_BASE)
+        else:
+            self.pos_embed = nn.Parameter(torch.zeros(1, 1 + cfg.pos_grid ** 2, D))
+            if cfg.num_registers:
+                self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_registers, D))
+        if cfg.family != "dino":
+            self.mask_token = nn.Parameter(torch.zeros(1, D))   # the iBOT mask; unused
+        block = Block if cfg.family == "dino" else LayerScaleBlock
         self.blocks = nn.ModuleList(
-            [block(D, cfg.num_heads, cfg.mlp_ratio, attention_impl, cfg.ffn)
+            [block(D, cfg.num_heads, cfg.mlp_ratio, attention_impl, cfg.ffn, cfg.norm_eps,
+                   qkv_bias=cfg.family != "dinov3")
              for _ in range(cfg.depth)])
-        self.norm = nn.LayerNorm(D, eps=1e-6)
+        self.norm = nn.LayerNorm(D, eps=cfg.norm_eps)
 
     def precision(self):
         """True f32 for the fp32 model; bf16 runs as bf16."""
         return exact_f32() if self.compute_dtype == torch.float32 else nullcontext()
+
+    def rope_plan(self, grids: Optional[np.ndarray], h: int, w: int, batch: int,
+                  compacted: bool = False) -> Optional[RopePlan]:
+        """The DINOv3 family's RoPE for a batch of an (h, w)-patch input
+        (`RopePlan.make`); None for the other families."""
+        if self.cfg.family != "dinov3":
+            return None
+        return RopePlan.make(self.rope_embed.periods, grids, h, w, batch, self.cfg.num_prefix,
+                             compacted)
 
     def embed(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None,
               pos_embed_override: Optional[torch.Tensor] = None,
@@ -303,7 +380,9 @@ class VisionTransformer(nn.Module):
         own-grid embeddings placed at its valid token positions. `grids`
         ((B, 2) host ints, each image's patch grid inside the input's) gives
         the DINOv2 family those per image (`dinov2_pos_embed`); DINO v1
-        does not read it."""
+        does not read it. The DINOv3 family adds no positional embedding
+        (its positions are RoPE's, in the blocks): CLS, the storage tokens
+        and the patches."""
         cfg, dtype = self.cfg, self.compute_dtype
         B, H, W, _ = x.shape
         P = cfg.patch_size
@@ -314,19 +393,26 @@ class VisionTransformer(nn.Module):
         patches = F.conv2d(x.permute(0, 3, 1, 2).to(dtype), conv.weight.to(dtype),
                            conv.bias.to(dtype), stride=P)
         tokens = patches.flatten(2).transpose(1, 2)
-        if pos_embed_override is not None:
-            pos = pos_embed_override
-        elif cfg.family == "dinov2":
-            pos = dinov2_pos_embed(self.pos_embed, cfg.pos_grid, h, w, grids)
-        else:
-            pos = interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
-        tokens = torch.cat([self.cls_token.expand(B, -1, -1).float(),
-                            tokens.float()], dim=1)
-        tokens = (tokens + pos).to(dtype)
         R = cfg.num_registers
-        if R:
-            tokens = torch.cat([tokens[:, :1], self.register_tokens.to(dtype).expand(B, -1, -1),
-                                tokens[:, 1:]], dim=1)
+        if cfg.family == "dinov3":
+            if pos_embed_override is not None:
+                raise ValueError("the DINOv3 family has no positional embeddings to override")
+            tokens = torch.cat([self.cls_token.to(dtype).expand(B, -1, -1),
+                                self.storage_tokens.to(dtype).expand(B, -1, -1), tokens], dim=1)
+        else:
+            if pos_embed_override is not None:
+                pos = pos_embed_override
+            elif cfg.family == "dinov2":
+                pos = dinov2_pos_embed(self.pos_embed, cfg.pos_grid, h, w, grids)
+            else:
+                pos = interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
+            tokens = torch.cat([self.cls_token.expand(B, -1, -1).float(),
+                                tokens.float()], dim=1)
+            tokens = (tokens + pos).to(dtype)
+            if R:
+                tokens = torch.cat([tokens[:, :1],
+                                    self.register_tokens.to(dtype).expand(B, -1, -1),
+                                    tokens[:, 1:]], dim=1)
         if token_mask is not None:
             token_mask = torch.cat(
                 [torch.ones((B, 1 + R), dtype=torch.bool, device=token_mask.device),
@@ -341,6 +427,8 @@ class VisionTransformer(nn.Module):
         cfg, dtype = self.cfg, self.compute_dtype
         with self.precision():
             tokens, token_mask = self.embed(x, token_mask, pos_embed_override, grids)
+            P = cfg.patch_size
+            rope = self.rope_plan(grids, x.shape[1] // P, x.shape[2] // P, x.shape[0])
             qkv_block = qkv_block % cfg.depth
             qkv_out, attn_out, intermediates = None, None, []
             remat = self.remat and torch.is_grad_enabled()
@@ -348,9 +436,9 @@ class VisionTransformer(nn.Module):
                 want_this = want_attn and i == cfg.depth - 1
                 if remat:
                     tokens, qkv, attn = checkpoint(blk, tokens, token_mask, want_this, dtype,
-                                                   use_reentrant=False)
+                                                   rope, use_reentrant=False)
                 else:
-                    tokens, qkv, attn = blk(tokens, token_mask, want_this, dtype)
+                    tokens, qkv, attn = blk(tokens, token_mask, want_this, dtype, rope)
                 if i == qkv_block:
                     B, T = qkv.shape[:2]
                     qkv_out = {name: qkv[:, :, j].reshape(B, T, -1)
@@ -488,30 +576,33 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
     that block's qkv projection.
 
     Given `grids` ((B, 2) host ints, each image's patch grid; see
-    `VisionTransformer.embed`), a DINOv2-family model runs its blocks on
-    each image's own tokens: after the embedding, the prefix and grid
-    tokens of every image are gathered into a batch of the largest count,
-    the shorter images' tails masked as keys, and the features are
-    scattered back with zeros at the padded positions. A DINOv2 token's
-    result does not depend on the padding (its positions are its own
-    grid's), so the padding's work is dropped, not changed. Without grids,
-    for DINO v1, or where every image fills the bucket, the blocks run on
-    the whole bucket under `token_mask`.
+    `VisionTransformer.embed`), a DINOv2- or DINOv3-family model runs its
+    blocks on each image's own tokens: after the embedding, the prefix and
+    grid tokens of every image are gathered into a batch of the largest
+    count, the shorter images' tails masked as keys, and the features are
+    scattered back with zeros at the padded positions. Such a token's result
+    does not depend on the padding (its positions, DINOv2's embeddings or
+    DINOv3's RoPE angles, are its own grid's), so the padding's work is
+    dropped, not changed. Without grids, for DINO v1, or where every image
+    fills the bucket, the blocks run on the whole bucket under
+    `token_mask`. DINOv3's keys are the last block's before its RoPE (the
+    hub's forward hook on that qkv projection).
 
     One `vit.extract` span, which counts `vit.tokens` (the B x T tokens
     run: compacted, B x Tc), `vit.compacted` (1 for a batch whose blocks ran
     compacted) and, given grids, `vit.tokens_valid` (the prefix and grid
-    tokens of the images with any). Returns (B, N, D) in the compute
-    dtype."""
+    tokens of the images with any); DINOv3's blocks each open a `vit.rope`
+    span. Returns (B, N, D) in the compute dtype."""
     cfg, dtype = model.cfg, model.compute_dtype
     j = "qkv".index(which_features)
     with span("vit.extract"), model.precision():
         tokens, token_mask = model.embed(images, token_mask, grids=grids)
         compact = None
-        if grids is not None and cfg.family == "dinov2":
-            P = cfg.patch_size
-            compact = _Compaction.plan(grids, images.shape[1] // P, images.shape[2] // P,
-                                       cfg.num_prefix, tokens.device)
+        P = cfg.patch_size
+        h, w = images.shape[1] // P, images.shape[2] // P
+        if grids is not None and cfg.family != "dino":
+            compact = _Compaction.plan(grids, h, w, cfg.num_prefix, tokens.device)
+        rope = model.rope_plan(grids, h, w, images.shape[0], compacted=compact is not None)
         if compact is not None:
             tokens, token_mask = compact.tokens(tokens), compact.mask
             count("vit.compacted")
@@ -522,7 +613,7 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
                                           if gh * gw))
         last = which_block % cfg.depth
         for blk in model.blocks[:last]:
-            tokens = blk(tokens, token_mask, False, dtype)[0]
+            tokens = blk(tokens, token_mask, False, dtype, rope)[0]
         blk = model.blocks[last]
         qkv = blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype)
     if compact is not None:

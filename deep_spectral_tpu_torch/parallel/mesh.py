@@ -92,3 +92,13 @@ def replicate(group, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         dist.broadcast(x, dist.get_global_rank(group, src) if group is not None else src,
                        group=group)
     return x
+
+
+def require_dino_v1(cfg, what: str) -> None:
+    """Raise ValueError unless `cfg` (a `ViTConfig`) is a DINO v1 ViT. The
+    sequence-, pipeline- and tensor-parallel forwards size a batch's rows
+    as CLS plus patches and (SP, TP) run a block piece by piece, without
+    register or storage tokens, LayerScale or RoPE: a DINOv2 or DINOv3
+    model would run with wrong features and no error."""
+    if cfg.family != "dino":
+        raise ValueError(f"{what} runs DINO v1 ViTs only; got the {cfg.family!r} family")

@@ -28,7 +28,7 @@ import torch.distributed as dist
 
 from ..models.vit import VisionTransformer, ViTConfig, _layer_norm
 from ..utils.device import resolve_device
-from .mesh import MODEL_AXIS, axis_group, replicate
+from .mesh import MODEL_AXIS, axis_group, replicate, require_dino_v1
 
 
 def build_stage(cfg: ViTConfig, state_dict: dict, mesh, *, axis: str = MODEL_AXIS,
@@ -38,7 +38,8 @@ def build_stage(cfg: ViTConfig, state_dict: dict, mesh, *, axis: str = MODEL_AXI
     depth L holding blocks s L .. s L + L - 1 of the full model's DINO-named
     `state_dict` (renumbered from 0), its front end and its final norm, in
     eval mode on `device` (CUDA unless the caller asks for the CPU; a CUDA
-    device with no card raises RuntimeError)."""
+    device with no card raises RuntimeError). DINO v1 only."""
+    require_dino_v1(cfg, "build_stage")
     device = resolve_device(device, "build_stage")
     group = axis_group(mesh, axis)
     S, s = dist.get_world_size(group), dist.get_rank(group)
@@ -69,7 +70,8 @@ def pp_vit_forward(mesh, stage: VisionTransformer, images: torch.Tensor,
     the same on every rank of the dim. B must divide by n_microbatches
     (default: min(S, B), a full pipeline). Returns {'x_norm': (B, 1+N, D)
     f32, 'cls': (B, D)}, the single-card forward's, on every rank of the
-    dim."""
+    dim. DINO v1 only."""
+    require_dino_v1(stage.cfg, "pp_vit_forward")
     group = axis_group(mesh, axis)
     S, s = dist.get_world_size(group), dist.get_rank(group)
     B, Hi, Wi, _ = images.shape

@@ -28,7 +28,8 @@ from ..ops.affinity import degree_vector
 from ..ops.eigen import _as_vectors, _start_block, spectral_decompose_batched
 from ..ops.lobpcg import lobpcg_standard
 from ..utils.precision import exact_f32
-from .mesh import DATA_AXIS, MODEL_AXIS, axis_group, gather_rows, local_rows
+from .mesh import (DATA_AXIS, MODEL_AXIS, axis_group, gather_rows, local_rows,
+                   require_dino_v1)
 
 
 def _group_or_first(mesh, axis: str):
@@ -123,7 +124,9 @@ def tp_sharded_patch_features(mesh, model: VisionTransformer, images: torch.Tens
     sublayer's row-parallel product with one all-reduce. images (b, H, W, 3)
     and token_mask (b, N) are this rank's block of the batch over the data
     dim of a 2-D mesh (the same on every rank of `axis`). The keys are
-    gathered back along heads: (b, N, D) on every rank of `axis`."""
+    gathered back along heads: (b, N, D) on every rank of `axis`. DINO v1
+    only."""
+    require_dino_v1(model.cfg, "tp_sharded_patch_features")
     group = _group_or_first(mesh, axis)
     n, r = dist.get_world_size(group), dist.get_rank(group)
     cfg, dtype = model.cfg, model.compute_dtype

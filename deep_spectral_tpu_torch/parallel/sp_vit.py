@@ -26,7 +26,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models.vit import VisionTransformer, _layer_norm, _linear
-from .mesh import MODEL_AXIS, axis_group, local_rows, replicate
+from .mesh import MODEL_AXIS, axis_group, local_rows, replicate, require_dino_v1
 from .ring_attention import resolve_impl, ring_attention_local
 
 
@@ -79,8 +79,9 @@ def sp_vit_forward(mesh, model: VisionTransformer, images: torch.Tensor,
     'x_norm' (B, rows, D) f32, 'qkv' {'q', 'k', 'v'} head-merged (B, rows,
     D) f32 of block `qkv_block`, 'intermediates' the final-normed outputs of
     the last `n_intermediates` blocks, and 'cls' (B, D), replicated on every
-    rank of the dim."""
+    rank of the dim. DINO v1 only."""
     cfg, dtype = model.cfg, model.compute_dtype
+    require_dino_v1(cfg, "sp_vit_forward")
     qkv_block = qkv_block % cfg.depth
     with model.precision():
         group, r, tok_l, mask_l, valid = _shard_setup(mesh, axis, model, images, token_mask)
@@ -109,8 +110,9 @@ def sp_patch_features(mesh, model: VisionTransformer, images: torch.Tensor,
     `which_block` over this rank's patch rows (CLS and padding dropped;
     concatenating the ranks' rows gives (B, N, D)), f32. Exits the block
     stack at `which_block`: its keys come from its qkv projection, which
-    neither its attention nor a later block can change."""
+    neither its attention nor a later block can change. DINO v1 only."""
     cfg, dtype = model.cfg, model.compute_dtype
+    require_dino_v1(cfg, "sp_patch_features")
     which_block = which_block % cfg.depth
     with model.precision():
         group, r, tok_l, mask_l, valid = _shard_setup(mesh, axis, model, images, token_mask)

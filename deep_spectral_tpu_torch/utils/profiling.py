@@ -30,10 +30,12 @@ The spans and counters the port opens and counts:
     counters `vit.tokens` (the batch's B x T tokens run, prefix and any
     padding that runs included, from shapes: B x Tc where the blocks run
     compacted), `vit.compacted` (the batches whose blocks ran on each
-    image's own tokens, DINOv2 given grids) and `vit.tokens_valid` (each
-    image's CLS, registers and valid patches, from the grids the caller
-    gives, counted only where it gives them); `vit.swiglu` (a block's SwiGLU
-    FFN: w12, the gate and w3);
+    image's own tokens, DINOv2 or DINOv3 given grids) and
+    `vit.tokens_valid` (each image's CLS, registers and valid patches, from
+    the grids the caller gives, counted only where it gives them);
+    `vit.swiglu` (a block's SwiGLU FFN: w12 or w1 and w2, the gate and w3);
+    `vit.rope` (a DINOv3 block's RoPE on q and k), with its counter
+    `vit.rope_rows` (the q and k patch rows it rotated);
   * eigensolve (`ops/eigen.py`, `ops/lobpcg.py`): `eigs.decompose`,
     `eigs.affinity`, `eigs.cheb` and `eigs.lobpcg` (one iterative solve),
     `eigs.outer` (one Chebyshev outer iteration), `eigs.guard` (the residual

@@ -262,6 +262,139 @@ def test_dinov2_vitg14_reg_ragged_batch_runs_compacted(cuda):
     assert gap32 <= 1e-4
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T", [885, 1205, 1605])
+def test_flash_kernel_hd128_matches_twin(cuda, T, masked):
+    """Kernel 1's head-dim-128 build (DINOv3's 32 heads of 128) on strided
+    views into a fused (B, T, 3, H, 128) projection at stage 1's token
+    counts (the COCO cell's 22x40 + 5, 30x40 + 5 and 40x40 + 5), unmasked
+    and with masked tails (a compacted batch's shorter images, a row with no
+    valid key: exactly 0), against the twin within 1.6e-2, as at hd 64."""
+    g = torch.Generator().manual_seed(T)
+    qkv = torch.randn((3, T, 3, 4, 128), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    mask = _ragged_mask(3, T).to(cuda) if masked else None
+    before = flash_attention_packed.launches
+    out = flash_attention_packed(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    ref = flash_attention_packed_plain(q, k, v, mask)
+    valid = torch.ones(3, dtype=torch.bool, device=cuda) if mask is None else mask.any(dim=1)
+    err = (out[valid].float() - ref[valid].float()).abs().max().item()
+    print(f"hd128 T={T} masked={masked}: max |kernel - twin| {err:.3e}")
+    assert err <= 1.6e-2
+    if masked:
+        assert out[1].abs().max().item() == 0.0
+
+
+def test_flash_kernel_hd128_has_no_lse_build(cuda):
+    """Only the inference forward is built at hd 128: the residual-saving
+    forward raises rather than run another head dim."""
+    x = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_lse(x, x, x)
+    y = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention_packed(y, y, y)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_kernel_matches_twin_on_compacted_batches(cuda, dtype):
+    """The RoPE kernel against its twin run on the same CUDA tensors, on a
+    compacted batch (rows w_b apart: grids 30x40 and 26x40 and a zero-patch
+    row, T = 5 + 1200) and on a bucket-padded one (rows 40 apart in a 32x40
+    bucket): f32 within 1e-5 relative to max(|value|, 1) (torch on the card
+    divides a tensor by a Python number as a product with its reciprocal,
+    the kernel divides, so a coordinate can differ in its last bit; 3.9e-6
+    read on N(0, 1) inputs), bf16 within one bf16 ulp (2^-7 relative); the
+    prefix rows, v, padding and the zero-patch row keep their bits; one
+    launch a call."""
+    from deep_spectral_tpu_torch.models.rope import (RopePlan, apply_rope_,
+                                                     apply_rope_plain_, rope_periods)
+    per = rope_periods(128, 100.0).to(cuda)
+    grids = np.array([[30, 40], [26, 40], [0, 0]])
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for compacted, T in ((True, 5 + 1200), (False, 5 + 32 * 40)):
+        qkv = torch.randn((3, T, 3, 32, 128), generator=g, device=cuda).to(dtype)
+        plan = RopePlan.make(per, grids, 32, 40, 3, 5, compacted)
+        before = apply_rope_.launches
+        got = apply_rope_(qkv.clone(), plan)
+        torch.cuda.synchronize()
+        assert apply_rope_.launches == before + 1
+        ref = apply_rope_plain_(qkv.clone(), plan)
+        diff = (got.float() - ref.float()).abs()
+        tol = (1e-5 if dtype == torch.float32 else 2.0 ** -7) * ref.float().abs().clamp_min(1.0)
+        print(f"rope {dtype} compacted={compacted}: max |kernel - twin| "
+              f"{diff.max().item():.3e}, unequal share {(got != ref).float().mean().item():.2e}")
+        assert (diff <= tol).all()
+        assert torch.equal(got[:, :5], qkv[:, :5]) and torch.equal(got[:, :, 2], qkv[:, :, 2])
+        assert torch.equal(got[2], qkv[2])
+        changed = (got != qkv)[:, 5:, :2].flatten(2).any(-1)
+        rows = torch.zeros_like(changed)
+        for b, (gh, gw, stride) in enumerate(plan.host.tolist()):
+            for i in range(gh):
+                rows[b, i * stride:i * stride + gw] = True
+        assert torch.equal(changed, rows)
+
+
+def test_dinov3_vit7b16_through_both_kernels(cuda):
+    """dinov3_vit7b16 at its published widths and depth (32 heads of 128,
+    width 4096, 40 blocks), on seeded weights drawn as the benchmark draws
+    them: a 640x480 and a 640x427 image (grids 30x40 and 26x40) in one
+    32x40 bucket, bf16, each handed its grid. The blocks run compacted
+    (Tc = 5 + 1200), through kernel 1 at hd 128 and the RoPE kernel (one
+    launch each a block before the last); each image's keys against the
+    f32 reference on its unpadded image within the benchmark cell's 5e-2;
+    the same modules in f32 (RoPE's f32 build, attention on 'einsum') within
+    1e-4, and the reference without RoPE over 100 times further."""
+    import json
+
+    from benchmark import checks
+    from benchmark.drivers.extract_dinov3 import build_vit, port_config, seeded_weights
+    from benchmark.reference import dinov3 as ref_dinov3
+    from benchmark.reference.lowp import tf32_enabled
+    from benchmark.reference.vit import Numerics
+    from deep_spectral_tpu_torch.models.rope import apply_rope_
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                      / "dinov3_vit7b16.json").read_text())
+    sd = seeded_weights(cfg, 2**31 + 7, cuda)
+    model = build_vit(port_config(cfg), sd, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grids = np.array([[30, 40], [26, 40]])
+    images = [torch.randn((gh * 16, gw * 16, 3), generator=gen, device=cuda) for gh, gw in grids]
+    x = torch.zeros((2, 512, 640, 3), device=cuda)
+    mask = torch.zeros((2, 32, 40), dtype=torch.bool, device=cuda)
+    for i, ((gh, gw), im) in enumerate(zip(grids, images)):
+        x[i, :gh * 16, :gw * 16] = im
+        mask[i, :gh, :gw] = True
+    before = flash_attention_packed.launches, apply_rope_.launches
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1), grids=grids)
+    assert (flash_attention_packed.launches, apply_rope_.launches) == (before[0] + 39,
+                                                                       before[1] + 39)
+    k = k.float().reshape(2, 32, 40, -1)
+    assert torch.equal(k[~mask], torch.zeros_like(k[~mask]))
+    del model
+    with tf32_enabled(False):
+        ref = ref_dinov3.patch_keys(sd, cfg, images, Numerics(torch.float32))
+    gap = checks.keys_gap([k[i, :gh, :gw].reshape(gh * gw, -1)
+                           for i, (gh, gw) in enumerate(grids)], ref)
+    model = build_vit(port_config(cfg), sd, cuda, torch.float32, "einsum")
+    k = extract_patch_keys(model, x, token_mask=mask.reshape(2, -1), grids=grids)
+    k = k.reshape(2, 32, 40, -1)
+    del model
+    gap32 = checks.keys_gap([k[i, :gh, :gw].reshape(gh * gw, -1)
+                             for i, (gh, gw) in enumerate(grids)], ref)
+    with tf32_enabled(False):
+        no_rope = ref_dinov3.patch_keys(sd, cfg, images, Numerics(torch.float32), rope="none")
+    far = checks.keys_gap(no_rope, ref)
+    print(f"dinov3_vit7b16 keys_rel_err {gap:.4e}, f32 {gap32:.4e}, without RoPE {far:.4e}")
+    assert gap <= 5e-2
+    assert gap32 <= 1e-4
+    assert far > 100 * gap32
+
+
 def _train_inputs(B, T, dtype, device, seed):
     """A fused (B, T, 3, 6, 64) qkv, a grad of o, and a mask with a ragged
     end, an all-masked batch row and a masked start."""
