@@ -46,9 +46,12 @@ which must pass:
   4. the main path: a seeded random-weight dino_vits16 at 480x480, b24, bf16:
      `extract_patch_keys`, then `spectral_decompose_batched(K=5)` on
      structured features (base + 0.02 * k, rejection-sampled so that every
-     graph converges), 5 steps; the launch counts of both kernels and of the
-     solver's Jacobi eigh (`csrc/small_eigh.cu`, counted at each CUDA graph
-     replay that launches it) must be > 0, every residual <=
+     graph converges), 5 steps after stage 1's CUDA graph is captured;
+     kernel 1 must run 5 x 11 times in the device trace of those steps
+     (torch.profiler; stage 1 replays its graph), as its wrapper counts, the
+     launch counts of kernel 2 and of the solver's Jacobi eigh
+     (`csrc/small_eigh.cu`, counted at each CUDA graph replay that launches
+     it) must be > 0, every residual <=
      CHEB_RESIDUAL_TOL, and the eigenpairs must agree with dense eigh; then
      (4b) that solve through each filter request, 'auto' (the kernel), 'xla'
      (the XLA chain) and f32 matvecs (through `_laplacian_eigs_batched` on
@@ -682,16 +685,23 @@ def phase_main_path(dev) -> tuple[dict, float]:
 
     step, base, cfg, mask, out = main_path_step(dev)
     grid = IMG // cfg.patch_size
+    out = step(base)  # a second call at least: stage 1's CUDA graph is captured
     _zero_launches()
     n_steps = 5
-    for _ in range(n_steps):
-        out = step(base)
-    torch.cuda.synchronize()
-    launches = {"flash": flash_attention_packed.launches,
-                "cheb": chebyshev_filter.launches, "eigh": small_eigh.launches}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_steps):
+            out = step(base)
+        torch.cuda.synchronize()
+    ran = sum(e.count for e in prof.key_averages() if "flash_fwd_packed_kernel" in e.key)
+    launches = {"flash": ran, "cheb": chebyshev_filter.launches, "eigh": small_eigh.launches}
     k, feats, evals, vecs, res = out
+    want = n_steps * (cfg.depth - 1)
     log(f"[4] main path dino_vits16 {IMG}x{IMG} b{B} bf16 K={K}: launches over "
-        f"{n_steps} steps: {launches}")
+        f"{n_steps} steps: {launches}; kernel 1 in the device trace {ran} (11 attending "
+        f"blocks a step: {want}), its wrapper's count {flash_attention_packed.launches}")
+    if ran != want or flash_attention_packed.launches != want:
+        raise AssertionError(f"kernel 1 ran {ran} times on the card and its wrapper counted "
+                             f"{flash_attention_packed.launches}, not {want}")
     if tuple(k.shape) != (B, grid * grid, cfg.embed_dim) or not torch.isfinite(k).all():
         raise AssertionError(f"bad features: {tuple(k.shape)}")
     res_max = res.max().item()

@@ -20,7 +20,10 @@ raises.
     split-TF32 on wgmma and mma.sync), run together by `flash_backward`;
     twin `flash_backward_plain`.
 Each wrapper's `launches` counts its launches in both dtypes,
-`f32_launches` those of its f32 build.
+`f32_launches` those of its f32 build. The two forwards count a call made
+while the kernel's device captures a CUDA graph, which launches nothing, in
+`captured` (`f32_captured`) instead; whoever replays the graph adds its
+captured calls to `launches` (`f32_launches`) at each replay.
 `FlashAttentionFn` is the autograd function over them (the port of
 `flash_attention_trainable`'s custom VJP).
 
@@ -95,7 +98,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the fused qkv projection need no copy; every stride a multiple of 16
     bytes); anything else raises. The output is a
     new contiguous (B, T, H, hd) tensor. `flash_attention_packed.launches`
-    counts kernel launches."""
+    counts kernel launches, `.captured` calls captured into a CUDA graph."""
     if not q.is_cuda:
         return flash_attention_packed_plain(q, k, v, kv_mask)
     B, T, H, hd = q.shape
@@ -111,21 +114,26 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(kv_mask.shape)} on {kv_mask.device}")
         kv_mask = kv_mask.to(torch.bool).contiguous()
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    _launch_packed(q, k, v, kv_mask, out, None, "flash_attention_packed")
-    flash_attention_packed.launches += 1
+    if _launch_packed(q, k, v, kv_mask, out, None, "flash_attention_packed"):
+        flash_attention_packed.captured += 1
+    else:
+        flash_attention_packed.launches += 1
     return out
 
 
-flash_attention_packed.launches = 0
+flash_attention_packed.launches = flash_attention_packed.captured = 0
 
 
-def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> None:
+def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> bool:
     """`csrc/flash_fwd.cu` on checked operands; lse None: the inference
-    build, else the build that also writes the (B, H, T) lse."""
+    build, else the build that also writes the (B, H, T) lse. Returns
+    whether the launch was captured into a CUDA graph (q's device's current
+    stream was capturing)."""
     from .. import _build
     B, T, H, hd = q.shape
     lib = _build.load()
     with torch.cuda.device(q.device):
+        captured = torch.cuda.is_current_stream_capturing()
         err = lib.dss_flash_fwd_packed(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(), out.data_ptr(),
@@ -133,6 +141,7 @@ def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> None:
             B, T, H, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     _build.check(err, what)
+    return captured
 
 
 # ------------------------------------------------ trainable forward / backward
@@ -270,7 +279,8 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     does; anything else raises. Returns o, a new contiguous (B, T, H, hd)
     tensor in q's dtype, and lse, (B, H, T) f32.
     `flash_attention_lse.launches` counts kernel launches (either build),
-    `flash_attention_lse.f32_launches` those of the f32 build."""
+    `flash_attention_lse.f32_launches` those of the f32 build, `.captured`
+    and `.f32_captured` calls captured into a CUDA graph."""
     if not q.is_cuda:
         return flash_attention_lse_plain(q, k, v, kv_mask)
     B, T, H, hd = q.shape
@@ -280,24 +290,33 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_tma(x, name, (B, T, H, hd), q.dtype)
-    if q.dtype == torch.bfloat16:
-        _launch_packed(q, k, v, mask, o, lse, "flash_attention_lse")
+    f32 = q.dtype != torch.bfloat16
+    if not f32:
+        captured = _launch_packed(q, k, v, mask, o, lse, "flash_attention_lse")
     else:
         from .. import _build
         lib = _build.load()
         with torch.cuda.device(dev):
+            captured = torch.cuda.is_current_stream_capturing()
             err = lib.dss_flash_fwd_lse_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if mask is None else mask.data_ptr(), o.data_ptr(), lse.data_ptr(),
                 B, T, H, _strides(q, k, v, o), 1.0 / math.sqrt(hd),
                 torch.cuda.current_stream().cuda_stream)
         _build.check(err, "flash_attention_lse")
-        flash_attention_lse.f32_launches += 1
-    flash_attention_lse.launches += 1
+    if captured:
+        flash_attention_lse.captured += 1
+        if f32:
+            flash_attention_lse.f32_captured += 1
+    else:
+        flash_attention_lse.launches += 1
+        if f32:
+            flash_attention_lse.f32_launches += 1
     return o, lse
 
 
 flash_attention_lse.launches = flash_attention_lse.f32_launches = 0
+flash_attention_lse.captured = flash_attention_lse.f32_captured = 0
 
 
 def _bwd_operands(q, k, v, kv_mask, do, lse, di):

@@ -23,7 +23,8 @@ not depend on the bucket's padding.
 bf16 or f32; angles computed in the kernel from each row's patch index and
 its image's grid, no table in memory), on CPU tensors its plain twin
 `apply_rope_plain_`; anything else raises. `apply_rope_.launches` counts
-kernel launches.
+kernel launches, `apply_rope_.captured` calls captured into a CUDA graph
+(which launch nothing; whoever replays the graph adds them to `launches`).
 """
 from __future__ import annotations
 
@@ -140,12 +141,16 @@ def apply_rope_(qkv: torch.Tensor, plan: RopePlan) -> torch.Tensor:
     from .. import _build
     lib = _build.load()
     with torch.cuda.device(qkv.device):
+        captured = torch.cuda.is_current_stream_capturing()
         err = lib.dss_rope_rotate(qkv.data_ptr(), int(qkv.dtype == torch.float32),
                                   plan.grids.data_ptr(), periods.data_ptr(),
                                   B, T, plan.prefix, H, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "apply_rope_")
-    apply_rope_.launches += 1
+    if captured:
+        apply_rope_.captured += 1
+    else:
+        apply_rope_.launches += 1
     return qkv
 
 
-apply_rope_.launches = 0
+apply_rope_.launches = apply_rope_.captured = 0

@@ -54,6 +54,7 @@ needs. No block draws random numbers, so the recomputation is exact.
 from __future__ import annotations
 
 import math
+import weakref
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
@@ -75,6 +76,19 @@ ATTENTION_IMPLS = ("auto", "einsum", "flash")
 FAMILIES = ("dino", "dinov2", "dinov3")
 FFNS = ("mlp", "swiglufused", "swiglu64")
 DINOV3_ROPE_BASE = 100.0  # the hub's pos_embed_rope_base
+
+# `extract_patch_keys` replays stage 1's forward from a CUDA graph where B x T
+# x D, the activations one elementwise op of it touches (batch, tokens run,
+# width), is below this. There a bf16 elementwise pass at HBM's rate (2^25
+# elements read and written, 134 MB at 3.35 TB/s: ~40 us) takes no longer
+# than the host takes to issue its launch (~40 us a launch on the
+# benchmark's H100 host), so the issue of the forward's launches (~290 at
+# ViT-S/16) sets its pace, and one replay in their place is the saving.
+# Above it the device sets the pace, and a graph would only add its
+# capture's device-wide synchronize and a second pool of activations. At
+# b24: ViT-S/16 (9.4M) and ViT-S/8 (28.3M) replay; DINOv2 ViT-g/14 (42.8M
+# compacted) and DINOv3 ViT-7B/16 (~118M) stay eager.
+VIT_GRAPH_MAX_ELEMENTS = 1 << 25
 
 
 @dataclass(frozen=True)
@@ -369,6 +383,32 @@ class VisionTransformer(nn.Module):
         return RopePlan.make(self.rope_embed.periods, grids, h, w, batch, self.cfg.num_prefix,
                              compacted)
 
+    def pos_table(self, h: int, w: int, grids: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The positional embeddings `embed` adds to an (h, w)-patch input:
+        the DINOv2 family's per image (`dinov2_pos_embed`), DINO v1's the
+        bucket's (`interpolate_pos_embed`). On the card and with no gradient
+        to take, the model keeps the last table it made and hands it to the
+        next call of the same input while `pos_embed` is unchanged (its
+        device, dtype, data pointer and version): the resample is a dozen
+        launches for the host to issue on every forward. The CPU resamples
+        on every call."""
+        cfg, pos = self.cfg, self.pos_embed
+        if not pos.is_cuda or (torch.is_grad_enabled() and pos.requires_grad):
+            return self._resample_pos(h, w, grids)
+        reads = grids is not None and cfg.family == "dinov2"
+        key = (h, w, tuple(np.asarray(grids).ravel().tolist()) if reads else None,
+               pos.device, pos.dtype, pos.data_ptr(), pos._version)
+        held = self.__dict__.get("_pos_held")
+        if held is None or held[0] != key:
+            held = self.__dict__["_pos_held"] = (key, self._resample_pos(h, w, grids))
+        return held[1]
+
+    def _resample_pos(self, h: int, w: int, grids: Optional[np.ndarray]) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.family == "dinov2":
+            return dinov2_pos_embed(self.pos_embed, cfg.pos_grid, h, w, grids)
+        return interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
+
     def embed(self, x: torch.Tensor, token_mask: Optional[torch.Tensor] = None,
               pos_embed_override: Optional[torch.Tensor] = None,
               grids: Optional[np.ndarray] = None):
@@ -400,12 +440,8 @@ class VisionTransformer(nn.Module):
             tokens = torch.cat([self.cls_token.to(dtype).expand(B, -1, -1),
                                 self.storage_tokens.to(dtype).expand(B, -1, -1), tokens], dim=1)
         else:
-            if pos_embed_override is not None:
-                pos = pos_embed_override
-            elif cfg.family == "dinov2":
-                pos = dinov2_pos_embed(self.pos_embed, cfg.pos_grid, h, w, grids)
-            else:
-                pos = interpolate_pos_embed(self.pos_embed, cfg.pos_grid, h, w)
+            pos = (pos_embed_override if pos_embed_override is not None
+                   else self.pos_table(h, w, grids))
             tokens = torch.cat([self.cls_token.expand(B, -1, -1).float(),
                                 tokens.float()], dim=1)
             tokens = (tokens + pos).to(dtype)
@@ -543,10 +579,15 @@ class _Compaction:
              device: torch.device) -> Optional["_Compaction"]:
         """The compaction of a batch of `grids` in an (h, w)-patch bucket, or
         None where every image fills the bucket."""
-        g = np.asarray(grids).reshape(-1, 2)
-        if int((g[:, 0] * g[:, 1]).max()) == h * w:
+        if not cls.needed(grids, h, w):
             return None
-        return cls(g, h, w, prefix, device)
+        return cls(grids, h, w, prefix, device)
+
+    @staticmethod
+    def needed(grids: np.ndarray, h: int, w: int) -> bool:
+        """Whether an image of `grids` leaves part of the (h, w)-patch bucket."""
+        g = np.asarray(grids).reshape(-1, 2)
+        return int((g[:, 0] * g[:, 1]).max()) != h * w
 
     def tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, T, D) bucket tokens -> (B, Tc, D) compacted."""
@@ -563,6 +604,171 @@ class _Compaction:
         out = x.new_zeros((self.B * self.N, x.shape[1]))
         out.index_copy_(0, self.dst, x.index_select(0, self.src))
         return out.reshape(self.B, self.N, -1)
+
+
+def graphs_forward(batch: int, tokens: int, width: int) -> bool:
+    """Whether stage 1's forward of `batch` images of `tokens` tokens of
+    `width` features is paced by the host's issue, and so replayed from a
+    CUDA graph on the card (VIT_GRAPH_MAX_ELEMENTS)."""
+    return batch * tokens * width < VIT_GRAPH_MAX_ELEMENTS
+
+
+def _forward(model: VisionTransformer, images: torch.Tensor, last: int,
+             token_mask: Optional[torch.Tensor], grids: Optional[np.ndarray]):
+    """`extract_patch_keys`'s forward as far as block `last`'s qkv
+    projection: (qkv (B, T, 3, H, hd), the batch's `_Compaction` or None)."""
+    cfg, dtype = model.cfg, model.compute_dtype
+    with model.precision():
+        tokens, token_mask = model.embed(images, token_mask, grids=grids)
+        compact = None
+        P = cfg.patch_size
+        h, w = images.shape[1] // P, images.shape[2] // P
+        if grids is not None and cfg.family != "dino":
+            compact = _Compaction.plan(grids, h, w, cfg.num_prefix, tokens.device)
+        rope = model.rope_plan(grids, h, w, images.shape[0], compacted=compact is not None)
+        if compact is not None:
+            tokens, token_mask = compact.tokens(tokens), compact.mask
+        for blk in model.blocks[:last]:
+            tokens = blk(tokens, token_mask, False, dtype, rope)[0]
+        blk = model.blocks[last]
+        return blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype), compact
+
+
+def _keys(qkv: torch.Tensor, compact: Optional[_Compaction], j: int,
+          prefix: int) -> torch.Tensor:
+    """Feature j (0 q, 1 k, 2 v) of qkv, head-merged, the `prefix` tokens
+    dropped, in the bucket's layout: (B, N, D)."""
+    if compact is not None:
+        return compact.patches(qkv[:, :, j])
+    B, T = qkv.shape[:2]
+    return qkv[:, prefix:, j].reshape(B, T - prefix, -1)
+
+
+def forward_key(model: VisionTransformer, images: torch.Tensor, last: int, j: int,
+                token_mask: Optional[torch.Tensor],
+                grids: Optional[np.ndarray]) -> Optional[tuple]:
+    """What fixes the kernels and the addresses of `extract_patch_keys`'s
+    forward, the key of its CUDA graph: the input's shape, dtype and
+    device, the mask's, the block and feature, the grids where the
+    embedding reads them (DINO v1 reads none), the compute dtype, the
+    version of `pos_embed` (whose table the graph holds: a write to it, as
+    `load_state_dict` makes, changes the key) and the data pointers of the
+    model's parameters and buffers (a replay reads their values; `.to()`
+    or a replaced tensor changes the key). None where the forward is not
+    graphed: the host's issue does not set its pace (`graphs_forward`), or
+    it uploads a plan the host makes per call (a `_Compaction`, DINOv3's
+    `RopePlan`), whose host buffer a capture would keep."""
+    cfg = model.cfg
+    B, H, W = images.shape[:3]
+    h, w = H // cfg.patch_size, W // cfg.patch_size
+    if not graphs_forward(B, cfg.num_prefix + h * w, cfg.embed_dim):
+        return None
+    reads_grids = grids is not None and cfg.family != "dino"
+    if cfg.family == "dinov3" or (reads_grids and _Compaction.needed(grids, h, w)):
+        return None
+    return (tuple(images.shape), images.dtype, images.device,
+            None if token_mask is None else (tuple(token_mask.shape), token_mask.dtype,
+                                             token_mask.device),
+            last, j, tuple(np.asarray(grids).ravel().tolist()) if reads_grids else None,
+            model.compute_dtype, model.pos_embed._version, _data_pointers(model))
+
+
+def _data_pointers(module: nn.Module) -> tuple:
+    """The data pointers of the module's parameters and buffers, its
+    submodules' included (a walk of the tree: `parameters()` takes ~4x as
+    long, 0.6 ms at ViT-S/16)."""
+    out, stack = [], [module]
+    while stack:
+        mod = stack.pop()
+        out += [t.data_ptr() for t in (*mod._parameters.values(), *mod._buffers.values())
+                if t is not None]
+        stack += mod._modules.values()
+    return tuple(out)
+
+
+class GraphPolicy:
+    """A model's stage-1 CUDA graph (`forward`, a `_GraphedForward` or
+    None) and its capture policy: `step(key)` says what a call of `key`
+    does. A key is captured at its second consecutive use and replayed
+    while the model holds its graph; the model holds one graph, which the
+    next capture replaces. So memory stays at one forward's pool, and a
+    stream of changing keys stays eager."""
+
+    def __init__(self):
+        self.captured: Optional[tuple] = None   # the key of `forward`
+        self.last: Optional[tuple] = None       # the key of the model's last graphable call
+        self.forward = None
+
+    def step(self, key: tuple) -> str:
+        """'replay', 'capture' (run eagerly, then capture) or 'eager'."""
+        if key == self.captured:
+            action = "replay"
+        elif key == self.last:
+            self.captured, action = key, "capture"
+        else:
+            action = "eager"
+        self.last = key
+        return action
+
+
+# The kernel wrappers a stage-1 forward calls. Each counts its launches in
+# `launches` and a call captured into a CUDA graph, which launches nothing,
+# in `captured` (kernel 3 its f32 build's apart, in `f32_launches` and
+# `f32_captured`); a replay adds what its capture counted to `launches`.
+_KERNELS = (flash_attention_packed, flash_attention_lse, apply_rope_)
+
+
+def _captured() -> list:
+    return [(f.captured, getattr(f, "f32_captured", 0)) for f in _KERNELS]
+
+
+class _GraphedForward:
+    """Stage 1's forward and keys (`_forward`, `_keys`) of one
+    `forward_key`, replayed from a CUDA graph: each call copies the
+    caller's images and mask into the static inputs, replays, and hands
+    back a copy of the keys (the graph's buffer is the next replay's
+    output). Captured on the images' device, on a stream of its own there,
+    on static inputs holding the capturing call's values, after that call
+    ran eagerly; `tokens` is its count of the tokens run. The graph reads
+    the positional table that call made (`pos_table`, held here; the key
+    holds `pos_embed`'s version) and runs no resample."""
+
+    def __init__(self, model: VisionTransformer, last: int, j: int,
+                 grids: Optional[np.ndarray], images: torch.Tensor,
+                 token_mask: Optional[torch.Tensor], tokens: int):
+        self.tokens = tokens
+        self.images = images.clone()
+        self.token_mask = None if token_mask is None else token_mask.clone()
+        P = model.cfg.patch_size
+        self.pos = model.pos_table(images.shape[1] // P, images.shape[2] // P, grids)
+        launched, captured = [f.launches for f in _KERNELS], _captured()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(images.device), \
+                torch.cuda.graph(self.graph, stream=torch.cuda.Stream(images.device),
+                                 capture_error_mode="thread_local"):
+            qkv = _forward(model, self.images, last, self.token_mask, grids)[0]
+            self.keys = _keys(qkv, None, j, model.cfg.num_prefix)
+        if [f.launches for f in _KERNELS] != launched:
+            raise RuntimeError(f"stage 1's capture on {images.device} launched kernels "
+                               f"outside its graph")
+        self.captured = [(a - b, a32 - b32) for (a, a32), (b, b32) in zip(_captured(), captured)]
+
+    def __call__(self, images: torch.Tensor, token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        with torch.cuda.device(images.device):
+            self.images.copy_(images)
+            if token_mask is not None:
+                self.token_mask.copy_(token_mask)
+            self.graph.replay()
+            keys = self.keys.clone()
+        for f, (n, n32) in zip(_KERNELS, self.captured):
+            f.launches += n
+            if n32:
+                f.f32_launches += n32
+        return keys
+
+
+_model_graphs: "weakref.WeakKeyDictionary[VisionTransformer, GraphPolicy]" = \
+    weakref.WeakKeyDictionary()
 
 
 @torch.no_grad()
@@ -588,36 +794,48 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
     `token_mask`. DINOv3's keys are the last block's before its RoPE (the
     hub's forward hook on that qkv projection).
 
+    On the card, a forward that `forward_key` keys (one whose host issue
+    sets its pace) is replayed from a CUDA graph under the model's
+    `GraphPolicy` (`_GraphedForward`): the eager forward's kernels in its
+    order on the same data, so the keys are bit-equal to the eager
+    forward's.
+
     One `vit.extract` span, which counts `vit.tokens` (the B x T tokens
     run: compacted, B x Tc), `vit.compacted` (1 for a batch whose blocks ran
-    compacted) and, given grids, `vit.tokens_valid` (the prefix and grid
-    tokens of the images with any); DINOv3's blocks each open a `vit.rope`
-    span. Returns (B, N, D) in the compute dtype."""
-    cfg, dtype = model.cfg, model.compute_dtype
+    compacted), `vit.graph_replays` (1 for a call that a replay served),
+    `vit.graph_captures` (1 for a call that captured a graph) and, given
+    grids, `vit.tokens_valid` (the prefix and grid tokens of the images with
+    any); DINOv3's blocks each open a `vit.rope` span. Returns (B, N, D) in
+    the compute dtype."""
+    cfg = model.cfg
     j = "qkv".index(which_features)
-    with span("vit.extract"), model.precision():
-        tokens, token_mask = model.embed(images, token_mask, grids=grids)
+    last = which_block % cfg.depth
+    with span("vit.extract"):
+        key = forward_key(model, images, last, j, token_mask, grids) if images.is_cuda else None
+        graphs = None if key is None else _model_graphs.setdefault(model, GraphPolicy())
+        action = "eager" if graphs is None else graphs.step(key)
         compact = None
-        P = cfg.patch_size
-        h, w = images.shape[1] // P, images.shape[2] // P
-        if grids is not None and cfg.family != "dino":
-            compact = _Compaction.plan(grids, h, w, cfg.num_prefix, tokens.device)
-        rope = model.rope_plan(grids, h, w, images.shape[0], compacted=compact is not None)
+        if action == "replay":
+            keys, tokens = graphs.forward(images, token_mask), graphs.forward.tokens
+        else:
+            qkv, compact = _forward(model, images, last, token_mask, grids)
+            tokens = qkv.shape[0] * qkv.shape[1]
+        if action == "capture":
+            graphs.forward = None     # the old graph's pool goes before the new capture
+            try:
+                graphs.forward = _GraphedForward(model, last, j, grids, images, token_mask,
+                                                 tokens)
+            except BaseException:
+                graphs.captured = None
+                raise
+            count("vit.graph_captures")
         if compact is not None:
-            tokens, token_mask = compact.tokens(tokens), compact.mask
             count("vit.compacted")
-        count("vit.tokens", tokens.shape[0] * tokens.shape[1])
+        count("vit.tokens", tokens)
+        if action == "replay":
+            count("vit.graph_replays")
         if grids is not None:
             count("vit.tokens_valid", sum(cfg.num_prefix + int(gh) * int(gw)
                                           for gh, gw in np.asarray(grids).reshape(-1, 2)
                                           if gh * gw))
-        last = which_block % cfg.depth
-        for blk in model.blocks[:last]:
-            tokens = blk(tokens, token_mask, False, dtype, rope)[0]
-        blk = model.blocks[last]
-        qkv = blk.attn.qkv_heads(_layer_norm(tokens, blk.norm1), dtype)
-    if compact is not None:
-        return compact.patches(qkv[:, :, j])
-    B, T = qkv.shape[:2]
-    n = cfg.num_prefix
-    return qkv[:, n:, j].reshape(B, T - n, -1)
+    return keys if action == "replay" else _keys(qkv, compact, j, cfg.num_prefix)

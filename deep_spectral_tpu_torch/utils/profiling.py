@@ -30,9 +30,11 @@ The spans and counters the port opens and counts:
     counters `vit.tokens` (the batch's B x T tokens run, prefix and any
     padding that runs included, from shapes: B x Tc where the blocks run
     compacted), `vit.compacted` (the batches whose blocks ran on each
-    image's own tokens, DINOv2 or DINOv3 given grids) and
+    image's own tokens, DINOv2 or DINOv3 given grids),
     `vit.tokens_valid` (each image's CLS, registers and valid patches, from
-    the grids the caller gives, counted only where it gives them);
+    the grids the caller gives, counted only where it gives them),
+    `vit.graph_replays` (the calls that a CUDA graph's replay served) and
+    `vit.graph_captures` (the calls that captured one);
     `vit.swiglu` (a block's SwiGLU FFN: w12 or w1 and w2, the gate and w3);
     `vit.rope` (a DINOv3 block's RoPE on q and k), with its counter
     `vit.rope_rows` (the q and k patch rows it rotated);
@@ -87,9 +89,11 @@ def recording() -> bool:
 
 def span(name: str):
     """A named range of the port's work (see the module docstring); a no-op
-    unless `torch.profiler` is recording. Not to be opened inside a CUDA
-    graph capture (no events are recorded there)."""
-    if not recording():
+    unless `torch.profiler` is recording, and while the current stream
+    captures a CUDA graph (a replay runs no host code: its work is the
+    span the replay is issued in)."""
+    if not recording() or (torch.cuda.is_initialized()
+                           and torch.cuda.is_current_stream_capturing()):
         return _OFF
     return _traced_span(name)
 
@@ -103,7 +107,7 @@ def _traced_span(name: str):
         with _records_lock:
             _records.append(rec)
             stack.append(len(_records) - 1)
-        timed = torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing()
+        timed = torch.cuda.is_initialized()
         if timed:
             start = torch.cuda.Event(enable_timing=True)
             start.record()

@@ -8,10 +8,11 @@ runs where JAX is not installed:
 Tolerances: the Jacobi eigh (`ops/small_eigh.py`, f64 inside, f32 out)
 against f64 eigh: eigenvalues and ||A V - V diag(w)|| within 8 eps ||A||_2,
 ||V^T V - I|| within 4 m eps (f32 eps; the rounding of m entries a column,
-with room). The solver's CUDA graphs replay the eager step's kernels:
-bitwise equal. Flash outputs are bf16 of magnitude <~2 (ulp 2^-7) and the
-kernel rounds p to bf16 at running maxima where the twin uses the row max:
-1.6e-2. The trainable kernels (forward with lse, dKV, dQ) in f32: 1e-4 (the
+with room). The solver's CUDA graphs replay the eager step's kernels, and
+stage 1's graphed ViT the eager forward's: bitwise equal. Flash outputs are
+bf16 of magnitude <~2 (ulp 2^-7) and the kernel rounds p to bf16 at running
+maxima where the twin uses the row max: 1.6e-2. The trainable kernels
+(forward with lse, dKV, dQ) in f32: 1e-4 (the
 twins are true f32; the three kernels run split-TF32 products, ~21
 significant bits each; summation order differs); in
 bf16: 1e-2 on o and 2e-2
@@ -913,3 +914,202 @@ def test_graphed_continuation_matches_the_eager_one(cuda, monkeypatch):
         assert total("eigs.rr_graph_captures", "eigs.cheb") == captures
         assert total("eigs.rr_graph_captures", "eigs.continue") == 0
         assert total("eigs.rr_graph_replays", "eigs.continue") == 4 * (rounds - 1)
+
+
+def _vits16(cuda, dtype=torch.bfloat16, seed=0):
+    """dino_vits16 at its published widths on seeded weights, on the card."""
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.vit import VisionTransformer, get_model_config
+    model = VisionTransformer(get_model_config("dino_vits16"), dtype)
+    return random_init_(model, seed=seed).to(cuda).eval()
+
+
+def _stage1_batch(cuda, seed, B=24, grid=(32, 32), masked=True):
+    """B normalized images of `grid` patches (a 512x512 bucket: T = 1025)
+    and, masked, token masks of each image's valid grid, 20-32 patches a
+    side, drawn from `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, 16 * grid[0], 16 * grid[1], 3), generator=g)
+    if not masked:
+        return x.to(cuda), None
+    mask = torch.zeros((B, *grid), dtype=torch.bool)
+    for b, (h, w) in enumerate(torch.randint(20, 33, (B, 2), generator=g).tolist()):
+        mask[b, :min(h, grid[0]), :min(w, grid[1])] = True
+    return x.to(cuda), mask.reshape(B, -1).to(cuda)
+
+
+def _eager_keys(model, x, mask):
+    """Stage 1's keys from the eager forward, past the graph policy."""
+    from deep_spectral_tpu_torch.models import vit
+    with torch.no_grad():
+        qkv, _ = vit._forward(model, x, model.cfg.depth - 1, mask, None)
+        return vit._keys(qkv, None, 1, model.cfg.num_prefix)
+
+
+def _graph_counts():
+    from deep_spectral_tpu_torch.utils import profiling
+    t = profiling.totals()
+    return t.get("vit.graph_captures", 0), t.get("vit.graph_replays", 0)
+
+
+def _delta(before):
+    return tuple(a - b for a, b in zip(_graph_counts(), before))
+
+
+@pytest.mark.parametrize("dtype,B,masked", [(torch.bfloat16, 24, True),
+                                            (torch.float32, 1, False)])
+def test_graphed_stage1_is_bitwise_the_eager_forward(cuda, dtype, B, masked):
+    """ViT-S/16 at b24 T=1025 in bf16 (the benchmark's stage 1: kernel 1),
+    and one unmasked image in f32 (the on-the-fly LOST call: kernel 3's f32
+    build): five calls on other images and masks, the first eager, the
+    second eager then captured, the rest replayed: each call's keys bitwise
+    the eager forward's, the keys of every call unchanged by the replays
+    after it, one capture and three replays counted, and the attention
+    kernel's launches counted as the eager forward counts them."""
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    model = _vits16(cuda, dtype)
+    batches = [_stage1_batch(cuda, seed, B, masked=masked) for seed in range(5)]
+    refs = [_eager_keys(model, x, m) for x, m in batches]
+    kernel = flash_attention_packed if dtype == torch.bfloat16 else flash_attention_lse
+    before, launches, captured = _graph_counts(), kernel.launches, kernel.captured
+    got = [extract_patch_keys(model, x, token_mask=m) for x, m in batches]
+    torch.cuda.synchronize()
+    assert _delta(before) == (1, 3)
+    assert kernel.launches - launches == 5 * (model.cfg.depth - 1)
+    assert kernel.captured - captured == model.cfg.depth - 1
+    for k, ref in zip(got, refs):
+        assert k.dtype == dtype and torch.equal(k, ref)
+    assert len({k.data_ptr() for k in got}) == len(got)
+    assert not any(torch.equal(a, b) for a, b in zip(got[2:], got[1:]))
+
+
+def test_graphed_stage1_recaptures_a_new_shape(cuda):
+    """After b24 T=1025 is captured, a batch of another shape (480x480,
+    T=901) runs eagerly, its second call captures in the first's place and
+    its third replays; the first shape then runs eagerly again. Every
+    call's keys bitwise the eager forward's."""
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    model = _vits16(cuda)
+    big = [_stage1_batch(cuda, s) for s in range(3)]
+    small = [_stage1_batch(cuda, 10 + s, grid=(30, 30)) for s in range(3)]
+    calls = big + small + big[:1]
+    refs = [_eager_keys(model, x, m) for x, m in calls]
+    steps = []
+    for (x, m), ref in zip(calls, refs):
+        before = _graph_counts()
+        assert torch.equal(extract_patch_keys(model, x, token_mask=m), ref)
+        steps.append(_delta(before))
+    assert steps == [(0, 0), (1, 0), (0, 1), (0, 0), (1, 0), (0, 1), (0, 0)]
+
+
+def test_graphed_stage1_reads_new_weights(cuda):
+    """A captured model replays with weights written in place; given
+    other weights by `load_state_dict` (which writes `pos_embed`, whose
+    table the graph holds) or moved off the card and back (new parameter
+    tensors), it runs eagerly, then captures again. Every call's keys
+    bitwise those weights' eager forward's."""
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    model = _vits16(cuda, seed=0)
+    x, m = _stage1_batch(cuda, 0)
+    for _ in range(3):
+        extract_patch_keys(model, x, token_mask=m)
+    with torch.no_grad():
+        model.blocks[3].mlp.fc1.weight.mul_(1.5)
+    scaled = _eager_keys(model, x, m)
+    before = _graph_counts()
+    assert torch.equal(extract_patch_keys(model, x, token_mask=m), scaled)
+    assert _delta(before) == (0, 1)
+    other = _vits16(cuda, seed=1)
+    for change in (lambda: model.load_state_dict(other.state_dict()),
+                   lambda: model.cpu().to(cuda)):
+        change()
+        ref = _eager_keys(model, x, m)
+        assert not torch.equal(ref, scaled)
+        steps = []
+        for _ in range(3):
+            before = _graph_counts()
+            assert torch.equal(extract_patch_keys(model, x, token_mask=m), ref)
+            steps.append(_delta(before))
+        assert steps == [(0, 0), (1, 0), (0, 1)]
+
+
+def test_graphed_stage1_opens_no_span_inside_the_graph(cuda):
+    """Traced, a DINOv2-family model small enough to replay (its SwiGLU FFN
+    opens a `vit.swiglu` span a block): the eager call and the capturing
+    call each open `vit.extract` and a `vit.swiglu` in each block before
+    the last, the capture itself none; a replay opens `vit.extract` alone,
+    which counts the replay and the tokens run. The three calls' keys are
+    bitwise equal."""
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.vit import (VisionTransformer, extract_patch_keys,
+                                                    get_model_config)
+    from deep_spectral_tpu_torch.utils import profiling
+    cfg = get_model_config("test_dinov2_tiny")
+    model = random_init_(VisionTransformer(cfg, torch.bfloat16), seed=0).to(cuda).eval()
+    x = torch.randn((2, 5 * 14, 6 * 14, 3), generator=torch.Generator().manual_seed(0)).to(cuda)
+    grids = np.array([[5, 6], [5, 6]])
+    profiling.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        keys = [extract_patch_keys(model, x, grids=grids) for _ in range(3)]
+    recs = profiling.records()
+    profiling.clear()
+    blocks = cfg.depth - 1
+    assert [r["name"] for r in recs] == \
+        (["vit.extract"] + ["vit.swiglu"] * blocks) * 2 + ["vit.extract"]
+    tokens = 2 * (cfg.num_prefix + 5 * 6)
+    assert recs[1 + blocks]["counts"] == {"vit.tokens": tokens, "vit.graph_captures": 1,
+                                          "vit.tokens_valid": tokens}
+    assert recs[-1]["counts"] == {"vit.tokens": tokens, "vit.graph_replays": 1,
+                                  "vit.tokens_valid": tokens}
+    assert torch.equal(keys[1], keys[0]) and torch.equal(keys[2], keys[0])
+
+
+def test_graphed_stage1_on_a_device_that_is_not_current(cuda):
+    """A model and its images on the second card while the first is
+    current: the capture and the replays run on the second card, so every
+    call's keys are bitwise its eager forward's there (a graph captured on
+    the current device's stream would be empty, and would hand back the
+    capturing call's keys at every replay)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    second = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        model = _vits16(second)
+        batches = [_stage1_batch(second, seed) for seed in range(4)]
+        refs = [_eager_keys(model, x, m) for x, m in batches]
+        before = _graph_counts()
+        got = [extract_patch_keys(model, x, token_mask=m) for x, m in batches]
+        torch.cuda.synchronize(second)
+        assert torch.cuda.current_device() == 0
+    assert _delta(before) == (1, 2)
+    for k, ref in zip(got, refs):
+        assert k.device == second and torch.equal(k, ref)
+
+
+def test_positional_table_is_held_on_the_card(cuda):
+    """Without a gradient to take, `pos_table` hands back the table it
+    made last for the same input while `pos_embed` is unchanged, to
+    `model(...)` and `extract_patch_keys` alike, and a graphed forward
+    reads that table; a write to `pos_embed` or another input size makes
+    a new one, and with a gradient each call resamples, so the gradient
+    reaches `pos_embed`. Every table bitwise the resample's."""
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    model = _vits16(cuda)
+    x, m = _stage1_batch(cuda, 0)
+    with torch.no_grad():
+        table = model.pos_table(32, 32)
+        assert torch.equal(table, model._resample_pos(32, 32, None))
+        model(x, token_mask=m)
+        for _ in range(3):
+            extract_patch_keys(model, x, token_mask=m)
+        assert model.pos_table(32, 32) is table
+        other = model.pos_table(30, 30)
+        assert other is not table and model.pos_table(30, 30) is other
+        model.pos_embed.mul_(1.5)
+        scaled = model.pos_table(30, 30)
+        assert scaled is not other and torch.equal(scaled, model._resample_pos(30, 30, None))
+    tables = [model.pos_table(30, 30) for _ in range(2)]
+    assert tables[0] is not tables[1] and tables[0].requires_grad
+    tables[0].sum().backward()
+    assert model.pos_embed.grad is not None and model.pos_embed.grad.abs().sum() > 0
