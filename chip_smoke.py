@@ -10,9 +10,9 @@ which must pass:
      `deep_spectral_tpu_torch/csrc/` (nvcc) and read the ptxas log: the
      wgmma kernels and the filter's two must not spill registers; count the
      tensor-core instructions in the SASS (`cuobjdump -sass` on the built
-     library) of the eight wgmma kernels: HGMMA in the packed flash
-     forward (hd 64 and 128), its lse-writing build, the bf16 dKV and dQ
-     kernels, and TF32
+     library) of the nine wgmma kernels: HGMMA in the packed flash
+     forward (hd 64 and 128), its hd-80 build with the rel-pos bias, its
+     lse-writing build, the bf16 dKV and dQ kernels, and TF32
      HGMMA or HMMA in the split-TF32 f32 builds of kernel 3
      (`flash_fwd_f32.cu`), kernel 4 (`flash_bwd_dkv_f32.cu`) and kernel 5
      (`flash_bwd_dq_f32.cu`), each count > 0; and the TMA loads (UTMALDG)
@@ -72,7 +72,16 @@ which must pass:
      blocks run compacted, kernel 1 and the RoPE kernel each launch once a
      block before the last, the padded keys are 0, and each image's keys
      agree with those of its grid's images run in a bucket of their own
-     size (DINOV3_KEYS_REL);
+     size (DINOV3_KEYS_REL); (4e) the SAM path at sam_vit_h's widths (16
+     heads of 80): kernel 1's hd-80 build with the decomposed rel-pos bias
+     vs its twin at a b24 batch's two calls, 600 windows of 14x14 and the
+     64x64 grid (HD80_TOL, scaled with |twin| above 2; the bias moves the
+     twin by more than 0.1), the tables from `models/relpos.py`; then
+     `extract_patch_keys` on SAM_DEPTH blocks of sam_vit_h (window blocks
+     and global blocks, the last global) over a b24 batch preprocessed on
+     the card, kernel 1 launching exactly once a block before the last,
+     and the keys of two images against the same blocks in f32 on the
+     'einsum' route (SAM_KEYS_REL);
   5. stages 1-2 through `python -m deep_spectral_tpu_torch.pipeline` on six
      synthetic images (480x480 and 320x480) in a temporary directory, with the
      `.pth` schema checked;
@@ -189,15 +198,16 @@ least per-token cosine (PAR_COS_MIN); and (f) `train()` data-parallel over
 N ranks for LOOP_STEPS steps of the 7b configuration on a JPEG tree
 (finite losses, every rank's state the same bits, kernels 3-5 once a
 step).
-`python3 chip_smoke.py 4d` runs the build and phase 4d, with no result
-line. `python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
+`python3 chip_smoke.py 4d` runs the build and phase 4d (`4e`: phase 4e),
+with no result line. `python3 chip_smoke.py 3c` runs phase 3's one-launch check alone, on the
 library the full run built (the full run starts it so, last).
 The last line is one JSON object: {"ok": true, "device": {...}, "kernels":
 {name: {"launches": ..., "max_abs_err": ...}}}, each kernel's launches on
 the main path (phase 4; 4d's DINOv3 path for kernel 1's hd=128 build,
-`flash_attention_packed_hd128`, and the RoPE kernel, `apply_rope_`) or the
+`flash_attention_packed_hd128`, and the RoPE kernel, `apply_rope_`; 4e's
+SAM path for the hd-80 bias build, `flash_attention_packed_hd80`) or the
 train path (phase 7) and its largest error against its twin in phases 2,
-3, 4c, 4d and 6 (kernels 3-5's f32 builds are entries of their own,
+3, 4c, 4d, 4e and 6 (kernels 3-5's f32 builds are entries of their own,
 `*_f32`). It exits non-zero, without that line, if
 CUDA is missing or any phase fails. It imports nothing of JAX.
 """
@@ -292,6 +302,20 @@ DINOV3_KEYS_REL = 2e-2  # 4d: an image's bf16 keys in the compacted b24 batch vs
 #                         of its own grid, ||diff|| / ||alone||: the GEMMs run other shapes
 #                         (0 read on an H100; 5.0e-3 on the CPU at test_dinov3_tiny, and
 #                         1.5e-1 there with RoPE over the bucket's grid)
+# phase 4e's shapes: kernel 1's two calls in a b24 batch of sam_vit_h (batch, grid side s;
+# T = s^2): its window blocks' 600 windows of 14x14 and its global blocks' 64x64 grid; 4e's
+# main path runs SAM_DEPTH blocks of sam_vit_h's widths, global attention in SAM_GLOBAL (the
+# last, whose keys are taken, as the model's block 31) over b24 inputs of SAM_SIZES
+SAM_CALLS = ((600, 14), (B, 64))
+SAM_DEPTH, SAM_GLOBAL = 4, (1, 3)
+SAM_SIZES = ((768, 1024), (1024, 768), (683, 1024), (1024, 1024))
+SAM_REL_SIGMA = 0.08  # the main path's rel-pos tables, N(0, 0.08^2) as the benchmark's
+#                       configuration draws them (SAM's zero init would hide the bias)
+HD80_TOL = 1.6e-2  # 4e: kernel 1's hd-80 bias build vs its twin where |twin| <= 2, and in
+#                    proportion above (the bias concentrates the probabilities, so outputs
+#                    pass 2, where a bf16 ulp is 2^-6 and more); tests' `_hd80_tolerance`
+SAM_KEYS_REL = 4e-2  # 4e: bf16 keys vs the same blocks in f32 on the 'einsum' route,
+#                      ||diff|| / ||f32||: the SAM cell's keys limit against its f32 reference
 # phase 6 shapes: (batch, T, dtype name, ragged mask with an all-masked row)
 TRAIN_KERNEL_SHAPES = [(TRAIN_B, 197, "bfloat16", False), (4, 901, "bfloat16", True),
                        (4, 901, "float32", True), (2, 3601, "float32", True),
@@ -353,6 +377,7 @@ def structured_features(batch: int, grid: int, D: int, rng) -> np.ndarray:
 WGMMA_KERNELS = {"flash_fwd_packed_kernelILb0ELi128E": "flash_fwd_packed_kernel<false, 128>",
                  "flash_fwd_packed_kernelILb0E": "flash_fwd_packed_kernel<false>",
                  "flash_fwd_packed_kernelILb1E": "flash_fwd_packed_kernel<true>",
+                 "flash_fwd_relpos_kernel": "flash_fwd_relpos_kernel",
                  "flash_bwd_dkv_wgmma_kernel": "flash_bwd_dkv_wgmma_kernel",
                  "flash_bwd_dq_wgmma_kernel": "flash_bwd_dq_wgmma_kernel",
                  "flash_fwd_f32_kernel": "flash_fwd_f32_kernel",
@@ -954,6 +979,104 @@ def phase_dinov3_main_path(dev) -> dict:
                              f"({want} launches each): {launches}, compacted {compacted}")
     if not np.isfinite(worst) or worst > DINOV3_KEYS_REL:
         raise AssertionError(f"DINOv3 keys depend on the batch: {worst}")
+    return launches
+
+
+def phase_sam_kernels(dev) -> float:
+    """4e's kernel calls (see the module docstring); returns the largest
+    error of kernel 1's hd-80 bias build against its twin."""
+    import torch
+    from deep_spectral_tpu_torch.models.flash_attention import (
+        flash_attention_packed, flash_attention_packed_plain)
+    from deep_spectral_tpu_torch.models.relpos import gathered_rel_pos, rel_tables
+    g = torch.Generator(device=dev).manual_seed(6)
+    H, hd = 16, 80
+    worst = 0.0
+    for batch, side in SAM_CALLS:
+        T = side * side
+        qkv = torch.randn((batch, T, 3, H, hd), generator=g, device=dev).to(torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        rh, rw = (0.5 * torch.randn((2 * side - 1, hd), generator=g, device=dev)
+                  for _ in range(2))
+        rel = rel_tables(q, gathered_rel_pos(rh, rw, q.dtype))
+        before = flash_attention_packed.launches
+        out = flash_attention_packed(q, k, v, rel_pos=rel)
+        torch.cuda.synchronize()
+        if flash_attention_packed.launches != before + 1:
+            raise AssertionError("flash hd=80: the bias call did not launch kernel 1 once")
+        err, seen = 0.0, 0.0
+        for rows in torch.arange(batch, device=dev).split(max(1, (1 << 29) // (H * T * T))):
+            sub = (q[rows], k[rows], v[rows])
+            ref = flash_attention_packed_plain(*sub, rel_pos=(rel[0][rows], rel[1][rows]))
+            diff = (out[rows].float() - ref.float()).abs()
+            if not bool((diff <= HD80_TOL * ref.float().abs().clamp_min(2.0) / 2).all()):
+                raise AssertionError(f"flash hd=80 disagrees with its twin at b{batch} "
+                                     f"T={T}: max {diff.max().item()}")
+            err = max(err, diff.max().item())
+            if not seen:  # the bias moves the output
+                seen = (flash_attention_packed_plain(*sub).float() - ref.float()).abs().max().item()
+            del ref, diff
+        log(f"[4e] flash b{batch} T={T} H={H} hd=80 bf16 with the rel-pos bias (s={side}): max "
+            f"|kernel - twin| {err:.3e} (tol {HD80_TOL} x max(|twin|, 2) / 2); without the "
+            f"bias the twin moves by {seen:.3e}")
+        if not np.isfinite(err) or seen < 0.1:
+            raise AssertionError(f"flash hd=80 at b{batch} T={T}: error {err}, bias {seen}")
+        worst = max(worst, err)
+        del qkv, q, k, v, rel, out
+    return worst
+
+
+def phase_sam_main_path(dev) -> int:
+    """4e's main path (see the module docstring); returns kernel 1's
+    launches over its b24 batch."""
+    import dataclasses
+
+    import torch
+    from deep_spectral_tpu_torch.models.convert import random_init_
+    from deep_spectral_tpu_torch.models.flash_attention import flash_attention_packed
+    from deep_spectral_tpu_torch.models.relpos import sam_preprocess
+    from deep_spectral_tpu_torch.models.vit import (
+        VisionTransformer, extract_patch_keys, get_model_config)
+
+    cfg = dataclasses.replace(get_model_config("sam_vit_h"), depth=SAM_DEPTH,
+                              global_blocks=SAM_GLOBAL)
+    model = random_init_(VisionTransformer(cfg, torch.bfloat16), seed=0)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for p in (blk.attn.rel_pos_h, blk.attn.rel_pos_w):
+                p.copy_(SAM_REL_SIGMA * torch.randn(p.shape, generator=gen))
+    state = model.state_dict()
+    model = model.to(dev).eval()
+    sizes = np.array([SAM_SIZES[i % len(SAM_SIZES)] for i in range(B)])
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randint(0, 256, (B, cfg.img_size, cfg.img_size, 3), generator=g,
+                      dtype=torch.uint8, device=dev)
+    images = sam_preprocess(x, sizes, cfg.img_size)
+    _zero_launches()
+    k = extract_patch_keys(model, images)
+    torch.cuda.synchronize()
+    launches = flash_attention_packed.launches
+    del model
+    f32 = VisionTransformer(cfg, torch.float32, attention_impl="einsum")
+    f32.load_state_dict(state)
+    f32 = f32.to(dev).eval()
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ref = extract_patch_keys(f32, images[:2]).float()
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    gap = ((k[:2].float() - ref).flatten(1).norm(dim=1) / ref.flatten(1).norm(dim=1)).max().item()
+    want = SAM_DEPTH - 1
+    log(f"[4e] main path sam_vit_h widths, {SAM_DEPTH} blocks (global {list(SAM_GLOBAL)}), "
+        f"b{B} inputs of {sorted(set(SAM_SIZES))} preprocessed on the card, bf16: kernel 1 "
+        f"launches {launches} (want {want}); keys vs the f32 'einsum' blocks on 2 images: max "
+        f"||diff|| / ||f32|| {gap:.3e} (tol {SAM_KEYS_REL})")
+    if launches != want:
+        raise AssertionError(f"the SAM path launched kernel 1 {launches} times, not {want}")
+    if not np.isfinite(gap) or gap > SAM_KEYS_REL:
+        raise AssertionError(f"SAM's bf16 keys disagree with its f32 blocks: {gap}")
     return launches
 
 
@@ -2818,6 +2941,9 @@ def main(argv: list) -> int:
         if "4d" in only:
             phase_dinov3_kernels(dev)
             phase_dinov3_main_path(dev)
+        if "4e" in only:
+            phase_sam_kernels(dev)
+            phase_sam_main_path(dev)
         if "13" in only:
             if world > 1:
                 run_parallel(world)
@@ -2830,6 +2956,8 @@ def main(argv: list) -> int:
     launches, eigh_err = phase_main_path(dev)
     hd128_err, rope_err = phase_dinov3_kernels(dev)
     dinov3_launches = phase_dinov3_main_path(dev)
+    hd80_err = phase_sam_kernels(dev)
+    sam_launches = phase_sam_main_path(dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli(Path(tmp), "cuda")
     train_errs = phase_train_kernels(dev)
@@ -2860,6 +2988,7 @@ def main(argv: list) -> int:
         "flash_attention_packed_hd128": {"launches": dinov3_launches["flash"],
                                          "max_abs_err": hd128_err},
         "apply_rope_": {"launches": dinov3_launches["rope"], "max_abs_err": rope_err},
+        "flash_attention_packed_hd80": {"launches": sam_launches, "max_abs_err": hd80_err},
         "chebyshev_filter": {"launches": launches["cheb"], "max_abs_err": cheb_err},
         "small_eigh": {"launches": launches["eigh"], "max_eps_norm": eigh_err},
         **{name: {"launches": train_launches[name], "max_abs_err": train_errs[name]}

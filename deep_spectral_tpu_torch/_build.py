@@ -45,6 +45,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     # q, k, v, kv_mask, out, lse (null: no lse); B, T, H, hd; 9 strides; scale; stream
     "dss_flash_fwd_packed": [_P] * 6 + [_I] * 4 + [_LL] * 9 + [_F, _P],
+    # q, k, v, out, rel_h, rel_w; B, T, H, S, NY; 9 q/k/v strides, 6 table
+    # strides; scale; stream
+    "dss_flash_fwd_relpos": [_P] * 6 + [_I] * 5 + [_LL] * 15 + [_F, _P],
     # S, ld, bs, X, ce, out, T staging in global memory; B, N, m, degree,
     # cluster, rows, smem; stream
     "dss_cheb_filter_resident": [_P, _LL, _LL] + [_P] * 4 + [_I] * 7 + [_P],

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA attention
 // kernels (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu): mbarriers, 4-d
-// TMA loads of (hd, H, T, B) views, wgmma descriptors and products, the
+// TMA loads of (hd, H, T, B) views, wgmma descriptors (128B- and 32B-
+// swizzled) and products, the
 // backward kernels' bf16 hi/lo split, and the host-side tensor-map encoder.
 // Everything here is inline or in an anonymous namespace, so each source gets
 // its own copy.
@@ -77,6 +78,16 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for a 32B-swizzled tile of 32-byte rows (a 16-column bf16 box):
+// 8-row groups 256 bytes apart, the 32B layout (3). K-major, the rows are one
+// k-step of 16; MN-major (a transposed B), they are 16 columns of N.
+__device__ __forceinline__ uint64_t smem_desc32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) |
+         (static_cast<uint64_t>(3) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -186,12 +197,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-// The same product into columns OFF..OFF+63 of a 64 x 128 accumulator (32 of
-// a thread's 64 fragments): the hd = 128 forward's O += P V, one 64-column
-// half of V (its own 128B-swizzled tile) at a time.
-template <int OFF>
-__device__ __forceinline__ void wgmma_m64n64k16_rs_at(float (&d)[64], const uint32_t (&a)[4],
+// The same product into 64 columns of a 64 x N accumulator, a thread's
+// fragments OFF..OFF+31 (columns 2 OFF..2 OFF + 63): the hd = 128 forward's
+// O += P V, one 64-column half of V (its own 128B-swizzled tile) at a time,
+// and the hd = 80 forward's first 64 columns.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_m64n64k16_rs_at(float (&d)[N], const uint32_t (&a)[4],
                                                     uint64_t desc_b) {
+  static_assert(OFF + 32 <= N, "accumulator too small");
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -209,6 +222,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_at(float (&d)[64], const uint
         "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
         "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
         "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D(64 x 16, f32) += A(64 x 16, registers) B(16 x 16) into 16 columns of a
+// 64 x N accumulator, a thread's fragments OFF..OFF+7 (columns 2 OFF..2 OFF +
+// 15): B MN-major in a 32B-swizzled 16-column tile. The hd = 80 forward's
+// last 16 columns of O += P V.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_m64n16k16_rs_at(float (&d)[N], const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  static_assert(OFF + 8 <= N, "accumulator too small");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}"
+      ", {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -242,18 +276,21 @@ EncodeTiled encode_tiled() {
 }
 
 // The (hd, H, T, B) view of a bf16 (B, T, H, hd) tensor with its element
-// strides, in boxes of (64, 1, rows, 1), 128B-swizzled, zero-filled out of
-// range: hd = 64 (one box a row) or 128 (two, loaded by `tma_load_at`).
+// strides, in boxes of (cols, 1, rows, 1), zero-filled out of range: by
+// default 64 columns, 128B-swizzled, for hd = 64 (one box a row) or 128 (two,
+// loaded by `tma_load_at`); hd = 80 adds a map of 16-column boxes, 32B-
+// swizzled, for its last 16 columns.
 bool make_map(CUtensorMap* map, const void* base, int B, int T, int H, long long sb,
-              long long st, long long sh, int rows, int hd = HD) {
+              long long st, long long sh, int rows, int hd = HD, int cols = HD,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {HD, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

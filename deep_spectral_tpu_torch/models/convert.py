@@ -32,9 +32,13 @@ from .vit import LayerScale, ViTConfig, VisionTransformer, get_model_config
 # (facebookresearch/dinov2's and dinov3's downloads; a glob where the name
 # carries a hash).
 CHECKPOINT_FILES = {"dinov2_vitg14_reg": "dinov2_vitg14_reg4_pretrain.pth",
-                    "dinov3_vit7b16": "dinov3_vit7b16_pretrain_lvd1689m*.pth"}
+                    "dinov3_vit7b16": "dinov3_vit7b16_pretrain_lvd1689m*.pth",
+                    "sam_vit_h": "sam_vit_h_4b8939.pth"}
 # Training-only entries of a DINOv3 checkpoint: the local crops' CLS norm.
 DINOV3_TRAINING_ONLY = ("local_cls_norm.",)
+# The prefix of a SAM checkpoint's image encoder (its prompt encoder and mask
+# decoder are not the backbone).
+SAM_ENCODER = "image_encoder."
 
 
 def flax_to_torch_state_dict(params: dict, cfg: ViTConfig) -> dict:
@@ -209,18 +213,31 @@ def find_local_checkpoint(model_name: str,
 
 
 def load_dino_state_dict(path: str | Path) -> dict:
-    """A DINO, DINOv2 or DINOv3 checkpoint's backbone state dict: unwraps
-    'state_dict', strips DDP's 'module.' prefix and drops the projection
-    head and DINOv3's training-only entries (a DINOv2 or DINOv3 file is the
-    backbone's own state dict under the port's names: `mask_token`,
-    `register_tokens` or `storage_tokens`, `rope_embed.periods`, `ls1.gamma`,
-    `mlp.w12` or `mlp.w1`/`w2`/`w3`)."""
+    """A DINO, DINOv2, DINOv3 or SAM checkpoint's backbone state dict:
+    unwraps 'state_dict', strips DDP's 'module.' prefix and drops the
+    projection head and DINOv3's training-only entries (a DINOv2 or DINOv3
+    file is the backbone's own state dict under the port's names:
+    `mask_token`, `register_tokens` or `storage_tokens`,
+    `rope_embed.periods`, `ls1.gamma`, `mlp.w12` or `mlp.w1`/`w2`/`w3`); a
+    SAM checkpoint gives its image encoder (`sam_encoder_state_dict`)."""
     sd = torch.load(str(path), map_location="cpu", weights_only=False)
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    if any(k.startswith(SAM_ENCODER) for k in sd):
+        return sam_encoder_state_dict(sd)
     return {k: v for k, v in sd.items()
             if not k.startswith(("head.", *DINOV3_TRAINING_ONLY))}
+
+
+def sam_encoder_state_dict(sd: dict) -> dict:
+    """The port's SAM state dict of a SAM checkpoint's (`sam_vit_h_4b8939.pth`,
+    `Sam.state_dict()`): the `image_encoder.` entries with the prefix
+    stripped. The port keeps the encoder's own names (`patch_embed.proj`,
+    `pos_embed`, `blocks.{i}.norm1`, `attn.qkv`, `attn.proj`,
+    `attn.rel_pos_h`, `attn.rel_pos_w`, `norm2`, `mlp.lin1`, `mlp.lin2`,
+    `neck.0`-`neck.3`); the prompt encoder and the mask decoder are left out."""
+    return {k.removeprefix(SAM_ENCODER): v for k, v in sd.items() if k.startswith(SAM_ENCODER)}
 
 
 @torch.no_grad()
@@ -230,7 +247,9 @@ def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
     N(0, 0.02^2), LayerNorms at identity; DINOv2's LayerScales at 1 (the
     hub's init_values), register tokens ~ N(0, 0.02^2), its mask token 0;
     DINOv3's LayerScales at 1e-5 (the hub's layerscale_init), storage tokens
-    ~ N(0, 0.02^2), its mask token 0 (RoPE's periods are the model's)."""
+    ~ N(0, 0.02^2), its mask token 0 (RoPE's periods are the model's); SAM's
+    relative-position tables at 0 (its rel_pos_zero_init), its LayerNorm2d
+    at identity, no CLS."""
     g = torch.Generator().manual_seed(seed)
     family = model.cfg.family
     for module in model.modules():
@@ -245,6 +264,12 @@ def random_init_(model: VisionTransformer, seed: int = 0) -> VisionTransformer:
             module.bias.zero_()
         elif isinstance(module, LayerScale):
             module.gamma.fill_(1e-5 if family == "dinov3" else 1.0)
+    if family == "sam":
+        model.pos_embed.copy_(torch.randn(model.pos_embed.shape, generator=g) * 0.02)
+        for blk in model.blocks:
+            blk.attn.rel_pos_h.zero_()
+            blk.attn.rel_pos_w.zero_()
+        return model
     model.cls_token.zero_()
     if family == "dinov3":
         model.storage_tokens.copy_(torch.randn(model.storage_tokens.shape, generator=g) * 0.02)

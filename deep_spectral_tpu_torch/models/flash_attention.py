@@ -7,7 +7,9 @@ CPU tensors. There is no other fallback: a CUDA tensor a kernel does not take
 raises.
   * `flash_attention_packed` (`csrc/flash_fwd.cu`, the port of the Pallas
     `_flash_kernel_packed`; wgmma products fed by TMA loads): the bf16
-    inference forward, at head dim 64 or 128 (`PACKED_HEAD_DIMS`); twin
+    inference forward, at head dim 64 or 128 (`PACKED_HEAD_DIMS`), and at
+    head dim 80 with SAM's decomposed relative-position bias
+    (`RELPOS_HEAD_DIM`, `rel_pos`; no Pallas kernel has it); twin
     `flash_attention_packed_plain`.
   * `flash_attention_lse` (the port of `_flash_kernel`): forward that also
     returns the row log-sum-exp; bf16 runs `csrc/flash_fwd.cu`'s lse-writing
@@ -31,7 +33,12 @@ Semantics (shared by kernel and twin, as in the Pallas kernel): non-causal
 softmax(q k^T / sqrt(hd)) v for every (batch, head); keys whose `kv_mask` is
 false score MASK_VALUE and get probability exactly 0; statistics in f32; the
 probabilities are cast to the value dtype before the P.V product; a query row
-with no valid key outputs 0.
+with no valid key outputs 0. With `rel_pos` = (rel_h (B, H, T, NY), rel_w
+(B, H, T, S)), tables in q's dtype over the keys laid out as an S-wide grid
+(key k at row k // S, column k % S), each score adds rel_h[q, k // S] +
+rel_w[q, k % S] in f32 before the softmax (SAM's decomposed relative
+positions, `add_decomposed_rel_pos`, with the tables computed outside:
+`models/relpos.py`).
 """
 from __future__ import annotations
 
@@ -46,19 +53,32 @@ from ..utils.precision import exact_f32
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 KERNEL_HEAD_DIM = 64
 PACKED_HEAD_DIMS = (64, 128)  # the inference forward's builds (the others: 64)
+RELPOS_HEAD_DIM = 80  # the inference forward's build with the relative-position bias
 BLOCK = 64  # key rows per step of the online softmax (the kernels' tile)
+
+
+def relpos_bias(rel_pos: tuple, T: int) -> torch.Tensor:
+    """The (B, H, T, T) f32 scores' bias of `rel_pos` (see the module
+    docstring): rel_h[..., q, k // S] + rel_w[..., q, k % S]."""
+    rel_h, rel_w = rel_pos
+    key = torch.arange(T, device=rel_h.device)
+    S = rel_w.shape[-1]
+    return rel_h.float()[..., key // S] + rel_w.float()[..., key % S]
 
 
 def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor,
-                                 kv_mask: Optional[torch.Tensor] = None
-                                 ) -> torch.Tensor:
+                                 kv_mask: Optional[torch.Tensor] = None,
+                                 rel_pos: Optional[tuple] = None) -> torch.Tensor:
     """Plain PyTorch twin of the kernel: a masked softmax in f32 that masks
     with `where` (p = 0 on masked keys) and casts p to v's dtype before the
-    P.V product. q/k/v (B, T, H, hd); kv_mask (B, T) bool. Returns
-    (B, T, H, hd) in q's dtype."""
+    P.V product. q/k/v (B, T, H, hd); kv_mask (B, T) bool; rel_pos the
+    relative-position tables (module docstring). Returns (B, T, H, hd) in
+    q's dtype."""
     B, T, H, hd = q.shape
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / math.sqrt(hd)
+    if rel_pos is not None:
+        s = s + relpos_bias(rel_pos, T)
     if kv_mask is None:
         valid = torch.ones((B, 1, 1, T), dtype=torch.bool, device=q.device)
     else:
@@ -89,21 +109,28 @@ def _check_tma(x: torch.Tensor, name: str, shape, dtype=torch.bfloat16) -> None:
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd), kv-masked) v over (B, T, H, hd) tensors.
+                           kv_mask: Optional[torch.Tensor] = None,
+                           rel_pos: Optional[tuple] = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) [+ bias], kv-masked) v over (B, T, H, hd)
+    tensors.
 
     CPU tensors: the plain twin. CUDA tensors: the Hopper kernel, which takes
-    bf16 q/k/v with hd 64 or 128, read through their strides by TMA (views into
-    the fused qkv projection need no copy; every stride a multiple of 16
-    bytes); anything else raises. The output is a
-    new contiguous (B, T, H, hd) tensor. `flash_attention_packed.launches`
+    bf16 q/k/v with hd 64 or 128 and no `rel_pos`, or hd 80 with `rel_pos`
+    and no mask (its tables bf16 on q's device, unit stride on their last
+    dim, S even and >= 8, NY x S >= T), q/k/v read through their strides by TMA
+    (views into the fused qkv projection need no copy; every stride a
+    multiple of 16 bytes); anything else raises. The output is a new
+    contiguous (B, T, H, hd) tensor. `flash_attention_packed.launches`
     counts kernel launches, `.captured` calls captured into a CUDA graph."""
     if not q.is_cuda:
-        return flash_attention_packed_plain(q, k, v, kv_mask)
+        return flash_attention_packed_plain(q, k, v, kv_mask, rel_pos)
     B, T, H, hd = q.shape
-    if hd not in PACKED_HEAD_DIMS:
+    if rel_pos is None and hd not in PACKED_HEAD_DIMS:
         raise ValueError(f"flash kernel is built for hd in {PACKED_HEAD_DIMS}; got {hd}")
+    if rel_pos is not None and (hd != RELPOS_HEAD_DIM or kv_mask is not None):
+        raise ValueError(f"flash kernel's relative-position build is for hd "
+                         f"{RELPOS_HEAD_DIM} without a key mask; got hd {hd}"
+                         f"{'' if kv_mask is None else ' and a mask'}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
@@ -114,7 +141,11 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(kv_mask.shape)} on {kv_mask.device}")
         kv_mask = kv_mask.to(torch.bool).contiguous()
     out = torch.empty((B, T, H, hd), dtype=q.dtype, device=q.device)
-    if _launch_packed(q, k, v, kv_mask, out, None, "flash_attention_packed"):
+    if rel_pos is not None:
+        captured = _launch_relpos(q, k, v, rel_pos, out)
+    else:
+        captured = _launch_packed(q, k, v, kv_mask, out, None, "flash_attention_packed")
+    if captured:
         flash_attention_packed.captured += 1
     else:
         flash_attention_packed.launches += 1
@@ -141,6 +172,34 @@ def _launch_packed(q, k, v, kv_mask, out, lse, what: str) -> bool:
             B, T, H, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
     _build.check(err, what)
+    return captured
+
+
+def _launch_relpos(q, k, v, rel_pos, out) -> bool:
+    """`csrc/flash_fwd.cu`'s hd-80 build on checked q/k/v and the tables
+    `rel_pos`, which this checks. Returns whether the launch was captured."""
+    from .. import _build
+    B, T, H, hd = q.shape
+    rel_h, rel_w = rel_pos
+    S, NY = rel_w.shape[-1], rel_h.shape[-1]
+    for name, x, n in (("rel_h", rel_h, NY), ("rel_w", rel_w, S)):
+        if x.dtype != torch.bfloat16 or x.device != q.device or \
+                tuple(x.shape) != (B, H, T, n) or x.stride(-1) != 1:
+            raise ValueError(f"{name} must be bf16 ({B}, {H}, {T}, {n}) on {q.device} with "
+                             f"unit stride on its last dim; got {x.dtype} "
+                             f"{tuple(x.shape)} strides {x.stride()} on {x.device}")
+    if S < 8 or S % 2 or NY * S < T:
+        raise ValueError(f"the bias grid must be an even width of at least 8 and hold the "
+                         f"{T} keys; got {NY} x {S}")
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        captured = torch.cuda.is_current_stream_capturing()
+        err = lib.dss_flash_fwd_relpos(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), rel_h.data_ptr(),
+            rel_w.data_ptr(), B, T, H, S, NY, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *rel_h.stride()[:3], *rel_w.stride()[:3],
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention_packed")
     return captured
 
 

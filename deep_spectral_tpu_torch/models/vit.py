@@ -1,4 +1,4 @@
-"""DINO, DINOv2 and DINOv3 Vision Transformers as a PyTorch `nn.Module`.
+"""DINO, DINOv2, DINOv3 and SAM Vision Transformers as a PyTorch `nn.Module`.
 
 The port of `deep_spectral_tpu.models.vit`. Parameter names are DINO's own
 (`patch_embed.proj`, `blocks.{i}.norm1`, `attn.qkv`, `attn.proj`, `mlp.fc1`,
@@ -28,12 +28,28 @@ bias; LayerScale on both branches; the unfused SwiGLU FFN when `ffn ==
 "swiglu64"` (`mlp.w1`, `mlp.w2`, `mlp.w3`, hidden width aligned to 64);
 LayerNorm eps `norm_eps` (1e-5).
 
+The SAM family (`family == "sam"`; Kirillov et al. 2023,
+facebookresearch/segment-anything's `ImageEncoderViT`), under SAM's image
+encoder's names (`patch_embed.proj`, `pos_embed`, `blocks.{i}.norm1`,
+`attn.qkv`, `attn.proj`, `attn.rel_pos_h`, `attn.rel_pos_w`, `norm2`,
+`mlp.lin1`, `mlp.lin2`, `neck.0`-`neck.3`): no CLS or other prefix token; an
+absolute positional embedding (1, g, g, D), added once, with no resample
+(the input is always img_size x img_size, `models/relpos.sam_preprocess`);
+windowed attention (`window_size`) in every block but `global_blocks`, the
+normed tokens zero-padded to whole windows whose padded tokens are attended
+as keys, unmasked, then unpartitioned and cropped after the projection;
+SAM's decomposed relative-position bias in every block, its tables
+(`models/relpos.py`) added inside kernel 1's softmax; exact GELU in every
+precision; no final norm; the conv neck (1x1, LayerNorm2d, 3x3, LayerNorm2d)
+is the forward's output and is not run by `extract_patch_keys`.
+
 Numerics follow the JAX model:
   * LayerNorm in f32 with the configuration's eps (1e-6; DINOv3's 1e-5);
     linear layers and the patch conv in the compute dtype (params stay f32
     and are cast per call, as flax does);
   * under bf16 the residual stream is bf16;
-  * GELU is exact erf in f32 and the tanh form in bf16;
+  * GELU is exact erf in f32 and the tanh form in bf16 (SAM's: exact erf
+    in both);
   * an optional token mask removes padded keys from every attention.
 
 Attention (`attention_impl`, the JAX model's knob): 'einsum' is the plain
@@ -69,11 +85,12 @@ from ..ops.resize import resize_bicubic
 from ..utils.precision import exact_f32
 from ..utils.profiling import count, span
 from .flash_attention import (FlashAttentionFn, flash_attention_lse,
-                              flash_attention_packed)
+                              flash_attention_packed, relpos_bias)
+from .relpos import gathered_rel_pos, rel_tables, window_partition, window_unpartition
 from .rope import RopeEmbed, RopePlan, apply_rope_
 
 ATTENTION_IMPLS = ("auto", "einsum", "flash")
-FAMILIES = ("dino", "dinov2", "dinov3")
+FAMILIES = ("dino", "dinov2", "dinov3", "sam")
 FFNS = ("mlp", "swiglufused", "swiglu64")
 DINOV3_ROPE_BASE = 100.0  # the hub's pos_embed_rope_base
 
@@ -87,7 +104,8 @@ DINOV3_ROPE_BASE = 100.0  # the hub's pos_embed_rope_base
 # Above it the device sets the pace, and a graph would only add its
 # capture's device-wide synchronize and a second pool of activations. At
 # b24: ViT-S/16 (9.4M) and ViT-S/8 (28.3M) replay; DINOv2 ViT-g/14 (42.8M
-# compacted) and DINOv3 ViT-7B/16 (~118M) stay eager.
+# compacted) and DINOv3 ViT-7B/16 (~118M) stay eager, and SAM is never graphed
+# (`forward_key`).
 VIT_GRAPH_MAX_ELEMENTS = 1 << 25
 
 
@@ -100,10 +118,13 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     img_size: int = 224  # pretraining resolution (defines stored pos_embed grid)
     family: str = "dino"     # "dinov2": LayerScale, mask token, per-image antialiased positions;
-    #                          "dinov3": LayerScale, mask token, RoPE, no positional embedding
+    #                          "dinov3": LayerScale, mask token, RoPE, no positional embedding;
+    #                          "sam": no prefix token, windows, relative positions, a neck
     num_registers: int = 0   # register (DINOv3: storage) tokens after CLS
     ffn: str = "mlp"         # "mlp" (GELU), "swiglufused" (DINOv2), "swiglu64" (DINOv3, unfused)
     norm_eps: float = 1e-6   # every LayerNorm's
+    window_size: int = 0     # SAM: the window side of every block but `global_blocks`
+    global_blocks: tuple = ()  # SAM: the blocks that attend over the whole grid
 
     @property
     def pos_grid(self) -> int:
@@ -111,8 +132,8 @@ class ViTConfig:
 
     @property
     def num_prefix(self) -> int:
-        """Tokens before the patches: CLS and the registers."""
-        return 1 + self.num_registers
+        """Tokens before the patches: CLS and the registers (SAM: none)."""
+        return 0 if self.family == "sam" else 1 + self.num_registers
 
 
 VIT_CONFIGS: dict[str, ViTConfig] = {
@@ -140,6 +161,15 @@ VIT_CONFIGS: dict[str, ViTConfig] = {
     # its tiny sibling (heads of 128, as the RoPE kernel's) for tests only
     "test_dinov3_tiny": ViTConfig(16, 256, 2, 2, mlp_ratio=3.0, family="dinov3",
                                   num_registers=4, ffn="swiglu64", norm_eps=1e-5),
+    # SAM ViT-H's image encoder (facebookresearch/segment-anything
+    # `build_sam_vit_h`: ImageEncoderViT, img_size 1024, 16 heads of 80,
+    # window 14, global attention in blocks 7, 15, 23 and 31, rel-pos)
+    "sam_vit_h": ViTConfig(16, 1280, 32, 16, img_size=1024, family="sam", window_size=14,
+                           global_blocks=(7, 15, 23, 31)),
+    # its tiny sibling (heads of 80; a 20x20 grid in windows of 3, so padded)
+    # for tests only
+    "test_sam_tiny": ViTConfig(16, 160, 3, 2, img_size=320, family="sam", window_size=3,
+                               global_blocks=(1,)),
 }
 
 
@@ -195,15 +225,22 @@ class Attention(nn.Module):
 
 
 def attend(qkv: torch.Tensor, token_mask: Optional[torch.Tensor], impl: str,
-           dtype: torch.dtype, want_attn: bool = False):
+           dtype: torch.dtype, want_attn: bool = False, rel_pos: Optional[tuple] = None):
     """Masked attention of the fused projection qkv (B, T, 3, H, hd) by the
-    route `impl` names (see the module docstring). Returns the output
-    (B, T, H, hd) in `dtype` and, on the einsum route, the probabilities
-    (B, H, T, T) (else None)."""
+    route `impl` names (see the module docstring), with SAM's relative-
+    position tables `rel_pos` added to the logits where given (their flash
+    route is kernel 1's bf16 inference build, which raises on other CUDA
+    tensors). Returns the output (B, T, H, hd) in `dtype` and, on the
+    einsum route, the probabilities (B, H, T, T) (else None)."""
     q, k, v = qkv.unbind(2)                      # (B, T, H, hd) views
     if impl == "auto":
         impl = "flash" if qkv.is_cuda else "einsum"
     if impl == "flash" and not want_attn:
+        if rel_pos is not None:
+            if qkv.is_cuda and torch.is_grad_enabled() and qkv.requires_grad:
+                raise ValueError("kernel 1's relative-position build is inference only; "
+                                 "attention_impl='einsum' takes a gradient")
+            return flash_attention_packed(q, k, v, token_mask, rel_pos), None
         if torch.is_grad_enabled() and qkv.requires_grad:
             return FlashAttentionFn.apply(qkv, token_mask), None
         if qkv.dtype == torch.bfloat16:
@@ -211,6 +248,8 @@ def attend(qkv: torch.Tensor, token_mask: Optional[torch.Tensor], impl: str,
         return flash_attention_lse(q, k, v, token_mask)[0], None
     logits = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
     logits = logits * (1.0 / math.sqrt(q.shape[-1]))
+    if rel_pos is not None:
+        logits = logits + relpos_bias(rel_pos, logits.shape[-1])
     if token_mask is not None:
         logits = torch.where(token_mask[:, None, None, :], logits, -1e30)
     attn = torch.softmax(logits, dim=-1).to(dtype)
@@ -327,17 +366,121 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(3, dim, patch_size, patch_size)
 
 
+class SamAttention(Attention):
+    """SAM's attention over an s x s grid of tokens (a window, or the whole
+    grid of a global block), with its decomposed relative-position bias
+    (`rel_pos_h`, `rel_pos_w`, (2s - 1, hd)): the tables of the unscaled q
+    (`models/relpos.py`, one `vit.relpos` span) added to the logits. On the
+    card and with no gradient to take, the gathered (T, hd, 2s) operand is
+    held while the two parameters are unchanged (their device, data
+    pointers and versions) and the dtype is the same."""
+
+    def __init__(self, dim: int, num_heads: int, attention_impl: str, size: int):
+        super().__init__(dim, num_heads, attention_impl)
+        self.rel_pos_h = nn.Parameter(torch.zeros(2 * size - 1, dim // num_heads))
+        self.rel_pos_w = nn.Parameter(torch.zeros(2 * size - 1, dim // num_heads))
+
+    def gathered(self, dtype: torch.dtype) -> torch.Tensor:
+        h, w = self.rel_pos_h, self.rel_pos_w
+        if not h.is_cuda or (torch.is_grad_enabled() and h.requires_grad):
+            return gathered_rel_pos(h, w, dtype)
+        key = (dtype, h.device, h.data_ptr(), h._version, w.data_ptr(), w._version)
+        held = self.__dict__.get("_gathered_held")
+        if held is None or held[0] != key:
+            held = self.__dict__["_gathered_held"] = (key, gathered_rel_pos(h, w, dtype))
+        return held[1]
+
+    def forward(self, u, token_mask=None, want_attn=False, dtype=torch.float32, rope=None):
+        """u (B, s * s, D) normed tokens. Returns the projected output, the
+        projection (B, s * s, 3, H, hd) and the einsum route's
+        probabilities."""
+        B, T, D = u.shape
+        qkv = self.qkv_heads(u, dtype)
+        with span("vit.relpos"):
+            rel = rel_tables(qkv[:, :, 0], self.gathered(qkv.dtype))
+        out, attn = attend(qkv, None, self.attention_impl, dtype, want_attn, rel)
+        return _linear(out.reshape(B, T, D), self.proj, dtype), qkv, attn
+
+
+class SamMlp(nn.Module):
+    """SAM's `MLPBlock`: lin2(GELU(lin1 x)), GELU exact in every precision."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.lin1 = nn.Linear(dim, hidden)
+        self.lin2 = nn.Linear(hidden, dim)
+
+    def forward(self, x, dtype=torch.float32):
+        return _linear(F.gelu(_linear(x, self.lin1, dtype)), self.lin2, dtype)
+
+
+class SamBlock(nn.Module):
+    """SAM's block over (B, g * g, D) row-major tokens: a window block
+    (`window` > 0) pads the normed tokens to whole windows and cuts them
+    (`relpos.window_partition`), attends in each window, projects, and puts
+    the windows back, cropped (each a `vit.window` span; counters
+    `vit.window_rows`, the rows its qkv projection runs, and
+    `vit.window_rows_valid`, the grid's); a global block (`window` 0)
+    attends over the whole grid. The returned projection is in the block's
+    attention layout (windows for a window block)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, attention_impl: str,
+                 window: int, grid: int, norm_eps: float = 1e-6):
+        super().__init__()
+        self.window, self.grid = window, grid
+        self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
+        self.attn = SamAttention(dim, num_heads, attention_impl, window or grid)
+        self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
+        self.mlp = SamMlp(dim, int(dim * mlp_ratio))
+
+    def forward(self, x, token_mask=None, want_attn=False, dtype=torch.float32, rope=None):
+        u = _layer_norm(x, self.norm1).to(dtype)
+        if self.window:
+            with span("vit.window"):
+                u = window_partition(u, self.grid, self.window)
+            count("vit.window_rows", u.shape[0] * u.shape[1])
+            count("vit.window_rows_valid", x.shape[0] * x.shape[1])
+        h, qkv, attn = self.attn(u, None, want_attn, dtype)
+        if self.window:
+            with span("vit.window"):
+                h = window_unpartition(h, x.shape[0], self.grid, self.window)
+        x = x + h
+        x = x + self.mlp(_layer_norm(x, self.norm2), dtype)
+        return x, qkv, attn
+
+
+class LayerNorm2d(nn.Module):
+    """SAM's `LayerNorm2d`: over the channels of (B, C, H, W), in f32."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps = eps
+
+    def forward(self, x):
+        x = x.float()
+        u = x.mean(1, keepdim=True)
+        x = (x - u) / torch.sqrt((x - u).pow(2).mean(1, keepdim=True) + self.eps)
+        return self.weight[:, None, None] * x + self.bias[:, None, None]
+
+
+SAM_NECK_CHANNELS = 256
+
+
 class VisionTransformer(nn.Module):
-    """DINO, DINOv2 or DINOv3 ViT. Input: (B, H, W, 3) normalized images, H
-    and W multiples of the patch size. `compute_dtype` is torch.float32 or
-    torch.bfloat16.
+    """DINO, DINOv2, DINOv3 or SAM ViT. Input: (B, H, W, 3) normalized
+    images, H and W multiples of the patch size (SAM: img_size x img_size).
+    `compute_dtype` is torch.float32 or torch.bfloat16.
 
     forward returns a dict with 'x_norm' (B, 1+R+N, D; R registers after
     CLS), 'cls' (B, D), 'qkv' ({'q','k','v'}: head-merged (B, 1+R+N, D) of
     block `qkv_block`; DINOv3's q and k after its RoPE, the operands of the
     block's attention: `extract_patch_keys` gives the keys before it),
     'intermediates' (the last `n_intermediates` blocks' outputs, normed) and,
-    with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block.
+    with want_attn, 'attn' (B, heads, 1+N, 1+N) of the last block. SAM's
+    forward returns 'tokens' (B, g * g, D), the last block's output, and
+    'neck' (B, 256, g, g) f32, the image encoder's output.
     `attention_impl`: 'auto', 'einsum' or 'flash'; `remat`: recompute each
     block in the backward (see the module docstring)."""
 
@@ -353,6 +496,17 @@ class VisionTransformer(nn.Module):
         self.remat = remat
         D = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, D)
+        if cfg.family == "sam":
+            g = cfg.pos_grid
+            self.pos_embed = nn.Parameter(torch.zeros(1, g, g, D))
+            self.blocks = nn.ModuleList(
+                [SamBlock(D, cfg.num_heads, cfg.mlp_ratio, attention_impl,
+                          0 if i in cfg.global_blocks else cfg.window_size, g, cfg.norm_eps)
+                 for i in range(cfg.depth)])
+            C = SAM_NECK_CHANNELS
+            self.neck = nn.Sequential(nn.Conv2d(D, C, 1, bias=False), LayerNorm2d(C),
+                                      nn.Conv2d(C, C, 3, padding=1, bias=False), LayerNorm2d(C))
+            return
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         if cfg.family == "dinov3":
             self.storage_tokens = nn.Parameter(torch.zeros(1, cfg.num_registers, D))
@@ -422,7 +576,9 @@ class VisionTransformer(nn.Module):
         the DINOv2 family those per image (`dinov2_pos_embed`); DINO v1
         does not read it. The DINOv3 family adds no positional embedding
         (its positions are RoPE's, in the blocks): CLS, the storage tokens
-        and the patches."""
+        and the patches. SAM's are its patches plus its positional
+        embedding, with no prefix token and no mask (None): its input is
+        always the img_size x img_size square."""
         cfg, dtype = self.cfg, self.compute_dtype
         B, H, W, _ = x.shape
         P = cfg.patch_size
@@ -434,6 +590,12 @@ class VisionTransformer(nn.Module):
                            conv.bias.to(dtype), stride=P)
         tokens = patches.flatten(2).transpose(1, 2)
         R = cfg.num_registers
+        if cfg.family == "sam":
+            if (H, W) != (cfg.img_size, cfg.img_size) or pos_embed_override is not None:
+                raise ValueError(f"SAM's input is {cfg.img_size}x{cfg.img_size} with its own "
+                                 f"positional embedding; got {H}x{W}")
+            pos = self.pos_embed.reshape(1, h * w, -1).float()
+            return (tokens.float() + pos).to(dtype), None
         if cfg.family == "dinov3":
             if pos_embed_override is not None:
                 raise ValueError("the DINOv3 family has no positional embeddings to override")
@@ -461,6 +623,8 @@ class VisionTransformer(nn.Module):
                 pos_embed_override: Optional[torch.Tensor] = None,
                 grids: Optional[np.ndarray] = None):
         cfg, dtype = self.cfg, self.compute_dtype
+        if cfg.family == "sam":
+            return self._sam_forward(x)
         with self.precision():
             tokens, token_mask = self.embed(x, token_mask, pos_embed_override, grids)
             P = cfg.patch_size
@@ -489,6 +653,19 @@ class VisionTransformer(nn.Module):
         if want_attn:
             out["attn"] = attn_out
         return out
+
+    def _sam_forward(self, x: torch.Tensor) -> dict:
+        cfg, dtype = self.cfg, self.compute_dtype
+        g = cfg.pos_grid
+        with self.precision():
+            tokens = self.embed(x)[0]
+            for blk in self.blocks:
+                tokens = blk(tokens, None, False, dtype)[0]
+            y = tokens.reshape(x.shape[0], g, g, -1).permute(0, 3, 1, 2)
+            conv1, norm1, conv3, norm3 = self.neck
+            y = norm1(F.conv2d(y.to(dtype), conv1.weight.to(dtype)))
+            y = norm3(F.conv2d(y.to(dtype), conv3.weight.to(dtype), padding=1))
+        return {"tokens": tokens, "neck": y}
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, grid: int, h: int,
@@ -623,7 +800,7 @@ def _forward(model: VisionTransformer, images: torch.Tensor, last: int,
         compact = None
         P = cfg.patch_size
         h, w = images.shape[1] // P, images.shape[2] // P
-        if grids is not None and cfg.family != "dino":
+        if grids is not None and cfg.family in ("dinov2", "dinov3"):
             compact = _Compaction.plan(grids, h, w, cfg.num_prefix, tokens.device)
         rope = model.rope_plan(grids, h, w, images.shape[0], compacted=compact is not None)
         if compact is not None:
@@ -657,11 +834,14 @@ def forward_key(model: VisionTransformer, images: torch.Tensor, last: int, j: in
     or a replaced tensor changes the key). None where the forward is not
     graphed: the host's issue does not set its pace (`graphs_forward`), or
     it uploads a plan the host makes per call (a `_Compaction`, DINOv3's
-    `RopePlan`), whose host buffer a capture would keep."""
+    `RopePlan`), whose host buffer a capture would keep, or the model is
+    SAM's, whose blocks hold operands gathered from their relative-position
+    tables (`SamAttention.gathered`) that a capture would read as they were
+    then."""
     cfg = model.cfg
     B, H, W = images.shape[:3]
     h, w = H // cfg.patch_size, W // cfg.patch_size
-    if not graphs_forward(B, cfg.num_prefix + h * w, cfg.embed_dim):
+    if cfg.family == "sam" or not graphs_forward(B, cfg.num_prefix + h * w, cfg.embed_dim):
         return None
     reads_grids = grids is not None and cfg.family != "dino"
     if cfg.family == "dinov3" or (reads_grids and _Compaction.needed(grids, h, w)):
@@ -792,7 +972,11 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
     dropped, not changed. Without grids, for DINO v1, or where every image
     fills the bucket, the blocks run on the whole bucket under
     `token_mask`. DINOv3's keys are the last block's before its RoPE (the
-    hub's forward hook on that qkv projection).
+    hub's forward hook on that qkv projection). SAM's blocks run on the
+    whole img_size x img_size input, which it takes no mask or grids for
+    (its padding is SAM's input); its keys are block `which_block`'s on the
+    whole (g, g) grid, projected from the block's normed input before any
+    window partition (windows change no token's projection).
 
     On the card, a forward that `forward_key` keys (one whose host issue
     sets its pace) is replayed from a CUDA graph under the model's
@@ -805,7 +989,9 @@ def extract_patch_keys(model: VisionTransformer, images: torch.Tensor,
     compacted), `vit.graph_replays` (1 for a call that a replay served),
     `vit.graph_captures` (1 for a call that captured a graph) and, given
     grids, `vit.tokens_valid` (the prefix and grid tokens of the images with
-    any); DINOv3's blocks each open a `vit.rope` span. Returns (B, N, D) in
+    any); DINOv3's blocks each open a `vit.rope` span, SAM's a `vit.relpos`
+    span and, in a window block, two `vit.window` spans (`SamBlock`).
+    Returns (B, N, D) in
     the compute dtype."""
     cfg = model.cfg
     j = "qkv".index(which_features)

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from ..models.convert import load_model
+from ..models.relpos import sam_preprocess, sam_resized_size
 from ..models.vit import extract_patch_keys, get_model_config
 from ..ops.affinity import knn_affinity, rw_affinity
 from ..ops.crf import dense_crf
@@ -235,6 +236,78 @@ class _AsyncWriter:
 
 # ----------------------------------------------------------- stage 1: features
 
+class _PatchInput:
+    """Stage 1's input for the DINO families: each image floor-cropped to
+    whole patches and padded into its shape bucket as uint8, normalized on
+    the card and run under the bucket's token mask with each image's grid;
+    an image's features are its own grid of the bucket's, its shape the
+    decoded image's."""
+
+    def __init__(self, cfg, dev: torch.device, batch_size: int):
+        self.P, self.dev, self.batch_size = cfg.patch_size, dev, batch_size
+        self.scale = torch.from_numpy(IMAGENET_SCALE).to(dev)
+        self.shift = torch.from_numpy(IMAGENET_SHIFT).to(dev)
+
+    def bucket_of(self, path) -> tuple[int, int]:
+        from PIL import Image
+        with Image.open(str(path)) as im:
+            w, h = im.size
+        return h // self.P, w // self.P
+
+    def grid(self, bucket: bucketing.Bucket) -> tuple[int, int]:
+        return bucket.h, bucket.w
+
+    def prepare(self, bucket: bucketing.Bucket, rgbs: list):
+        """Host side: (padded uint8, token masks, each image's pixel extent
+        in the bucket, shapes)."""
+        P = self.P
+        crops = [rgb[:(rgb.shape[0] // P) * P, :(rgb.shape[1] // P) * P] for rgb in rgbs]
+        padded, extents = bucketing.pad_batch_images(
+            crops, (bucket.h * P, bucket.w * P), self.batch_size)
+        masks = bucketing.token_masks(extents, bucket, P)
+        return padded, masks, extents, [(1, 3, *rgb.shape[:2]) for rgb in rgbs]
+
+    def keys(self, model, padded: np.ndarray, masks: np.ndarray, extents: np.ndarray,
+             which_block: int) -> torch.Tensor:
+        images = _to_device(padded, self.dev).float() * self.scale - self.shift
+        return extract_patch_keys(model, images, which_block=which_block,
+                                  token_mask=_to_device(masks, self.dev), grids=extents // self.P)
+
+
+class _SamInput:
+    """Stage 1's input for SAM (`models/relpos.py`): each image uploaded as
+    it is (uint8, padded to the batch's largest), resized on the card so
+    that its longer side is img_size, normalized, zero-padded to img_size x
+    img_size and run with no mask, every image one (g, g) bucket; an
+    image's features are its resized size's patch grid, floor(h' / P) x
+    floor(w' / P) from the top left, and its shape (1, 3, h', w'), the
+    resized size, so stage 2 and the later stages read that grid."""
+
+    def __init__(self, cfg, dev: torch.device, batch_size: int):
+        self.cfg, self.dev, self.batch_size = cfg, dev, batch_size
+
+    def bucket_of(self, path) -> tuple[int, int]:
+        return self.cfg.pos_grid, self.cfg.pos_grid
+
+    def grid(self, bucket: bucketing.Bucket) -> tuple[int, int]:
+        return self.cfg.pos_grid, self.cfg.pos_grid
+
+    def prepare(self, bucket: bucketing.Bucket, rgbs: list):
+        """Host side: (padded uint8, the uploaded images' sizes, their
+        resized sizes, shapes)."""
+        hw = np.array([rgb.shape[:2] for rgb in rgbs])
+        padded, sizes = bucketing.pad_batch_images(rgbs, tuple(hw.max(axis=0)), self.batch_size)
+        resized = [sam_resized_size(h, w, self.cfg.img_size) for h, w in hw]
+        extents = np.zeros_like(sizes)
+        extents[:len(rgbs)] = resized
+        return padded, sizes, extents, [(1, 3, *r) for r in resized]
+
+    def keys(self, model, padded: np.ndarray, sizes: np.ndarray, extents: np.ndarray,
+             which_block: int) -> torch.Tensor:
+        images = sam_preprocess(_to_device(padded, self.dev), sizes, self.cfg.img_size)
+        return extract_patch_keys(model, images, which_block=which_block)
+
+
 def extract_features(
     images_list: str,
     images_root: Optional[str],
@@ -249,27 +322,22 @@ def extract_features(
 ):
     """Dense ViT patch-key features for every image in the list
     (reference: extract/extract.py:21-116), batched per shape bucket; the
-    saved per-image dict is schema-identical to the reference's."""
+    saved per-image dict is schema-identical to the reference's. A SAM
+    model takes SAM's own input instead (`_SamInput`)."""
     make_output_dir(output_dir)
     dev = resolve_device(device, "extract_features")
     model_name = model_name.lower()
     cfg = get_model_config(model_name)
     model = load_model(model_name, ckpt_dir, precision=precision, device=dev)
     P = cfg.patch_size
+    # Images go to the device as uint8 and are normalized there.
+    inputs = (_SamInput if cfg.family == "sam" else _PatchInput)(cfg, dev, batch_size)
 
     paths = read_image_list(images_list, images_root)
     rels = [p.name if images_root is not None else str(p) for p in paths]
-    # Images go to the device as uint8 and are normalized there.
-    scale = torch.from_numpy(IMAGENET_SCALE).to(dev)
-    shift = torch.from_numpy(IMAGENET_SHIFT).to(dev)
-
-    from PIL import Image
 
     def size_of(item):
-        _, path = item
-        with Image.open(str(path)) as im:
-            w, h = im.size
-        return (h // P, w // P)
+        return inputs.bucket_of(item[1])
 
     writer = _AsyncWriter()
     items = [x for x in enumerate(paths)
@@ -278,26 +346,20 @@ def extract_features(
     done = [0]
 
     def prepare(bucket: bucketing.Bucket, batch_items):
-        """Host side: decode, floor-crop to patch multiples, pad (uint8)."""
-        imgs, metas = [], []
-        for idx, path in batch_items:
-            rgb = load_image_rgb(path)
-            H, W = rgb.shape[:2]
-            imgs.append(rgb[:(H // P) * P, :(W // P) * P])
-            metas.append((idx, rels[idx], (1, 3, H, W)))
-        padded, extents = bucketing.pad_batch_images(
-            imgs, (bucket.h * P, bucket.w * P), batch_size)
-        masks = bucketing.token_masks(extents, bucket, P)
-        return padded, masks, extents, metas
+        """Host side: decode, then the family's `prepare`."""
+        padded, extra, extents, shapes = inputs.prepare(
+            bucket, [load_image_rgb(path) for _, path in batch_items])
+        metas = [(idx, rels[idx], shape) for (idx, _), shape in zip(batch_items, shapes)]
+        return padded, extra, extents, metas
 
     # One batch in flight: its features are fetched after the next batch
     # has been sent, so the download overlaps the next upload and forward.
     inflight = _InFlight()
 
-    def save(bucket, extents, metas, k):  # k: fp16
+    def save(grid, extents, metas, k):  # k: fp16
         for i, (idx, rel, shape) in enumerate(metas):
             hp, wp = extents[i, 0] // P, extents[i, 1] // P
-            ki = k[i].reshape(bucket.h, bucket.w, -1)[:hp, :wp].reshape(1, hp * wp, -1)
+            ki = k[i].reshape(*grid, -1)[:hp, :wp].reshape(1, hp * wp, -1)
             out = {
                 "k": ki,
                 "indices": np.asarray([idx]),
@@ -311,11 +373,10 @@ def extract_features(
         done[0] += len(metas)
 
     def consume(bucket: bucketing.Bucket, batch_items, prepared):
-        padded, masks, extents, metas = prepared
-        images = _to_device(padded, dev).float() * scale - shift
-        k = extract_patch_keys(model, images, which_block=which_block,
-                               token_mask=_to_device(masks, dev), grids=extents // P)
-        inflight.push(_Fetch(k.to(torch.float16)), partial(save, bucket, extents, metas))
+        padded, extra, extents, metas = prepared
+        k = inputs.keys(model, padded, extra, extents, which_block)
+        inflight.push(_Fetch(k.to(torch.float16)),
+                      partial(save, inputs.grid(bucket), extents, metas))
 
     bucketing.run_bucketed_prefetched(
         items, size_of, prepare, consume, batch_size=batch_size,
@@ -657,11 +718,14 @@ def extract_bbox_features(
     batches of `batch_size` (a short batch padded with empty images, as the
     JAX stage pads), as uint8 to the device, normalized there, and the ViT
     runs with the crops' token masks. Saved as the bbox list with
-    `features` (n_boxes, embed_dim) f32 added to each image's dict."""
+    `features` (n_boxes, embed_dim) f32 added to each image's dict. A SAM
+    model, which has no CLS token, raises."""
     dev = resolve_device(device, "extract_bbox_features")
-    bbox_list = load_pth(bbox_file)
     model_name = model_name.lower()
     cfg = get_model_config(model_name)
+    if cfg.family == "sam":
+        raise ValueError(f"extract_bbox_features takes a model's CLS token; {model_name} has none")
+    bbox_list = load_pth(bbox_file)
     model = load_model(model_name, ckpt_dir, precision=precision, device=dev)
     P = cfg.patch_size
     scale = torch.from_numpy(IMAGENET_SCALE).to(dev)

@@ -300,6 +300,113 @@ def test_flash_kernel_hd128_has_no_lse_build(cuda):
         flash_attention_packed(y, y, y)
 
 
+def _relpos_tables(q, s, seed, sigma=0.5):
+    """SAM's decomposed tables of q (B, s * s, H, 80) from random (2s - 1,
+    80) rel-pos tables, as the SAM blocks make them (strided views)."""
+    from deep_spectral_tpu_torch.models.relpos import gathered_rel_pos, rel_tables
+    g = torch.Generator().manual_seed(seed)
+    rh, rw = (sigma * torch.randn((2 * s - 1, 80), generator=g) for _ in range(2))
+    return rel_tables(q, gathered_rel_pos(rh, rw, q.dtype).to(q.device))
+
+
+def _hd80_tolerance(ref):
+    """1.6e-2 as at hd 64 for outputs under 2, scaled with |ref| above: the
+    bias concentrates the probabilities, so outputs reach past 2, where a
+    bf16 ulp is 2^-6 and more."""
+    return 1.6e-2 * ref.float().abs().clamp_min(2.0) / 2
+
+
+@pytest.mark.parametrize("B,s", [(600, 14), (2, 64)])
+def test_flash_kernel_hd80_relpos_matches_twin(cuda, B, s):
+    """Kernel 1's head-dim-80 build with SAM's decomposed relative-position
+    bias (16 heads of 80) against the twin with the same tables
+    (`_hd80_tolerance`): a b24 batch's window blocks (600 windows of 14x14,
+    T = 196: a full 128-key tile and a masked one) and global blocks (T =
+    4096 over the 64-wide grid), q/k/v strided views into the fused
+    projection, the tables strided views of one product."""
+    g = torch.Generator().manual_seed(s)
+    T = s * s
+    qkv = torch.randn((B, T, 3, 16, 80), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    rel = _relpos_tables(q, s, seed=s)
+    assert not rel[0].is_contiguous()
+    before = flash_attention_packed.launches
+    out = flash_attention_packed(q, k, v, rel_pos=rel)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    ref = flash_attention_packed_plain(q, k, v, rel_pos=rel)
+    diff = (out.float() - ref.float()).abs()
+    print(f"hd80 relpos B={B} T={T} s={s}: max |kernel - twin| {diff.max().item():.3e}")
+    assert (diff <= _hd80_tolerance(ref)).all()
+    none = flash_attention_packed_plain(q, k, v)
+    assert (none.float() - ref.float()).abs().max().item() > 0.1
+
+
+@pytest.mark.parametrize("T,S,NY", [(1, 8, 1), (150, 14, 11), (333, 20, 17)])
+def test_flash_kernel_hd80_relpos_at_ragged_lengths(cuda, T, S, NY):
+    """The hd-80 build at lengths that are no square grid and no whole tile:
+    contiguous random tables (B, H, T, NY) and (B, H, T, S), key k at grid
+    cell (k // S, k % S), against the twin (`_hd80_tolerance`)."""
+    g = torch.Generator().manual_seed(T)
+    qkv = torch.randn((3, T, 3, 16, 80), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    rel = tuple(torch.randn((3, 16, T, n), generator=g).to(cuda, torch.bfloat16)
+                for n in (NY, S))
+    out = flash_attention_packed(q, k, v, rel_pos=rel)
+    ref = flash_attention_packed_plain(q, k, v, rel_pos=rel)
+    diff = (out.float() - ref.float()).abs()
+    print(f"hd80 relpos T={T} S={S} NY={NY}: max |kernel - twin| {diff.max().item():.3e}")
+    assert (diff <= _hd80_tolerance(ref)).all()
+
+
+def test_flash_kernel_dispatches_on_head_dim_and_bias(cuda):
+    """hd 64 and 128 take no bias and hd 80 takes only the bias build; the
+    bias build takes no key mask, bf16 tables only and grids of an even
+    width of at least 8; other head dims raise."""
+    def qkv(hd, T=16):
+        x = torch.zeros((1, T, 2, hd), device=cuda, dtype=torch.bfloat16)
+        return x, x, x
+
+    def tables(T=16, S=8, NY=2, dtype=torch.bfloat16):
+        return tuple(torch.zeros((1, 2, T, n), device=cuda, dtype=dtype) for n in (NY, S))
+
+    with pytest.raises(ValueError):
+        flash_attention_packed(*qkv(80))
+    for hd in (64, 96, 128):
+        with pytest.raises(ValueError):
+            flash_attention_packed(*qkv(hd), rel_pos=tables())
+    mask = torch.ones((1, 16), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_packed(*qkv(80), mask, rel_pos=tables())
+    with pytest.raises(ValueError):
+        flash_attention_packed(*qkv(80), rel_pos=tables(dtype=torch.float32))
+    for S, NY in ((4, 4), (9, 2)):
+        with pytest.raises(ValueError):
+            flash_attention_packed(*qkv(80), rel_pos=tables(S=S, NY=NY))
+    assert flash_attention_packed(*qkv(80), rel_pos=tables()).shape == (1, 16, 2, 80)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sam_attention_auto_takes_the_kernel(cuda, dtype):
+    """`attend` with SAM's tables on 'auto' takes kernel 1 on the card in
+    every dtype: bf16 launches the hd-80 bias build, and f32, which no build
+    takes, raises instead of building (B, H, T, T) logits on the plain
+    route."""
+    from deep_spectral_tpu_torch.models.vit import attend
+    qkv = torch.randn((1, 64, 3, 2, 80), device=cuda).to(dtype)
+    rel = tuple(torch.randn((1, 2, 64, 8), device=cuda).to(dtype) for _ in range(2))
+    before = flash_attention_packed.launches
+    if dtype == torch.float32:
+        with pytest.raises(TypeError):
+            attend(qkv, None, "auto", dtype, rel_pos=rel)
+        assert flash_attention_packed.launches == before
+    else:
+        out, attn = attend(qkv, None, "auto", dtype, rel_pos=rel)
+        assert attn is None and out.shape == (1, 64, 2, 80)
+        assert flash_attention_packed.launches == before + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_rope_kernel_matches_twin_on_compacted_batches(cuda, dtype):
     """The RoPE kernel against its twin run on the same CUDA tensors, on a
@@ -394,6 +501,58 @@ def test_dinov3_vit7b16_through_both_kernels(cuda):
     assert gap <= 5e-2
     assert gap32 <= 1e-4
     assert far > 100 * gap32
+
+
+def test_sam_vit_h_through_kernel_1(cuda):
+    """sam_vit_h at its published widths and depth (16 heads of 80, width
+    1280, 32 blocks, windows of 14, 4 global blocks), on seeded weights
+    drawn as the benchmark draws them: a 480x640 and a 427x640 uint8 image
+    preprocessed on the card (grids 48x64 and 42x64). bf16 runs kernel 1's
+    hd-80 bias build once a block before the keys' block (31); each image's
+    keys against the f32 reference within the cell's 5e-2; the same
+    modules in f32 (attention on 'einsum') within 1e-4, and the reference
+    without the rel-pos bias over 100 times further."""
+    import json
+
+    from benchmark import checks
+    from benchmark.drivers.extract_dinov3 import build_vit
+    from benchmark.drivers.extract_sam import port_config, seeded_weights
+    from benchmark.reference import sam as ref_sam
+    from benchmark.reference.lowp import tf32_enabled
+    from benchmark.reference.vit import Numerics
+    from deep_spectral_tpu_torch.models.relpos import sam_preprocess
+    from deep_spectral_tpu_torch.models.vit import extract_patch_keys
+    cfg = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+                      / "sam_vit_h.json").read_text())
+    sd = seeded_weights(cfg, 2**31 + 9, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    sizes = np.array([[480, 640], [427, 640]])
+    images = [torch.randint(0, 256, (h, w, 3), generator=gen, dtype=torch.uint8, device=cuda)
+              for h, w in sizes]
+    x = torch.zeros((2, 480, 640, 3), dtype=torch.uint8, device=cuda)
+    for i, im in enumerate(images):
+        x[i, :im.shape[0], :im.shape[1]] = im
+    inputs = sam_preprocess(x, sizes, 1024)
+    grids = [(48, 64), (42, 64)]
+
+    def crop(k):
+        return [ki.float().reshape(64, 64, -1)[:gh, :gw].reshape(gh * gw, -1)
+                for ki, (gh, gw) in zip(k, grids)]
+
+    model = build_vit(port_config(cfg), sd, cuda)
+    before = flash_attention_packed.launches
+    k = crop(extract_patch_keys(model, inputs))
+    assert flash_attention_packed.launches == before + 31
+    del model
+    with tf32_enabled(False):
+        ref = ref_sam.patch_keys(sd, cfg, images, Numerics(torch.float32))
+        no_rel = ref_sam.patch_keys(sd, cfg, images, Numerics(torch.float32), rel=False)
+        model = build_vit(port_config(cfg), sd, cuda, torch.float32, "einsum")
+        k32 = crop(extract_patch_keys(model, inputs))
+    gap, gap32 = checks.keys_gap(k, ref), checks.keys_gap(k32, ref)
+    far = checks.keys_gap(no_rel, ref)
+    print(f"sam_vit_h keys_rel_err {gap:.4e}, f32 {gap32:.4e}, no rel-pos {far:.4e}")
+    assert gap <= 5e-2 and gap32 <= 1e-4 and far > 100 * gap32
 
 
 def _train_inputs(B, T, dtype, device, seed):

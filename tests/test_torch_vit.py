@@ -63,15 +63,17 @@ def _images(jcfg, B, hp, wp, seed=0):
 
 def test_configs_match_jax():
     """Every JAX config has the port's entry of its name, equal field by
-    field, with the port's DINOv2 and DINOv3 fields at their DINO v1
-    defaults; the port may hold more names (the DINOv2 and DINOv3 families,
-    which the JAX package lacks)."""
+    field, with the port's DINOv2, DINOv3 and SAM fields at their DINO v1
+    defaults; the port may hold more names (the DINOv2, DINOv3 and SAM
+    families, which the JAX package lacks)."""
     from deep_spectral_tpu.models.vit import VIT_CONFIGS as J_VIT_CONFIGS
-    v1 = {"family": "dino", "num_registers": 0, "ffn": "mlp", "norm_eps": 1e-6}
+    v1 = {"family": "dino", "num_registers": 0, "ffn": "mlp", "norm_eps": 1e-6,
+          "window_size": 0, "global_blocks": ()}
     for name, jcfg in J_VIT_CONFIGS.items():
         assert vars(T_VIT_CONFIGS[name]) == vars(jcfg) | v1, name
     assert set(T_VIT_CONFIGS) - set(J_VIT_CONFIGS) == {"dinov2_vitg14_reg", "test_dinov2_tiny",
-                                                       "dinov3_vit7b16", "test_dinov3_tiny"}
+                                                       "dinov3_vit7b16", "test_dinov3_tiny",
+                                                       "sam_vit_h", "test_sam_tiny"}
 
 
 @pytest.mark.parametrize("in_hw,out_hw", [((14, 14), (30, 30)), ((14, 14), (20, 30)),
